@@ -1,0 +1,183 @@
+"""GQA attention over the paged KV pool: specs, the fp32-softmax core, int8
+KV encoding, the paged cache, one-token decode and chunked prefill.
+
+Counterpart of the JAX package's ``models/attention.py``, single device.
+Decode writes the new K/V entry with a plain index write and then calls the
+fused ``paged_attention`` kernel (CUDA on the card, its plain version on the
+CPU); chunked prefill gathers the slot's pages and runs ``_sdpa``, as the
+JAX package does. Cache writes update the pool tensors in place.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kops
+from repro_torch.models.common import ParamSpec, apply_rope, softcap
+
+
+def attn_specs(cfg: ModelConfig):
+    d, q, kv = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    return {
+        "wq": ParamSpec((d, q), ("embed", "q_heads")),
+        "wk": ParamSpec((d, kv), ("embed", "kv_heads")),
+        "wv": ParamSpec((d, kv), ("embed", "kv_heads")),
+        "wo": ParamSpec((q, d), ("q_heads", "embed")),
+    }
+
+
+def _split_heads(x, n_heads, head_dim):
+    return x.reshape(x.shape[:-1] + (n_heads, head_dim))
+
+
+def _sdpa(q, k, v, *, mask=None, cap: float = 0.0):
+    """q: (B,Sq,G,R,hd) k/v: (B,Skv,G,hd). Scores and softmax in fp32, the
+    masked entries at -1e30, ``p`` cast to q's dtype before P.V."""
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bsgrh,btgh->bgrst", q.float(), k.float()) * scale
+    s = softcap(s, cap) if cap else s
+    if mask is not None:
+        s = torch.where(mask, s, -1e30)
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bgrst,btgh->bsgrh", p, v)
+
+
+# Global static scale of the int8-quantized serving KV cache (the
+# ``kv_quant`` knob), shared by decode, chunked prefill and the engine's
+# cache conversion on a variant hot-swap.
+KV_SCALE = 0.05
+
+
+def quantize_kv(x, scale: float = KV_SCALE):
+    return torch.clamp(torch.round(x.float() / scale), -127, 127).to(
+        torch.int8)
+
+
+def dequantize_kv(x, dtype, scale: float = KV_SCALE):
+    return x.to(dtype) * scale
+
+
+class PagedKVCache(NamedTuple):
+    """Paged decode cache: entries live in a shared physical page pool and
+    each batch slot maps logical pages (position // page_size) to physical
+    pages through its block-table row. Physical page 0 is the reserved
+    null page: unmapped block entries point at it and are masked out of
+    attention, and inactive decode rows write into it harmlessly."""
+    kp: torch.Tensor      # (n_pages, page_size, G, hd) physical page pool
+    vp: torch.Tensor
+    ppos: torch.Tensor    # (n_pages, page_size) int32 positions, -1 empty
+    block: torch.Tensor   # (B, max_pages) int32 physical page ids, 0 = unmapped
+
+
+def init_paged_cache(cfg: ModelConfig, batch: int, n_pages: int,
+                     page_size: int, max_pages: int, dtype=torch.bfloat16,
+                     quantized: bool = False, device="cpu") -> PagedKVCache:
+    hd = cfg.resolved_head_dim
+    kdt = torch.int8 if quantized else dtype
+    shape = (n_pages, page_size, cfg.n_kv_heads, hd)
+    return PagedKVCache(
+        kp=torch.zeros(shape, dtype=kdt, device=device),
+        vp=torch.zeros(shape, dtype=kdt, device=device),
+        ppos=torch.full((n_pages, page_size), -1, dtype=torch.int32,
+                        device=device),
+        block=torch.zeros((batch, max_pages), dtype=torch.int32,
+                          device=device))
+
+
+def _gather_pages(cache: PagedKVCache, block, q_positions, *, window: int):
+    """Gather a block table's pages into contiguous K/V + validity mask.
+
+    block: (B, M); q_positions: (B, C) absolute query positions. Returns
+    (k (B, M*P, G, hd), v, pos (B, M*P), valid (B, C, M*P)). Unmapped
+    entries (physical page 0) are masked regardless of its contents."""
+    n_pages, P = cache.ppos.shape
+    B, M = block.shape
+    idx = block.long()
+    gk = cache.kp[idx].reshape(B, M * P, *cache.kp.shape[2:])
+    gv = cache.vp[idx].reshape(B, M * P, *cache.vp.shape[2:])
+    gpos = cache.ppos[idx].reshape(B, M * P)
+    mapped = (block != 0).repeat_interleave(P, dim=1)          # (B, M*P)
+    valid = (mapped[:, None, :] & (gpos[:, None, :] >= 0)
+             & (gpos[:, None, :] <= q_positions[:, :, None]))
+    if window:
+        valid &= gpos[:, None, :] > q_positions[:, :, None] - window
+    return gk, gv, gpos, valid
+
+
+def _qkv(params, x, positions, cfg: ModelConfig, kv_scale: float, kv_dtype):
+    """Projected, RoPE'd q (B,S,H,hd) and the K/V entries to store."""
+    hd = cfg.resolved_head_dim
+    G = cfg.n_kv_heads
+    q = _split_heads(x @ params.wq, cfg.n_heads, hd)
+    k = _split_heads(x @ params.wk, G, hd)
+    v = _split_heads(x @ params.wv, G, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    if kv_scale:
+        return q, quantize_kv(k, kv_scale), quantize_kv(v, kv_scale)
+    return q, k.to(kv_dtype), v.to(kv_dtype)
+
+
+def paged_decode_attention(params, x, position, cache: PagedKVCache,
+                           cfg: ModelConfig, *, window: int = 0,
+                           kv_scale: float = 0.0, active=None):
+    """One-token decode against the paged pool. x: (B,1,D); position: (B,).
+
+    The new K/V entry is written in place into the slot's tail page with an
+    index write; rows with ``active`` False are redirected to the null page
+    0, which is never read (the FREEZE contract: their pages stay
+    bit-identical). Then the fused ``paged_attention`` kernel reads every
+    mapped page through the block table. Returns (out (B,1,D), cache)."""
+    B = x.shape[0]
+    hd = cfg.resolved_head_dim
+    G, R = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    q, k_store, v_store = _qkv(params, x, position[:, None], cfg, kv_scale,
+                               cache.kp.dtype)
+    P = cache.ppos.shape[1]
+    pos = position.long()
+    phys = torch.gather(cache.block, 1, (pos // P)[:, None])[:, 0].long()
+    tgt = phys if active is None else torch.where(active, phys, 0)
+    off = pos % P
+    cache.kp[tgt, off] = k_store[:, 0]
+    cache.vp[tgt, off] = v_store[:, 0]
+    cache.ppos[tgt, off] = position.to(torch.int32)
+    o = kops.paged_attention(
+        q[:, 0].reshape(B, G, R, hd).contiguous(), cache.kp, cache.vp,
+        cache.ppos, cache.block, position.to(torch.int32).contiguous(),
+        window=window, kv_scale=kv_scale, cap=cfg.attn_softcap)
+    return o.reshape(B, 1, cfg.q_dim) @ params.wo, cache
+
+
+def paged_chunk_attention(params, x, positions, cache: PagedKVCache,
+                          cfg: ModelConfig, slot: int, *, window: int = 0,
+                          kv_scale: float = 0.0):
+    """C-token prompt-chunk step for ONE slot of the paged pool (chunked
+    admission). x: (1,C,D); positions: (1,C). Writes the chunk's K/V into
+    the slot's (pre-allocated, private) pages in place, then attends over
+    every mapped page, the chunk's own entries included, causally masked by
+    position: the gather + ``_sdpa`` of the JAX package."""
+    B, C, _ = x.shape
+    hd = cfg.resolved_head_dim
+    G, R = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    q, k_store, v_store = _qkv(params, x, positions, cfg, kv_scale,
+                               cache.kp.dtype)
+    P = cache.ppos.shape[1]
+    brow = cache.block[slot]                              # (M,)
+    pos_c = positions[0].long()                           # (C,)
+    phys = brow[pos_c // P].long()
+    off = pos_c % P
+    cache.kp[phys, off] = k_store[0]
+    cache.vp[phys, off] = v_store[0]
+    cache.ppos[phys, off] = positions[0].to(torch.int32)
+    kk, vv, _, valid = _gather_pages(cache, brow[None], positions,
+                                     window=window)
+    if kv_scale:
+        kk, vv = dequantize_kv(kk, q.dtype, kv_scale), \
+            dequantize_kv(vv, q.dtype, kv_scale)
+    else:
+        kk, vv = kk.to(q.dtype), vv.to(q.dtype)
+    o = _sdpa(q.reshape(B, C, G, R, hd), kk, vv, mask=valid[:, None, None],
+              cap=cfg.attn_softcap)
+    return o.reshape(B, C, cfg.q_dim) @ params.wo, cache

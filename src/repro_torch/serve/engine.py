@@ -1,0 +1,590 @@
+"""Paged serving engine: continuous-batching slots over the paged decode
+step, run under Pliant control. Counterpart of the paged, single-device,
+per-step path of the JAX package's ``serve/engine.py``.
+
+KV entries live in a shared physical page pool with per-slot block tables
+(``serve.pages.PagePool`` owns allocation host-side). Admission is chunked
+prefill straight into the pool, stall-free: every free slot opens its own
+in-flight admission each step, and the step advances them round-robin under
+a QoS-aware chunk budget (one chunk per step while any decoder is live,
+unless the attached runtime's monitor reports p99 inside the ``qos_guard``
+band). Shared prompt prefixes map copy-on-write and skip their chunks;
+admission reserves the request's decode pages up front. Each step decodes
+every live slot in one batched ``lm.decode_step`` (admitting slots ride
+along inactive, their cache writes parked on the null page) with greedy
+argmax fused on the device, so only (B,) token ids cross to the host.
+
+Serving variants come from a ``VariantTable`` (the explorer's serving
+ladder); the active one is swapped at a step boundary, converting the pool
+when the swap crosses the ``kv_quant`` boundary. With a ``PliantRuntime``
+attached, the engine feeds per-token latency to its monitor, ticks it at
+step boundaries and receives its decisions through the ``ServeTenant``
+protocol (``request_variant``, deferred while an admission is in flight);
+RECLAIM/RETURN shrink and regrow the pool's page budget.
+
+The engine runs on ``device`` (CUDA unless the caller asks for the CPU);
+on the card decode attention and the int8 matmuls are the hand-written
+kernels, on the CPU their plain versions. Caches update in place.
+"""
+from __future__ import annotations
+
+import collections
+import time
+from dataclasses import dataclass, field
+from typing import Deque, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.approx.knobs import PRECISE, ApproxKnobs
+from repro_torch.configs.base import LOCAL_ATTN, ModelConfig
+from repro_torch.core import tenant as tenant_mod
+from repro_torch.core.controller import headroom_burst
+from repro_torch.core.runtime import PliantRuntime
+from repro_torch.core.variants import VariantTable
+from repro_torch.models import lm
+from repro_torch.models.common import resolve_device
+from repro_torch.serve import pages as pages_mod
+from repro_torch.serve import prefill as prefill_mod
+from repro_torch.serve import slots as slots_mod
+
+
+@dataclass
+class Request:
+    uid: int
+    prompt: List[int]
+    max_new: int = 16
+    out: List[int] = field(default_factory=list)
+    done: bool = False
+    t_arrival: float = 0.0    # driver-set (open-loop client)
+    t_enqueue: float = 0.0    # stamped by submit(): admission-timeout clock
+    t_admit_start: float = 0.0  # first prefill chunk issued (queue-wait ends)
+    t_admit: float = 0.0      # admission COMPLETION (prefill done, slot live)
+    admit_compute_s: float = 0.0  # prefill compute time of the admission
+    token_times: List[float] = field(default_factory=list)
+    rejected: bool = False    # structured rejection (never silently dropped)
+    rejection: Optional["AdmissionTimeout"] = None
+
+
+@dataclass(frozen=True)
+class AdmissionTimeout:
+    """Structured admission rejection: the request waited in the queue past
+    ``admission_timeout_s`` without ever fitting the pool."""
+    uid: int
+    waited_s: float
+    queue_depth: int       # pending queue length at rejection time
+    step: int              # engine step at which the timeout fired
+
+
+@dataclass
+class _Admission:
+    """One in-flight background admission: the prompt's prefill progress,
+    advanced chunk by chunk under the per-step QoS budget."""
+    req: Request
+    slot: int
+    next: int                    # next prompt index to prefill
+    tail_register: List[int]     # prefix boundaries registered on completion
+    logits: object = None
+    compute_s: float = 0.0
+    started: bool = False        # first chunk issued (queue-wait ends then)
+
+
+@dataclass
+class ServeEngine:
+    cfg: ModelConfig
+    batch_slots: int
+    max_len: int
+    knobs: ApproxKnobs = PRECISE       # single-variant mode (no table)
+    temperature: float = 0.0           # 0.0 = greedy
+    params: object = None              # models.lm ParamTree
+    table: Optional[VariantTable] = None
+    runtime: Optional[PliantRuntime] = None
+    prefill_chunk: int = 16
+    seed: int = 0
+    cache_dtype: object = torch.float32
+    page_size: int = 8
+    n_pages: int = 0                   # 0 = auto (serve.pages.spec_for)
+    pack_window: int = 4               # pending requests scanned per slot
+    max_head_skips: int = 64           # then admit strict FIFO
+    max_admission_chunks: int = 4      # chunk burst when no decoder needs
+                                       # protecting (or QoS headroom)
+    qos_guard: float = 0.25            # burst only while p99 <= (1-guard)*QoS
+    admission_timeout_s: float = 0.0   # 0 = wait forever
+    backoff_base: int = 1              # steps before retrying a pool-blocked
+    backoff_cap: int = 8               # request; doubles per failure, capped
+    eos_id: int = -1                   # stop-token id (-1 = none)
+    device: object = "cuda"
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        assert self.params is not None, "ServeEngine needs params"
+        self.params = self.params.to(self.device)
+        if self.runtime is not None:
+            self.table = self.runtime.table
+        self._variant_knobs = ([v.knobs for v in self.table.variants]
+                               if self.table is not None else [self.knobs])
+        self._active = 0
+        self._page_spec = pages_mod.spec_for(
+            self.batch_slots, self.max_len, self.page_size, self.n_pages)
+        self.pool = pages_mod.PagePool(self._page_spec, self.batch_slots)
+        # greedy engines take argmax on the device: the step returns (B,)
+        # token ids, so the host never pulls (B, V) logits
+        self._fused_sample = self.temperature <= 0.0
+        self.caches = self._init_caches(self.active_knobs.kv_quant)
+        self.positions = np.zeros(self.batch_slots, np.int32)
+        self.slots: List[Optional[Request]] = [None] * self.batch_slots
+        self.pending: Deque[Request] = collections.deque()
+        # in-flight admissions keyed by slot (insertion = admission order)
+        self._admissions: Dict[int, _Admission] = {}
+        # admissions whose last chunk ran but whose first token is not yet
+        # sampled: that happens at the step's single drain point
+        self._await_admit: Dict[int, _Admission] = {}
+        self._head_skips = 0           # consecutive pool-blocked head skips
+        # window-exit page freeing is sound only when EVERY layer is banded
+        self._window_free = (self.cfg.window if self.cfg.window
+                             and set(self.cfg.pattern) <= {LOCAL_ATTN}
+                             else 0)
+        self.cur_tokens = np.zeros(self.batch_slots, np.int32)
+        self.step_latencies: List[float] = []
+        self.swaps: List[Tuple[int, int]] = []   # (step index, variant index)
+        self.step_admission_chunks: List[Tuple[int, int]] = []  # (used, budget)
+        self._token_lat: List[float] = []        # unflushed monitor samples
+        # per-request PRNG streams keyed (engine seed, uid): sampling does
+        # not depend on slot assignment or admission interleaving
+        self._rngs: Dict[int, np.random.Generator] = {}
+        self._pending_variant: Optional[int] = None
+        self.step_count = 0
+        self._backoff: Dict[int, Tuple[int, int]] = {}  # uid -> (retry, dly)
+        self.rejected: List[Request] = []
+        self.stats: Dict[str, int] = dict(admission_timeouts=0,
+                                          backoff_skips=0)
+        self._tenant = None
+        self._bound = False
+        if (self.runtime is not None and self.runtime.auto_tenant
+                and self.runtime.reshard_fn is None):
+            # bind this engine as the runtime's tenant: variant hot-swaps
+            # arrive via ``request_variant`` and pool pages are its quanta
+            self._tenant = tenant_mod.ServeTenant(engine=self)
+            self.runtime.bind(self._tenant)
+            self._bound = True
+
+    def explain_dispatch(self) -> str:
+        """One-line decode dispatch description (startup banner)."""
+        if self.device.type == "cuda":
+            return ("paged decode: fused CUDA paged_attention kernel, "
+                    f"int8_matmul on int8 rungs, {self.device}")
+        return ("paged decode: plain PyTorch versions of the kernels, "
+                f"{self.device}")
+
+    # ------------------------------------------------------------ variants --
+
+    @property
+    def active_variant(self) -> int:
+        return self._active
+
+    @property
+    def active_knobs(self) -> ApproxKnobs:
+        return self._variant_knobs[self._active]
+
+    def set_variant(self, idx: int) -> None:
+        """Hot-swap the active variant at a step boundary, converting the
+        page pool when the swap crosses the ``kv_quant`` boundary."""
+        if idx == self._active:
+            return
+        old, new = self.active_knobs, self._variant_knobs[idx]
+        if old.kv_quant != new.kv_quant:
+            self.caches = slots_mod.convert_caches(
+                self.caches, new.kv_quant, self.cache_dtype)
+        if old != new:
+            # prefix entries are tagged by the knobs that computed them; a
+            # swap re-encodes the pool in place, so drop the stale index
+            self.pool.flush_prefixes()
+        self._active = idx
+        self.swaps.append((len(self.step_latencies), idx))
+
+    def request_variant(self, idx: int) -> None:
+        """Tenant-protocol actuation: hot-swap at the next SAFE step
+        boundary (deferred while an admission is in flight)."""
+        self._pending_variant = idx
+        self._apply_pending_variant()
+
+    def _apply_pending_variant(self) -> None:
+        if (self._pending_variant is None or self._admissions
+                or self._await_admit):
+            return
+        idx, self._pending_variant = self._pending_variant, None
+        if idx != self._active:
+            self.set_variant(idx)
+
+    def attach_runtime(self, runtime: PliantRuntime, tenant=None) -> None:
+        """Attach a pre-built (multi-tenant) runtime after construction; it
+        must contain this engine's ``ServeTenant`` unless single-tenant."""
+        if tenant is None:
+            tenant = next((t for t in runtime.tenants
+                           if isinstance(t, tenant_mod.ServeTenant)
+                           and t.engine is self), None)
+        assert tenant is not None or len(runtime.tenants) == 1, \
+            "multi-tenant runtime has no ServeTenant for this engine"
+        self.runtime = runtime
+        self._tenant = tenant
+        self._bound = tenant is not None
+
+    # ------------------------------------------------------------- helpers --
+
+    def _init_caches(self, quantized: bool):
+        sp = self._page_spec
+        return lm.init_paged_caches(
+            self.cfg, self.batch_slots, sp.n_pages, sp.page_size,
+            sp.max_pages, dtype=self.cache_dtype, quantized=quantized,
+            device=self.device)
+
+    def _rng_for(self, req: Request) -> np.random.Generator:
+        g = self._rngs.get(req.uid)
+        if g is None:
+            g = np.random.default_rng((self.seed, req.uid))
+            self._rngs[req.uid] = g
+        return g
+
+    def _sample_rows(self, logits: np.ndarray,
+                     reqs: List[Request]) -> np.ndarray:
+        """ONE batched sampling call for every emitting row. logits: (R, V);
+        ``reqs`` the emitting requests, row-aligned. Greedy is an argmax;
+        temperature sampling draws one uniform per request from its PRIVATE
+        stream and inverts the softmax CDF."""
+        if self.temperature <= 0.0:
+            return np.argmax(logits, axis=-1)
+        z = logits.astype(np.float64) / self.temperature
+        z -= z.max(axis=-1, keepdims=True)
+        p = np.exp(z)
+        cdf = np.cumsum(p, axis=-1)
+        u = np.asarray([self._rng_for(r).random() for r in reqs])
+        idx = (cdf < u[:, None] * cdf[:, -1:]).sum(axis=-1)
+        return np.minimum(idx, logits.shape[-1] - 1)
+
+    def submit(self, req: Request) -> None:
+        req.t_enqueue = req.t_enqueue or time.perf_counter()
+        self.pending.append(req)
+
+    def _expire_pending(self) -> None:
+        """Admission-timeout sweep: reject every queued request that waited
+        past ``admission_timeout_s`` without being admitted."""
+        if self.admission_timeout_s <= 0 or not self.pending:
+            return
+        now = time.perf_counter()
+        keep: Deque[Request] = collections.deque()
+        for req in self.pending:
+            t0 = req.t_enqueue or req.t_arrival
+            if t0 and now - t0 > self.admission_timeout_s:
+                req.rejected = True
+                req.rejection = AdmissionTimeout(
+                    uid=req.uid, waited_s=now - t0,
+                    queue_depth=len(self.pending), step=self.step_count)
+                self.rejected.append(req)
+                self.stats["admission_timeouts"] += 1
+                self._backoff.pop(req.uid, None)
+                self._rngs.pop(req.uid, None)
+            else:
+                keep.append(req)
+        self.pending = keep
+
+    # ------------------------------------------------------ paged plumbing --
+
+    def _free_slot(self, slot: int) -> bool:
+        """Release a finished request's pages. Returns True when the block
+        tables changed."""
+        return self.pool.free_slot(slot)
+
+    def _push_blocks(self) -> None:
+        """Mirror the host block tables into the device caches and scrub
+        freed pages' stale positions before they can be reused."""
+        bt = torch.tensor(self.pool.blocks, device=self.device)
+        scrub = self.pool.drain_scrub()
+        pids = (torch.tensor(scrub, dtype=torch.long, device=self.device)
+                if scrub else None)
+        for c in self.caches:
+            if pids is not None:
+                c.ppos[:, pids] = -1
+            c.block.copy_(bt.expand_as(c.block))
+
+    # ----------------------------------------------------------- admission --
+
+    def _prefix_dedup_wait(self, req: Request, shard: int = 0) -> bool:
+        """Cold-start prefix dedup: True when an in-flight admission is
+        prefilling a page-aligned prefix this prompt shares and the index
+        does not cover it yet; the request waits for that registration."""
+        P = self.page_size
+        cap = min((len(req.prompt) - 1) // P, self.pool.max_register_pages)
+        if cap <= 0 or not self._admissions:
+            return False
+        best = 0
+        for adm in self._admissions.values():
+            if self.pool.slot_shard(adm.slot) != shard:
+                continue
+            other = adm.req.prompt
+            lim = min(len(req.prompt), len(other), cap * P)
+            k = 0
+            while k < lim and req.prompt[k] == other[k]:
+                k += 1
+            best = max(best, (k // P) * P)
+        if not best:
+            return False
+        return self.pool.lookup_prefix(req.prompt, self.active_knobs,
+                                       shard)[0] < best
+
+    def _start_admissions(self, count_skips: bool = True) -> None:
+        """Open a background admission on EVERY free slot. Per slot, pick the
+        first of the leading ``pack_window`` pending requests whose pages fit
+        the pool budget and whose shared prefix is not mid-prefill in a
+        sibling admission; pool-blocked requests back off exponentially, and
+        after ``max_head_skips`` head skips admission is strict FIFO. The
+        block table maps prompt pages plus projected decode pages in one
+        transaction; prefix hits skip those chunks."""
+        started_any = False
+        while self.pending:
+            slot = next((i for i in range(self.batch_slots)
+                         if self.slots[i] is None
+                         and i not in self._admissions
+                         and i not in self._await_admit), None)
+            if slot is None:
+                break
+            strict = self._head_skips >= self.max_head_skips
+            window = 1 if strict else min(len(self.pending), self.pack_window)
+            started = False
+            for qi in range(window):
+                req = self.pending[qi]
+                assert len(req.prompt) <= self.max_len, \
+                    (len(req.prompt), self.max_len)
+                assert len(req.prompt) + req.max_new <= \
+                    self._page_spec.max_pages * self.page_size, \
+                    "paged serving does not ring-wrap: need " \
+                    "max_len >= prompt + max_new"
+                if self._prefix_dedup_wait(req, self.pool.slot_shard(slot)):
+                    continue       # sibling is mid-prefill of our prefix
+                bo = self._backoff.get(req.uid)
+                if bo is not None and self.step_count < bo[0]:
+                    self.stats["backoff_skips"] += 1
+                    continue
+                # grouped allocation: reserve the decode pages up front
+                # (banded archs skip it: they free window-dead pages)
+                reserve = 0 if self._window_free else max(req.max_new - 1, 0)
+                plan = self.pool.admit(slot, req.prompt, self.active_knobs,
+                                       reserve_tokens=reserve)
+                if plan is None:
+                    delay = (min(bo[1] * 2, self.backoff_cap) if bo
+                             else max(self.backoff_base, 1))
+                    self._backoff[req.uid] = (self.step_count + delay, delay)
+                    if qi == 0 and count_skips:
+                        self._head_skips += 1
+                    continue                 # over budget: try the next one
+                self._backoff.pop(req.uid, None)
+                if qi == 0:
+                    self._head_skips = 0
+                del self.pending[qi]
+                self._admissions[slot] = _Admission(
+                    req, slot, plan.shared_tokens, list(plan.register))
+                started = started_any = True
+                break
+            if not started:
+                break       # nothing in the window fits this step
+        if started_any:
+            self._push_blocks()
+
+    def _chunk_budget(self) -> int:
+        """Prefill chunks this step may spend across all admissions: burst
+        with no live decoder or with measured QoS headroom, else one."""
+        cap = max(1, self.max_admission_chunks)
+        if not any(s is not None for s in self.slots):
+            return cap
+        if headroom_burst(self.runtime, self.qos_guard):
+            return cap
+        return 1
+
+    def _advance_admissions(self) -> None:
+        """Open admissions on free slots, then advance the in-flight set
+        round-robin one chunk at a time until the budget is spent."""
+        budget = self._chunk_budget()
+        used = 0
+        self._start_admissions()
+        while used < budget:
+            ran = False
+            for slot in list(self._admissions):
+                if used >= budget:
+                    break
+                self._advance_one(self._admissions[slot])
+                used += 1
+                ran = True
+            if not ran:
+                break
+            self._start_admissions(count_skips=False)
+        if used or self._admissions:
+            self.step_admission_chunks.append((used, budget))
+
+    def _advance_one(self, adm: _Admission) -> None:
+        """Run ONE bounded prefill chunk of ``adm``; after the final chunk
+        park it for first-token sampling at the drain point."""
+        req = adm.req
+        if not adm.started:
+            adm.started = True
+            req.t_admit_start = time.perf_counter()
+        S = len(req.prompt)
+        C = min(self.prefill_chunk, S - adm.next)
+        toks = torch.tensor([req.prompt[adm.next:adm.next + C]],
+                            dtype=torch.long, device=self.device)
+        t0 = time.perf_counter()
+        adm.logits, self.caches = prefill_mod.paged_prefill_chunk(
+            self.params, toks, adm.next, self.caches, adm.slot, self.cfg,
+            self.active_knobs)
+        adm.next += C
+        adm.compute_s += time.perf_counter() - t0
+        if adm.next < S:
+            return
+        for b in adm.tail_register:
+            self.pool.register_prefix(adm.slot, req.prompt,
+                                      self.active_knobs, b)
+        del self._admissions[adm.slot]
+        self._await_admit[adm.slot] = adm
+
+    def _drain_admissions(self) -> None:
+        """Sample each completed admission's first token and hand its slot
+        to the decode batch (it joins the NEXT decode)."""
+        if not self._await_admit:
+            return
+        freed = False
+        for slot, adm in list(self._await_admit.items()):
+            req = adm.req
+            t0 = time.perf_counter()
+            logits = adm.logits.cpu().numpy()        # <- the drain
+            adm.compute_s += time.perf_counter() - t0
+            del self._await_admit[slot]
+            tok = int(self._sample_rows(logits, [req])[0])
+            now = time.perf_counter()
+            self._token_lat.append(now - req.t_admit_start)  # TTFT (wall)
+            req.t_admit = now
+            req.admit_compute_s = adm.compute_s
+            req.out.append(tok)
+            req.token_times.append(now)
+            if len(req.out) >= req.max_new \
+                    or (self.eos_id >= 0 and tok == self.eos_id):
+                req.done = True                # 1-token request: no slot
+                self._rngs.pop(req.uid, None)
+                freed |= self._free_slot(slot)
+                continue
+            self.positions[slot] = len(req.prompt)
+            self.cur_tokens[slot] = tok
+            self.slots[slot] = req
+        if freed:
+            self._push_blocks()
+
+    # --------------------------------------------------------------- steps --
+
+    def _decode(self, rows_active: np.ndarray):
+        """The decode step over every slot: (B,) greedy token ids (argmax on
+        the device) or (B, V) logits for host sampling."""
+        toks = torch.tensor(self.cur_tokens, dtype=torch.long,
+                            device=self.device)[:, None]
+        pos = torch.tensor(self.positions, device=self.device)
+        act = torch.tensor(rows_active, device=self.device)
+        logits, self.caches = lm.decode_step(
+            self.params, toks, pos, self.caches, self.cfg, self.active_knobs,
+            active=act)
+        if self._fused_sample:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        return logits
+
+    def step(self) -> None:
+        """One engine step: the admission phase (open admissions on every
+        free slot, advance them under the QoS chunk budget), one decode for
+        every live slot (admitting slots ride along inactive), then the
+        single drain point and the Pliant control tick."""
+        self.step_count += 1
+        self._expire_pending()
+        self._advance_admissions()
+        # the decode row set is FIXED here: slots activated at this step's
+        # admission drain join the next step's decode
+        rows = [i for i, req in enumerate(self.slots) if req is not None]
+        if not rows:
+            self._drain_admissions()
+            self.pool.replenish()
+            self._control_tick()
+            return
+        dirty = False
+        for i in rows:
+            dirty |= self.pool.ensure_decode_page(i, int(self.positions[i]))
+        if dirty:
+            self._push_blocks()
+        t0 = time.perf_counter()
+        out = self._decode(np.array([s is not None for s in self.slots]))
+        self._drain_admissions()
+        out = out.cpu().numpy()
+        dt = time.perf_counter() - t0
+        self.step_latencies.append(dt)
+        now = time.perf_counter()
+        if self._fused_sample:
+            nxt_tokens = out[rows]
+        else:
+            nxt_tokens = self._sample_rows(
+                out[rows], [self.slots[i] for i in rows])
+        freed = False
+        for i, nxt in zip(rows, nxt_tokens):
+            req = self.slots[i]
+            nxt = int(nxt)
+            self.positions[i] += 1
+            req.out.append(nxt)
+            req.token_times.append(now)
+            self.cur_tokens[i] = nxt
+            if len(req.out) >= req.max_new or (
+                    self.eos_id >= 0 and nxt == self.eos_id):
+                req.done = True
+                self.slots[i] = None            # slot freed: continuous batch
+                self._rngs.pop(req.uid, None)
+                freed |= self._free_slot(i)
+            elif self._window_free:
+                freed |= self.pool.release_window_pages(
+                    i, int(self.positions[i]) - self._window_free)
+        if freed:
+            self._push_blocks()
+        self.pool.replenish()
+        self._token_lat.extend([dt] * len(rows))
+        self._control_tick()
+
+    def _control_tick(self) -> None:
+        """Monitor -> controller -> actuator at the step boundary."""
+        if self.runtime is None:
+            self._token_lat.clear()
+            return
+        if self._token_lat:
+            self.runtime.monitor.record_many(self._token_lat)
+            self._token_lat.clear()
+        self.runtime.maybe_decide()
+        if self._bound:
+            self._apply_pending_variant()
+        elif (self.runtime.active_variant != self._active
+                and not self._admissions and not self._await_admit):
+            self.set_variant(self.runtime.active_variant)
+
+    @property
+    def idle(self) -> bool:
+        """Nothing to do: empty queue, no in-flight admissions, no active
+        slots."""
+        return (not self.pending and not self._admissions
+                and not self._await_admit
+                and all(s is None for s in self.slots))
+
+    def run(self, max_steps: int = 0) -> None:
+        """Step until idle. ``max_steps`` (0 = auto, sized to the queued
+        work) is a runaway backstop; hitting it non-idle raises."""
+        if not max_steps:
+            chunks = sum(-(-len(r.prompt) // max(self.prefill_chunk, 1)) + 2
+                         for r in self.pending)
+            decodes = sum(r.max_new for r in self.pending)
+            max_steps = 10_000 + 2 * (chunks + decodes)
+        steps = 0
+        while not self.idle and steps < max_steps:
+            self.step()
+            steps += 1
+        if not self.idle:
+            raise RuntimeError(
+                f"engine not idle after {steps} steps: "
+                f"{len(self.pending)} pending, "
+                f"{len(self._admissions)} admissions in flight, "
+                f"{sum(s is not None for s in self.slots)} active slots")
