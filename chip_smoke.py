@@ -5,24 +5,36 @@
 
 Phases, each reported on its own line:
 
-1. build     nvcc builds every kernel of the serving path from ``csrc/``.
+1. build     nvcc builds every kernel of the port from ``csrc/``, one
+             process per source, all at once.
 2. kernels   each kernel against its plain PyTorch version on the card, at
-             the shapes the serving path gives it (phi4-mini-3.8b widths),
-             with its time beside the plain version's, a library call's
-             where one computes the same function, and its bound.
+             the shapes its path gives it (phi4-mini-3.8b serving widths;
+             mamba2-780m training widths for ``ssd_scan`` and the int8
+             projections), fp32 and bf16, with its time beside the plain
+             version's, a library call's where one computes the same
+             function, and its bound. Then the training path's gradients:
+             ``SSDScan`` (kernel forward, VJP of the chunked twin) against
+             autograd through ``ssd_chunked_ref`` on the CPU, the backward's
+             time at the training shape, and the differentiable
+             ``quantized_matmul``'s gradients (zero pattern included)
+             against the CPU plain path.
 3. parity    phi4-mini-3.8b-smoke served in fp32 twice from the same seeded
-             weights, once on the card (CUDA kernels) and once on the CPU
-             (plain versions): the greedy token streams of each rung of the
-             serving ladder must be equal.
-4. serve     the slice at full width: ``repro_torch.launch.serve.main`` on
-             phi4-mini-3.8b (32 layers, bf16 weights and cache, random
-             weights from a seed) under a QoS target tight enough that the
-             Pliant runtime swaps variants; the kernels' launch counters are
-             zeroed just before and read just after. Then an explicit
-             ``request_variant`` walk serves a batch on each rung and times
-             its decode steps.
-5. profile   ``torch.profiler`` over decode steps of a full batch on each
-             rung: wall and device-busy time per step, the largest kernels.
+             weights, on the card and on the CPU: the greedy token streams
+             of each serving rung must be equal. mamba2-780m-smoke trained
+             in fp32 three steps on each training rung, on the card and on
+             the CPU from the same weights: the losses must agree.
+4. serve     the serving slice at full width: ``repro_torch.launch.serve``
+             on phi4-mini-3.8b (32 layers, bf16, random weights) under a QoS
+             target tight enough that the Pliant runtime swaps variants,
+             launch counters zeroed just before and read just after; then a
+             ``request_variant`` walk timing decode steps per rung.
+5. profile   ``torch.profiler`` over decode steps of a full batch per rung.
+6. train     the training slice at full width: ``repro_torch.launch.train``
+             on mamba2-780m (48 layers, fp32 params, batch 4 x 1024 tokens,
+             random weights) under ``--pliant``, launch counters zeroed just
+             before and read just after; then each training rung pinned by
+             ``table.executable(i)`` (median step time, peak memory) and one
+             profiled step per rung (device-busy share, largest kernels).
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``. Any
@@ -129,6 +141,165 @@ def check_int8(device, shapes, iters=20):
               f"{'null' if lib is None else f'{lib:.4f}'} "
               f"bound_ms={bound:.4f} ({by})")
     return rows
+
+
+# -------------------------------------------------------------- ssd_scan --
+
+def ssd_case(B, S, H, P, N, dtype, device, seed=0):
+    """Inputs at the model's scales: x and b, c unit-ish, dt a softplus of
+    a shifted normal (as ``softplus(x @ in_dt + dt_bias)``), a = -exp(A_log)
+    with A_log = log(uniform[1, 16])."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    x = torch.tensor(rng.normal(size=(B, S, H, P)), dtype=torch.float32)
+    dt = torch.nn.functional.softplus(torch.tensor(
+        rng.normal(size=(B, S, H)) - 3.0, dtype=torch.float32))
+    a = -torch.tensor(rng.uniform(1.0, 16.0, size=(H,)), dtype=torch.float32)
+    b = torch.tensor(rng.normal(size=(B, S, N)) * N ** -0.5,
+                     dtype=torch.float32)
+    c = torch.tensor(rng.normal(size=(B, S, N)) * N ** -0.5,
+                     dtype=torch.float32)
+    x, b, c = (t.to(device=device, dtype=dtype) for t in (x, b, c))
+    return [x, dt.to(device), a.to(device), b, c]
+
+
+def ssd_bound_ms(B, S, H, P, N, Q, esize):
+    """Bytes: x read and y written in x's dtype, dt in fp32, b and c once.
+    Operations: the lower triangle of C·Bᵀ (N·Q(Q+1) FLOP) once per (batch,
+    chunk), as B and C are one group shared by every head; per (batch,
+    head, chunk) the lower triangle of W·(dt·x) (P·Q(Q+1)), C·Sᵀ and the
+    state update (2·Q·N·P each); fp32 on the CUDA cores."""
+    nbytes = 2 * B * S * H * P * esize + 4 * B * S * H + 4 * H \
+        + 2 * B * S * N * esize
+    nc = S // Q
+    ops = float(N * Q * (Q + 1)) * B * nc \
+        + float(P * Q * (Q + 1) + 4 * Q * N * P) * B * H * nc
+    t_bytes, t_ops = nbytes / HBM_BW, ops / FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def check_ssd(device, shapes, iters=10, dtypes=None):
+    """``ssd_scan`` against ``ssd_scan_plain`` on the card, fp32 and bf16.
+    Both compute in fp32 from the same (exactly upcast) inputs and differ
+    only in the order of their sums: fp32 outputs within 1e-5 of the
+    largest |y| (~1e-6 measured on the CPU against the Pallas kernel), bf16
+    outputs within one bf16 step (2^-8 relative) of the largest |y|."""
+    import torch
+    from repro_torch.kernels import ssd_scan as mod
+    rows = []
+    for B, S, H, P, N, Q in shapes:
+        for dtype in dtypes or (torch.float32, torch.bfloat16):
+            x, dt, a, b, c = ssd_case(B, S, H, P, N, dtype, device)
+            out = mod.ssd_scan(x, dt, a, b, c, chunk=Q)
+            ref = mod.ssd_scan_plain(x, dt, a, b, c, chunk=Q)
+            torch.cuda.synchronize()
+            scale = float(ref.float().abs().max())
+            tol = (1e-5 if dtype == torch.float32 else 2 ** -8) * scale
+            err = max_err(out, ref)
+            assert torch.isfinite(out).all() and err <= tol, \
+                (B, S, H, P, N, Q, dtype, err, tol)
+            kern = timed(lambda: mod.ssd_scan(x, dt, a, b, c, chunk=Q),
+                         device, iters)
+            plain = timed(lambda: mod.ssd_scan_plain(x, dt, a, b, c,
+                                                     chunk=Q), device, iters)
+            bound, by = ssd_bound_ms(B, S, H, P, N, Q, x.element_size())
+            name = "fp32" if dtype == torch.float32 else "bf16"
+            rows.append(dict(shape=(B, S, H, P, N, Q), dtype=name,
+                             max_abs_err=err, tol=tol, ms=kern,
+                             plain_ms=plain, library_ms=None,
+                             bound_ms=bound, bound_by=by))
+            print(f"ssd_scan {name} B={B} S={S} H={H} P={P} N={N} Q={Q}: "
+                  f"max_abs_err={err:.3g} (tol {tol:.3g}) ms={kern:.4f} "
+                  f"plain_ms={plain:.4f} library_ms=null "
+                  f"bound_ms={bound:.5f} ({by})")
+    return rows
+
+
+def check_ssd_grads(device, shape=(2, 256, 4, 64, 128, 128)):
+    """``SSDScan`` on the card (kernel forward, ``ssd_scan_backward``)
+    against autograd through the ``ssd_chunked_ref`` twin on the CPU, fp32.
+    The decays are exps of differences of fp32 cumulative sums that reach
+    ~10^2 over a chunk of 128 here, and the two devices sum them in other
+    orders: y agrees to ~1e-5 of its largest entry (measured 1e-5), so y is
+    held to 1e-4 and each gradient, which sums such terms over every token
+    and chunk pair, to 1e-3 of its largest entry."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as mod
+    B, S, H, P, N, Q = shape
+    ins = ssd_case(B, S, H, P, N, torch.float32, torch.device("cpu"), seed=1)
+    gy = torch.tensor(np.random.default_rng(2).normal(size=(B, S, H, P)),
+                      dtype=torch.float32)
+    cpu = [t.clone().requires_grad_(True) for t in ins]
+    want = ref.ssd_chunked_ref(*cpu, chunk=Q)
+    want_g = torch.autograd.grad(want, cpu, gy)
+    dev = [t.to(device).requires_grad_(True) for t in ins]
+    got = mod.SSDScan.apply(*dev, Q)
+    got_g = torch.autograd.grad(got, dev, gy.to(device))
+    rel = {"y": max_err(got.detach().cpu(), want.detach())
+           / float(want.detach().abs().max())}
+    for name, g, w in zip(("x", "dt", "a", "b", "c"), got_g, want_g):
+        rel[name] = max_err(g.cpu(), w) / float(w.abs().max())
+        assert torch.isfinite(g).all(), name
+    print(f"ssd_scan grads B={B} S={S} H={H} P={P} N={N} Q={Q}: card vs "
+          f"cpu ssd_chunked_ref, max_abs_err / max|ref| "
+          + " ".join(f"{k}={v:.3g}" for k, v in rel.items()))
+    assert rel.pop("y") <= 1e-4 and max(rel.values()) <= 1e-3, rel
+
+
+def time_ssd_backward(device, shape=(4, 1024, 48, 64, 128, 128), iters=5):
+    """Milliseconds of one ``ssd_scan_backward`` (the VJP through the
+    chunked twin) at the training shape, fp32, and its peak extra memory."""
+    import torch
+    from repro_torch.kernels import ssd_scan as mod
+    B, S, H, P, N, Q = shape
+    x, dt, a, b, c = ssd_case(B, S, H, P, N, torch.float32, device, seed=3)
+    gy = torch.randn_like(x)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = timed(lambda: mod.ssd_scan_backward(x, dt, a, b, c, gy, chunk=Q),
+               device, iters, warmup=1)
+    extra = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    print(f"ssd_scan_backward B={B} S={S} H={H} P={P} N={N} Q={Q}: "
+          f"ms={ms:.3f} (x48 layers = {48 * ms:.1f} ms a step) "
+          f"peak extra {extra:.2f} GiB")
+    return ms
+
+
+def check_int8_grads(device, M=256, K=1536, N=3072):
+    """The differentiable ``quantized_matmul`` on the card against the CPU
+    plain path: the forward bit for bit (exact int32 sums, identical
+    quantisation), the gradients of x and w with the same zero pattern
+    (only each row's / column's arg-max entry is reached) and within 1e-4
+    of their largest entry (sums over N = 3072 or M terms in other
+    orders)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(4)
+    x = torch.tensor(rng.normal(size=(M, K)), dtype=torch.float32)
+    w = torch.tensor(rng.normal(size=(K, N)) * K ** -0.5, dtype=torch.float32)
+    g0 = torch.tensor(rng.normal(size=(M, N)), dtype=torch.float32)
+    out = []
+    for d in (torch.device("cpu"), device):
+        xs, ws = x.to(d).requires_grad_(True), w.to(d).requires_grad_(True)
+        y = ops.quantized_matmul(xs, ws)
+        gx, gw = torch.autograd.grad((y * g0.to(d)).sum(), (xs, ws))
+        out.append([t.detach().cpu() for t in (y, gx, gw)])
+    (yc, gxc, gwc), (yd, gxd, gwd) = out
+    assert torch.equal(yc, yd), max_err(yc, yd)
+    for name, a, b in (("x", gxd, gxc), ("w", gwd, gwc)):
+        assert torch.equal(a != 0, b != 0), name
+        err = max_err(a, b)
+        assert err <= 1e-4 * float(b.abs().max()), (name, err)
+    print(f"quantized_matmul grads M={M} K={K} N={N}: y bit-equal, "
+          f"nonzero x-grads {int((gxd != 0).sum())}/{M * K} "
+          f"w-grads {int((gwd != 0).sum())}/{K * N} (patterns equal), "
+          f"max_abs_err x={max_err(gxd, gxc):.3g} w={max_err(gwd, gwc):.3g}")
 
 
 # ------------------------------------------------------- paged_attention --
@@ -282,6 +453,51 @@ def check_parity(device):
               f"({sum(map(len, a))} tokens)")
 
 
+def check_train_parity(device, arch="mamba2-780m-smoke", steps=3,
+                       batch=4, seq=32):
+    """mamba2-780m-smoke trained in fp32 from the same seeded weights, once
+    on the card (CUDA kernels, forward and backward) and once on the CPU
+    (plain versions), ``steps`` steps on each rung of the training ladder:
+    every step's loss within 1e-4 relative (fp32 sums in other orders,
+    carried through three AdamW steps)."""
+    import copy
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.explorer import explore
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.lm import init_lm
+    from repro_torch.train import optim
+    from repro_torch.train.step import make_train_step
+    cfg = get_config(arch)
+    table = explore(cfg, ShapeConfig("cli", seq, batch, "train"),
+                    serving=False, max_variants=4)
+    cpu_params = init_lm(cfg, 0, torch.float32, "cpu")
+    src = SyntheticLM(DataConfig(cfg.vocab_size, seq, batch, seed=0))
+    opt_cfg = optim.OptConfig(lr=1e-3, warmup=2, total_steps=10)
+    worst = 0.0
+    for v in table.variants:
+        losses = []
+        for d in (device, torch.device("cpu")):
+            params = copy.deepcopy(cpu_params).to(d)
+            opt = optim.init_opt(params)
+            step = make_train_step(cfg, v.knobs, opt_cfg=opt_cfg,
+                                   remat="none")
+            losses.append([])
+            for i in range(steps):
+                tokens = torch.as_tensor(src.batch(i), device=d)
+                params, opt, m = step(params, opt, {"tokens": tokens})
+                losses[-1].append(float(m["loss"]))
+        rel = max(abs(a - b) / abs(b) for a, b in zip(*losses))
+        worst = max(worst, rel)
+        assert rel <= 1e-4, (v.name, losses)
+        print(f"train parity {v.name}: {device} losses "
+              f"{[round(x, 6) for x in losses[0]]} vs cpu "
+              f"{[round(x, 6) for x in losses[1]]} (max rel {rel:.3g})")
+    return worst
+
+
 # ------------------------------------------------------------- full width --
 
 def serve_full(device, arch="phi4-mini-3.8b", requests=12, slots=8):
@@ -394,6 +610,113 @@ def profile_rungs(res, device, batch=8, prompt_len=128, steps=8):
                   f"{e.count / steps:6.1f} calls/step  {e.key[:90]}")
 
 
+def train_full(device, arch="mamba2-780m", steps=12, batch=4, seq=1024):
+    """The training slice at full width and depth:
+    ``repro_torch.launch.train.main`` on mamba2-780m (48 layers, fp32
+    params, random weights from a seed) under ``--pliant``, decisions every
+    step, so the burst in the middle of the run walks the ladder down and
+    back. The kernels' launch counters are zeroed just before and read just
+    after: every layer launches ``ssd_scan`` once a step, and on the int8
+    rungs each of its three int8 projections launches ``int8_matmul`` once
+    forward and once backward (the exact int32 sums for the scales'
+    gradients)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import int8_matmul as i8
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.launch import train
+    argv = ["--arch", arch, "--steps", str(steps), "--batch", str(batch),
+            "--seq", str(seq), "--pliant", "--decision-interval", "0",
+            "--device", str(device)]
+    torch.cuda.reset_peak_memory_stats()
+    i8.launches = ss.launches = 0
+    res = train.main(argv)
+    launches = {"ssd_scan": ss.launches, "int8_matmul": i8.launches}
+    cfg, names = res["cfg"], res["names"]
+    n_int8 = sum(res["table"].variants[v].knobs.matmul_precision == "int8"
+                 for v in res["variants"])
+    assert names == ["precise", "int8", "int8+drop12%", "int8+drop50%"], \
+        names
+    assert set(res["variants"]) == set(range(len(names))), res["variants"]
+    assert all(np.isfinite(res["losses"])), res["losses"]
+    assert launches["ssd_scan"] == cfg.n_layers * steps, launches
+    assert launches["int8_matmul"] == 6 * cfg.n_layers * n_int8 > 0, \
+        (launches, n_int8)
+    walk = [names[v] for v in res["variants"]]
+    print(f"train {arch}: {steps} steps batch {batch} seq {seq}, losses "
+          f"{[round(x, 4) for x in res['losses']]}, rungs {walk}, "
+          f"step_s {[round(x, 3) for x in res['step_s']]}, data wait s "
+          f"{[round(x, 4) for x in res['wait_s']]}, peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
+          f"launches={launches}")
+    return res, launches
+
+
+def train_rung_walk(res, device, steps=8):
+    """Each rung pinned by ``table.executable(i)`` on the full-width state:
+    ``steps`` steps, the median of all but the first (and their spread),
+    and the peak device memory of those steps."""
+    import numpy as np
+    import torch
+    table, src = res["table"], res["source"]
+    params, opt = res["params"], res["opt"]
+    out = {}
+    for i, name in enumerate(res["names"]):
+        step = table.executable(i)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for k in range(steps):
+            tokens = torch.as_tensor(src.batch(100 + k), device=device)
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, {"tokens": tokens})
+            float(m["loss"])
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ms = 1e3 * float(np.median(times[1:]))
+        out[name] = dict(step_ms=ms, peak_gib=peak)
+        print(f"train rung {name}: median step {ms:.1f} ms over "
+              f"{steps - 1} steps (range {1e3 * min(times[1:]):.1f}-"
+              f"{1e3 * max(times[1:]):.1f}, first {1e3 * times[0]:.1f} ms), "
+              f"peak {peak:.2f} GiB")
+    res["params"], res["opt"] = params, opt
+    return out
+
+
+def profile_train(res, device):
+    """``torch.profiler`` over one training step per rung at full width:
+    wall and device-busy time, the largest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(e):
+        return (getattr(e, "self_device_time_total", None)
+                or getattr(e, "self_cuda_time_total", 0))
+
+    table, src = res["table"], res["source"]
+    params, opt = res["params"], res["opt"]
+    for i, name in enumerate(res["names"]):
+        step = table.executable(i)
+        tokens = torch.as_tensor(src.batch(200 + i), device=device)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, {"tokens": tokens})
+            float(m["loss"])
+            wall = 1e3 * (time.perf_counter() - t0)
+        kern = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and dev_us(e) > 0]
+        busy = sum(dev_us(e) for e in kern) / 1e3
+        print(f"train profile {name}: wall {wall:.1f} ms, device busy "
+              f"{busy:.1f} ms ({busy / wall:.3f})")
+        for e in sorted(kern, key=dev_us, reverse=True)[:12]:
+            print(f"  {dev_us(e) / 1e3:9.3f} ms {e.count:6d} calls  "
+                  f"{e.key[:90]}")
+    res["params"], res["opt"] = params, opt
+
+
 # ------------------------------------------------------------------ main --
 
 def main():
@@ -430,34 +753,63 @@ def main():
 
     shapes = [(m, k, n) for m in (1, 8, 128)
               for k, n in ((3072, 8192), (8192, 3072))] + [(5, 3000, 1000)]
+    # mamba2-780m training: the projections at 4 x 1024 tokens
+    shapes += [(4096, 1536, 3072), (4096, 3072, 1536)]
     i8_rows = check_int8(device, shapes)
     pa_rows = check_paged(device, phi4_paged_cases(torch.bfloat16))
+    ssd_full = (4, 1024, 48, 64, 128, 128)      # mamba2-780m training
+    ssd_rows = check_ssd(device, [(2, 64, 8, 16, 16, 16), ssd_full])
+    # the token-drop rungs' batch rows: int8+drop12% keeps 3, int8+drop50% 2
+    check_ssd(device, [(3,) + ssd_full[1:], (2,) + ssd_full[1:]],
+              dtypes=(torch.float32,))
+    check_ssd_grads(device)
+    ssd_bwd_ms = time_ssd_backward(device, ssd_full)
+    check_int8_grads(device)
     kernels = {"int8_matmul": next(r for r in i8_rows
                                    if (r["M"], r["K"], r["N"])
                                    == (8, 3072, 8192)),
                "paged_attention": next(r for r in pa_rows
-                                       if r["name"] == "bf16")}
+                                       if r["name"] == "bf16"),
+               "ssd_scan": next(r for r in ssd_rows
+                                if r["shape"] == ssd_full
+                                and r["dtype"] == "fp32")}
     phase_done("kernels")
     check_parity(device)
+    check_train_parity(device)
     phase_done("parity")
-    res, launches = serve_full(device)
+    res, serve_launches = serve_full(device)
     rung_walk(res, device)
     phase_done("serve")
     profile_rungs(res, device)
     phase_done("profile")
+    del res
+    torch.cuda.empty_cache()
+    tres, train_launches = train_full(device)
+    phase_done("train")
+    train_rung_walk(tres, device)
+    profile_train(tres, device)
+    phase_done("train-rungs")
+    print(f"ssd_scan_backward: {48 * ssd_bwd_ms:.1f} ms a training step "
+          f"(48 layers x {ssd_bwd_ms:.3f} ms)")
 
     src_of = {"int8_matmul": ("src/repro_torch/csrc/int8_matmul.cu",
                               "src/repro/kernels/int8_matmul.py:40"),
               "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
-                                  "src/repro/kernels/paged_attention.py:98")}
+                                  "src/repro/kernels/paged_attention.py:98"),
+              "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
+                           "src/repro/kernels/ssd_scan.py:62")}
+    by_path = {name: {"serve": serve_launches.get(name, 0),
+                      "train": train_launches.get(name, 0)}
+               for name in kernels}
     line = []
     for name, r in kernels.items():
         line.append(dict(name=name, route="cuda", source=src_of[name][0],
                          replaces=src_of[name][1],
-                         launches=launches[name],
+                         launches=sum(by_path[name].values()),
                          max_abs_err=r["max_abs_err"], ms=r["ms"],
                          plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                         bound_by=r["bound_by"], library_ms=r["library_ms"]))
+                         bound_by=r["bound_by"], library_ms=r["library_ms"],
+                         launches_by_path=by_path[name]))
     print(json.dumps({"kernels": line}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

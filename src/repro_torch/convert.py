@@ -4,10 +4,14 @@ through numpy only (the port imports nothing of the JAX package).
 ``params_from_numpy`` takes the JAX package's param pytree (as returned by
 ``repro.models.api.init``, each leaf converted with ``np.asarray``) and
 builds the port's ``ParamTree``: the leading group axis of
-``groups.pos<j>`` is unstacked into one block per layer, and every weight
-keeps the ``x @ W`` orientation. ``caches_to_numpy`` lays the port's caches
-out as the JAX package does (one ``PagedKVCache`` per pattern position,
-leaves stacked over layer groups), so tests can compare them leaf by leaf.
+``groups.pos<j>`` is unstacked into one block per layer (attention or
+Mamba), and every weight keeps the ``x @ W`` orientation.
+``tree_to_numpy`` goes back: any name -> tensor map of the port's
+parameters (the parameters themselves, their gradients, AdamW moments)
+becomes the JAX package's nested layout with the layers restacked.
+``caches_to_numpy`` lays the port's caches out as the JAX package does (one
+``PagedKVCache`` per pattern position, leaves stacked over layer groups),
+so tests can compare them leaf by leaf.
 """
 from __future__ import annotations
 
@@ -35,6 +39,33 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cpu",
             tree_map(lambda a: leaf(np.asarray(a)[g]),
                      tree["groups"][f"pos{j}"]))
     return ParamTree(out)
+
+
+def tree_to_numpy(named, cfg: ModelConfig):
+    """{"layers.<i>.<path>": tensor, "<top>": tensor} (as from
+    ``named_parameters()``) -> the JAX package's nested numpy tree, layer
+    ``g * period + j`` restacked at index ``g`` of ``groups.pos<j>``."""
+    period = len(cfg.pattern)
+    out, layers = {}, {}
+    for name, t in named.items():
+        a = t.detach().cpu().numpy()
+        parts = name.split(".")
+        if parts[0] != "layers":
+            out[name] = a
+            continue
+        g, j = divmod(int(parts[1]), period)
+        node = layers.setdefault(f"pos{j}", {})
+        for k in parts[2:-1]:
+            node = node.setdefault(k, {})
+        node.setdefault(parts[-1], {})[g] = a
+
+    def stack(node):
+        if all(isinstance(k, int) for k in node):
+            return np.stack([node[g] for g in sorted(node)])
+        return {k: stack(v) for k, v in node.items()}
+    if layers:
+        out["groups"] = {k: stack(v) for k, v in layers.items()}
+    return out
 
 
 def caches_to_numpy(caches):

@@ -1,0 +1,134 @@
+"""Training driver with the Pliant runtime: the JAX package's
+``launch/train.py`` on one device, in PyTorch.
+
+Data pipeline -> one train-step closure per approximate variant -> Pliant
+monitor/controller switching variants at step boundaries. With
+``--pliant`` a synthetic contention trace on the colocated ``token-serve``
+service drives the runtime: a burst in the middle 40% of the run pushes
+the job to its most approximate variant, and the slack after it walks the
+job back toward precise.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-780m \
+      --steps 20 --batch 4 --seq 1024 --pliant --decision-interval 0
+
+``--device cpu`` runs the kernels' plain versions on the CPU. ``main``
+prints the same ``step ... loss ... variant=...`` and ``final loss`` lines
+as the JAX driver and returns a dict with the table, the trained state and
+the per-step record (loss, wall seconds, seconds waiting for data, active
+variant).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.core.colocation import SERVICES
+from repro_torch.core.explorer import explore
+from repro_torch.core.monitor import LatencyMonitor
+from repro_torch.core.runtime import PliantRuntime
+from repro_torch.core.tenant import TrainTenant
+from repro_torch.core.variants import VariantTable
+from repro_torch.data.pipeline import DataConfig, Prefetcher, SyntheticLM
+from repro_torch.models.common import resolve_device
+from repro_torch.models.lm import init_lm
+from repro_torch.train import optim
+from repro_torch.train import step as step_mod
+
+
+def build_variant_steps(cfg, table: VariantTable, opt_cfg, remat="none"):
+    """One train-step closure per variant of ``table``."""
+    table.compile_all(lambda knobs: step_mod.make_train_step(
+        cfg, knobs, opt_cfg=opt_cfg, remat=remat))
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--arch", default="mamba2-780m-smoke")
+    p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--seq", type=int, default=128)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--pliant", action="store_true",
+                   help="enable the Pliant runtime with a synthetic "
+                        "contention trace on the token-serve service")
+    p.add_argument("--decision-interval", type=float, default=0.5)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda")
+    args = p.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    params = init_lm(cfg, args.seed, torch.float32, device)
+    opt = optim.init_opt(params)
+    opt_cfg = optim.OptConfig(lr=args.lr, warmup=20, total_steps=args.steps)
+
+    shape = ShapeConfig("cli", args.seq, args.batch, "train")
+    table = explore(cfg, shape, serving=False, max_variants=4)
+    build_variant_steps(cfg, table, opt_cfg)
+    names = [v.name for v in table.variants]
+
+    monitor = LatencyMonitor(SERVICES["token-serve"].qos_target_s)
+    tenant = TrainTenant(table, name="train")
+    runtime = PliantRuntime(monitor=monitor, tenants=[tenant])
+    runtime.cfg.decision_interval_s = args.decision_interval
+
+    data_cfg = DataConfig(cfg.vocab_size, args.seq, args.batch,
+                          seed=args.seed)
+    source = SyntheticLM(data_cfg)
+    prefetch = Prefetcher(lambda s: source.batch(s), 0)
+
+    losses, step_s, wait_s, variants = [], [], [], []
+    svc = SERVICES["token-serve"]
+    t0 = time.time()
+    try:
+        for i in range(args.steps):
+            t_step = time.perf_counter()
+            _, tokens = next(prefetch)
+            wait_s.append(time.perf_counter() - t_step)
+            batch = {"tokens": torch.as_tensor(tokens, device=device)}
+            active = runtime.active_variant if args.pliant else 0
+            step_fn = table.executable(active)
+            params, opt, metrics = step_fn(params, opt, batch)
+            losses.append(float(metrics["loss"]))
+            step_s.append(time.perf_counter() - t_step)
+            variants.append(active)
+            if args.pliant:
+                # synthetic contention trace: mid-run interference burst on
+                # the colocated interactive service
+                phase = i / max(args.steps, 1)
+                burst = 1.0 if 0.3 < phase < 0.7 else 0.0
+                v = table.variants[runtime.active_variant]
+                interf = burst * (svc.sens_mem * v.pressure.hbm
+                                  + svc.sens_ici * v.pressure.ici)
+                p99 = svc.p99(0.775, interf, runtime.reclaimed)
+                rng = np.random.default_rng(i)
+                for x in p99 / 3.2 * np.exp(0.45 * rng.standard_normal(64)):
+                    monitor.record(float(x))
+                runtime.maybe_decide()
+            if (i + 1) % 20 == 0:
+                v = names[runtime.active_variant] if args.pliant \
+                    else "precise"
+                print(f"step {i+1:5d} loss {np.mean(losses[-20:]):.4f} "
+                      f"variant={v} reclaimed={runtime.reclaimed} "
+                      f"({(time.time()-t0) / (i+1):.2f}s/step)")
+    finally:
+        prefetch.close()
+    final = float(np.mean(losses[-10:]))
+    print(f"final loss {final:.4f} (first-10 {np.mean(losses[:10]):.4f})")
+    if args.pliant:
+        switches = [h for h in runtime.history if h["action"] != "hold"]
+        print(f"pliant actions: {len(switches)} "
+              f"{[h['action'] for h in switches[:8]]}")
+    return dict(final_loss=final, losses=losses, step_s=step_s,
+                wait_s=wait_s, variants=variants, names=names, table=table,
+                params=params, opt=opt, runtime=runtime, source=source,
+                cfg=cfg)
+
+
+if __name__ == "__main__":
+    main()

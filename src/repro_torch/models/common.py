@@ -4,8 +4,9 @@ Counterpart of the JAX package's ``models/common.py``. Parameters are
 declared as a tree of ``ParamSpec`` (shape + logical axes + init law),
 materialised by ``init_params`` on an explicit ``torch.Generator`` with the
 same laws as the JAX package (truncated normal scaled by fan-in, ones for
-norms), and held in a ``ParamTree``: an ``nn.Module`` whose attributes
-mirror the JAX pytree's keys.
+norms, the SSM's ``A_log`` and ``dt`` bias laws in fp32), and held in a
+``ParamTree``: an ``nn.Module`` whose attributes mirror the JAX pytree's
+keys.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from torch import nn
 class ParamSpec:
     shape: Tuple[int, ...]
     axes: Tuple[Any, ...]           # logical axis name (or None) per dim
-    init: str = "normal"            # normal | zeros | ones
+    init: str = "normal"            # normal | zeros | ones | ssm_a | ssm_dt
 
     def __post_init__(self):
         assert len(self.shape) == len(self.axes), (self.shape, self.axes)
@@ -51,14 +52,26 @@ def init_params(spec_tree, generator: torch.Generator, dtype=torch.bfloat16,
                 device="cpu"):
     """Materialise a spec tree into a tree of tensors. Normal leaves draw a
     truncated normal in [-2, 2] in fp32, scaled by 1/sqrt(fan_in), then cast;
-    norm scales are ones. The draws come from ``generator`` (a
-    ``torch.Generator`` on ``device``), so the numbers differ from the JAX
-    package's threefry draws while the laws agree."""
+    norm scales are ones; ``ssm_a`` is log(uniform[1, 16]) and ``ssm_dt``
+    softplus^-1(log-uniform[1e-3, 1e-1]), both kept in fp32 whatever
+    ``dtype`` is, as in the JAX package. The draws come from ``generator``
+    (a ``torch.Generator`` on ``device``), so the numbers differ from the
+    JAX package's threefry draws while the laws agree."""
+    def uniform(s: ParamSpec):
+        u = torch.empty(s.shape, dtype=torch.float32, device=device)
+        return u.uniform_(generator=generator)
+
     def mk(s: ParamSpec):
         if s.init == "zeros":
             return torch.zeros(s.shape, dtype=dtype, device=device)
         if s.init == "ones":
             return torch.ones(s.shape, dtype=dtype, device=device)
+        if s.init == "ssm_a":
+            return torch.log(1.0 + 15.0 * uniform(s))
+        if s.init == "ssm_dt":
+            dt = torch.exp(uniform(s) * (np.log(0.1) - np.log(1e-3))
+                           + np.log(1e-3))
+            return torch.log(torch.expm1(dt))
         fan_in = s.shape[-2] if len(s.shape) >= 2 else s.shape[-1]
         std = 1.0 / np.sqrt(max(fan_in, 1))
         w = torch.empty(s.shape, dtype=torch.float32, device=device)
@@ -85,12 +98,35 @@ class ParamTree(nn.Module):
 
 # ---------------------------------------------------------------- numerics --
 
+class _RMSNorm(torch.autograd.Function):
+    """The JAX package's ``rms_norm`` with its ``custom_vjp``: fp32 only in
+    the (..., 1) row statistics, in both directions; every (..., D) tensor
+    stays in the activation dtype."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        var = x.float().square().mean(-1, keepdim=True)
+        inv32 = torch.rsqrt(var + eps)
+        ctx.save_for_backward(x, inv32, scale)
+        return x * inv32.to(x.dtype) * scale.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, inv32, scale = ctx.saved_tensors
+        d = x.shape[-1]
+        dyg = dy * scale.to(dy.dtype)
+        t = (dyg * x).float().sum(-1, keepdim=True)
+        coef = (inv32 ** 3 * (t / d)).to(x.dtype)
+        dx = dyg * inv32.to(dy.dtype) - x * coef
+        dscale = ((dy * x).float() * inv32).sum(tuple(range(dy.ndim - 1)))
+        return dx, dscale.to(scale.dtype), None
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
-    """RMSNorm, forward only: the variance in fp32, ``inv`` cast to x's dtype
-    before the multiply (the JAX package's forward rule)."""
-    var = x.float().square().mean(-1, keepdim=True)
-    inv = torch.rsqrt(var + eps).to(x.dtype)
-    return x * inv * scale.to(x.dtype)
+    """RMSNorm: the variance in fp32, ``inv`` cast to x's dtype before the
+    multiply (the JAX package's forward rule); its backward is ``_rms_bwd``'s
+    rule (``_RMSNorm``)."""
+    return _RMSNorm.apply(x, scale, eps)
 
 
 def softcap(x: torch.Tensor, cap: float):

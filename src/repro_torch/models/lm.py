@@ -1,7 +1,9 @@
-"""Decoder-only LM on the paged serving path: specs, init, logits, paged
-caches and the one-token decode step. Counterpart of the JAX package's
-``models/lm.py``; a Python loop over the layers takes the place of
-``lax.scan`` over layer groups.
+"""Decoder-only LM: specs, init, logits; on the paged serving path the
+paged caches and the one-token decode step, on the training path the
+full-sequence forward, the chunked cross-entropy and ``lm_loss``.
+Counterpart of the JAX package's ``models/lm.py``; a Python loop over the
+layers takes the place of ``lax.scan`` over layer groups, and
+``torch.utils.checkpoint`` the place of ``jax.checkpoint``.
 
 Parameters are a ``ParamTree`` with ``embed``, ``final_norm`` (and
 ``unembed`` when untied) and ``layers``: one block per layer in
@@ -14,11 +16,12 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.approx.knobs import PRECISE, ApproxKnobs
+from repro_torch.approx.knobs import PRECISE, ApproxKnobs, keep_groups
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.blocks import block_decode, block_specs
+from repro_torch.models.blocks import block_decode, block_forward, block_specs
 from repro_torch.models.common import (ParamSpec, ParamTree, init_params,
                                        resolve_device, rms_norm, softcap)
 
@@ -55,6 +58,90 @@ def logits_fn(params, h, cfg: ModelConfig):
     logits = (h @ _unembed(params)).float()
     return softcap(logits, cfg.final_softcap)
 
+
+# ---------------------------------------------------------------- training --
+
+def forward_hidden(params, tokens, cfg: ModelConfig,
+                   knobs: ApproxKnobs = PRECISE, *, remat: str = "full"):
+    """tokens: (B, S) -> (h (B,S,D) final-normed, aux loss).
+
+    The ``layer_skip`` knob runs only ``keep_groups``' layer groups.
+    ``remat``: "none" keeps every activation; "full" recomputes each layer
+    group in the backward (``torch.utils.checkpoint`` per group)."""
+    if remat not in ("none", "full"):
+        raise ValueError(f"forward_hidden: remat must be none | full, "
+                         f"got {remat!r}")
+    h = params.embed[tokens]
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    period = len(cfg.pattern)
+
+    def group_body(h, aux, g):
+        for j, kind in enumerate(cfg.pattern):
+            h, a = block_forward(kind, params.layers[g * period + j], h, cfg,
+                                 knobs)
+            aux = aux + a
+        return h, aux
+
+    for g in keep_groups(cfg.n_groups, knobs.layer_skip):
+        if remat == "full":
+            h, aux = checkpoint(group_body, h, aux, g, use_reentrant=False)
+        else:
+            h, aux = group_body(h, aux, g)
+    return rms_norm(h, params.final_norm, cfg.norm_eps), aux
+
+
+def ce_chunk(s: int, target: int = 512) -> int:
+    """Largest divisor of ``s`` that is <= target (CE chunk length)."""
+    c = min(target, s)
+    while s % c:
+        c -= 1
+    return c
+
+
+def _xent_chunk(hc, lc, mc, emb, cap):
+    logits = softcap((hc @ emb).float(), cap)
+    m = logits.amax(-1, keepdim=True)
+    lse = torch.log(torch.exp(logits - m).sum(-1)) + m[..., 0]
+    gold = torch.gather(logits, -1, lc[..., None].long())[..., 0]
+    return ((lse - gold) * mc).sum(), mc.sum()
+
+
+def chunked_xent(params, h, labels, mask, cfg: ModelConfig, *,
+                 chunk: int = 512):
+    """Mean next-token CE without materialising the (B,S,V) logits: each
+    sequence chunk's logits are recomputed in the backward
+    (``torch.utils.checkpoint``). h: (B,S,D); labels: (B,S) (already
+    shifted); mask: (B,S) float weights."""
+    S = h.shape[1]
+    C = ce_chunk(S, chunk)
+    emb = _unembed(params)
+    loss_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    w_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    for s0 in range(0, S, C):
+        sl = slice(s0, s0 + C)
+        l, w = checkpoint(_xent_chunk, h[:, sl], labels[:, sl], mask[:, sl],
+                          emb, cfg.final_softcap, use_reentrant=False)
+        loss_sum = loss_sum + l
+        w_sum = w_sum + w
+    return loss_sum / torch.clamp(w_sum, min=1.0)
+
+
+def lm_loss(params, batch, cfg: ModelConfig, knobs: ApproxKnobs = PRECISE, *,
+            remat: str = "full", aux_coef: float = 0.01):
+    """batch: {"tokens": (B,S+1) int}. The ``token_drop`` knob (batch
+    perforation) keeps the first ``b_keep`` rows. Returns (loss, metrics)."""
+    tokens = batch["tokens"]
+    if knobs.token_drop > 0:
+        b_keep = max(1, int(tokens.shape[0] * (1.0 - knobs.token_drop)))
+        tokens = tokens[:b_keep]
+    inputs, labels = tokens[:, :-1], tokens[:, 1:]
+    h, aux = forward_hidden(params, inputs, cfg, knobs, remat=remat)
+    mask = torch.ones(labels.shape, dtype=torch.float32, device=h.device)
+    loss = chunked_xent(params, h, labels, mask, cfg)
+    return loss + aux_coef * aux, {"ce": loss, "aux": aux}
+
+
+# ------------------------------------------------------------------ decode --
 
 def init_paged_caches(cfg: ModelConfig, batch: int, n_pages: int,
                       page_size: int, max_pages: int, dtype=torch.bfloat16,

@@ -1,0 +1,89 @@
+"""AdamW with a warmup + cosine schedule, global-norm clipping and fp32
+moments. Counterpart of the JAX package's ``train/optim.py`` on one device
+(no ``grad_reduce`` seam: there is nothing to reduce across).
+
+Parameters are a ``ParamTree``; gradients and the moments are dicts keyed
+by the parameter's name (``named_parameters()``). Where the JAX package
+returns new trees, ``adamw_update`` writes the parameters and moments in
+place, which keeps one copy of each on the card.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, NamedTuple
+
+import torch
+
+
+class OptState(NamedTuple):
+    step: int
+    m: Dict[str, torch.Tensor]
+    v: Dict[str, torch.Tensor]
+
+
+class OptConfig(NamedTuple):
+    lr: float = 3e-4
+    warmup: int = 100
+    total_steps: int = 10_000
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+
+
+def init_opt(params) -> OptState:
+    def zeros():
+        return {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                for k, p in params.named_parameters()}
+    return OptState(step=0, m=zeros(), v=zeros())
+
+
+def _f32(x) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.float32)
+
+
+def lr_at(cfg: OptConfig, step: int) -> float:
+    """The schedule at ``step``, computed in fp32 as the JAX package does."""
+    if step < cfg.warmup:
+        return float(_f32(cfg.lr) * (step + 1) / max(cfg.warmup, 1))
+    frac = torch.clamp(_f32(step - cfg.warmup)
+                       / max(cfg.total_steps - cfg.warmup, 1), 0.0, 1.0)
+    return float(_f32(cfg.lr) * 0.5 * (1.0 + torch.cos(_f32(math.pi) * frac)))
+
+
+def global_norm(tensors) -> torch.Tensor:
+    return torch.sqrt(sum(x.float().square().sum() for x in tensors))
+
+
+@torch.no_grad()
+def adamw_update(grads: Dict[str, torch.Tensor], opt: OptState, params,
+                 cfg: OptConfig):
+    """One AdamW step. ``grads`` maps each parameter's name to its gradient.
+    Updates ``params`` and the moments in place; returns (params, new_opt,
+    metrics).
+
+    Weight decay applies to the leaves that are at least 2-D in the JAX
+    package's tree, where every layer's leaf is stacked over the layer
+    groups: so a layer's 1-D leaves (norm scales, ``a_log``, ``dt_bias``,
+    ``d_skip``) decay too, and only ``final_norm`` does not."""
+    named = dict(params.named_parameters())
+    gnorm = global_norm(grads.values())
+    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
+                        max=1.0)
+    step = opt.step + 1
+    lr = lr_at(cfg, opt.step)
+    b1c = float(1.0 - _f32(cfg.b1) ** step)
+    b2c = float(1.0 - _f32(cfg.b2) ** step)
+    for k, p in named.items():
+        g = grads[k].float() * scale
+        m, v = opt.m[k], opt.v[k]
+        m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
+        v.copy_(cfg.b2 * v + (1 - cfg.b2) * g.square())
+        update = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
+        stacked = k.startswith("layers.")
+        decay = cfg.weight_decay if p.ndim + stacked >= 2 else 0.0
+        pf = p.float()
+        p.copy_((pf - lr * (update + decay * pf)).to(p.dtype))
+    return params, OptState(step, opt.m, opt.v), {"grad_norm": gnorm,
+                                                  "lr": lr}

@@ -68,9 +68,9 @@ def test_port_imports_with_jax_blocked():
 
 def test_entry_points_refuse_without_cuda(monkeypatch):
     """``device`` defaults to CUDA: without it the engine, the model init and
-    the serving driver raise instead of running on the CPU."""
+    the serving and training drivers raise instead of running on the CPU."""
     from repro_torch.configs import get_config
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.models.lm import init_lm
     from repro_torch.serve.engine import ServeEngine
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -82,6 +82,8 @@ def test_entry_points_refuse_without_cuda(monkeypatch):
         ServeEngine(cfg, batch_slots=2, max_len=32, params=params)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--requests", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--steps", "1", "--batch", "2", "--seq", "16"])
     eng = ServeEngine(cfg, batch_slots=2, max_len=32, params=params,
                       device="cpu")
     assert eng.device.type == "cpu"
