@@ -10,19 +10,26 @@ Phases, each reported on its own line:
 2. kernels   each kernel against its plain PyTorch version on the card, at
              the shapes its path gives it (phi4-mini-3.8b serving widths;
              mamba2-780m training widths for ``ssd_scan`` and the int8
-             projections), fp32 and bf16, with its time beside the plain
-             version's, a library call's where one computes the same
-             function, and its bound. Then the training path's gradients:
-             ``SSDScan`` (kernel forward, VJP of the chunked twin) against
-             autograd through ``ssd_chunked_ref`` on the CPU, the backward's
-             time at the training shape, and the differentiable
-             ``quantized_matmul``'s gradients (zero pattern included)
-             against the CPU plain path.
+             projections; phi4-mini-3.8b training at 2 x 4096 tokens for
+             ``flash_attention``, plus window + softcap + GQA, stride-2
+             perforation and ragged Sq != Skv cases), fp32 and bf16, with
+             its time beside the plain version's, a library call's where one
+             computes the same function, and its bound. Then the training
+             path's gradients: ``SSDScan`` (kernel forward, VJP of the
+             chunked twin) against autograd through ``ssd_chunked_ref`` on
+             the CPU, the backward's time at the training shape,
+             ``FlashAttention`` against the plain version's VJP on the CPU,
+             one layer's attention core at phi4-mini's training cell timed
+             through the kernel and through ``_causal_chunked`` at stride
+             1 and 2, and the differentiable ``quantized_matmul``'s gradients (zero
+             pattern included) against the CPU plain path.
 3. parity    phi4-mini-3.8b-smoke served in fp32 twice from the same seeded
              weights, on the card and on the CPU: the greedy token streams
-             of each serving rung must be equal. mamba2-780m-smoke trained
-             in fp32 three steps on each training rung, on the card and on
-             the CPU from the same weights: the losses must agree.
+             of each serving rung must be equal. mamba2-780m-smoke (4 x 32
+             tokens, no remat) and phi4-mini-3.8b-smoke (2 x 4096 tokens,
+             remat "full") trained in fp32 three steps on each training
+             rung, on the card and on the CPU from the same weights: the
+             losses must agree.
 4. serve     the serving slice at full width: ``repro_torch.launch.serve``
              on phi4-mini-3.8b (32 layers, bf16, random weights) under a QoS
              target tight enough that the Pliant runtime swaps variants,
@@ -35,6 +42,15 @@ Phases, each reported on its own line:
              before and read just after; then each training rung pinned by
              ``table.executable(i)`` (median step time, peak memory) and one
              profiled step per rung (device-busy share, largest kernels).
+7. train-attn  the dense-attention training slice at full width:
+             ``repro_torch.launch.train.main(..., remat="full")`` on
+             phi4-mini-3.8b (32 layers, fp32 params and AdamW, batch 2 x
+             4096 tokens, random weights) under ``--pliant``, launch
+             counters zeroed just before and read just after; then each
+             rung pinned (median step time, peak memory, launches a step),
+             the int8 rung again with its causal attention through
+             ``_causal_chunked`` at stride 1 (the stride rung less its
+             perforation), and one profiled step per rung.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``. Any
@@ -63,6 +79,9 @@ FP32_FLOPS = 67e12
 # the attention outputs here stay below 4 in magnitude).
 BF16_ATOL = 2 ** -7 * 4
 FP32_ATOL = 2e-5        # fp32 attention: reassociated sums of ~1e3 terms
+# bf16 flash attention, per element: one bf16 step (2^-7 |ref|) plus
+# BF16_ROW times the rms of the element's output row (see check_flash).
+BF16_ROW = 2 ** -6
 
 
 def timed(fn, device, iters=20, warmup=3):
@@ -302,6 +321,213 @@ def check_int8_grads(device, M=256, K=1536, N=3072):
           f"max_abs_err x={max_err(gxd, gxc):.3g} w={max_err(gwd, gwc):.3g}")
 
 
+# ------------------------------------------------------- flash_attention --
+
+def flash_case(B, H, KVH, Sq, Skv, hd, dtype, device, seed=0):
+    """q, k, v at unit scale (the model's RoPE'd projections are O(1)):
+    scores q.k / sqrt(hd) of unit spread."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    out = []
+    for shape in ((B, H, Sq, hd), (B, KVH, Skv, hd), (B, KVH, Skv, hd)):
+        out.append(torch.tensor(rng.normal(size=shape), dtype=torch.float32
+                                ).to(device=device, dtype=dtype))
+    return out
+
+
+def flash_kept(Sq, Skv, kw, device, rows=None):
+    """(rows, Skv) bool: the (query, key) pairs whose score the function
+    needs, entries of the running blocks that survive the mask, on the
+    default (128, 128) block grid."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    qpos = torch.arange(Sq, device=device) if rows is None else rows
+    kpos = torch.arange(Skv, device=device)
+    bq, bk = min(128, Sq), min(128, Skv)
+    return fa.block_runs(qpos, kpos, causal=kw["causal"], window=kw["window"],
+                         kv_keep_stride=kw["kv_keep_stride"], bq=bq,
+                         bk=bk) \
+        & fa.entry_mask(qpos, kpos, causal=kw["causal"], window=kw["window"],
+                        n_kv=Skv)
+
+
+def flash_kept_pairs(Sq, Skv, kw, device):
+    """How many pairs ``flash_kept`` holds, counted 1024 query rows at a
+    time."""
+    import torch
+    return sum(int(flash_kept(Sq, Skv, kw, device, torch.arange(
+        r0, min(r0 + 1024, Sq), device=device)).sum())
+        for r0 in range(0, Sq, 1024))
+
+
+def flash_bound_ms(B, H, KVH, Sq, Skv, hd, esize, pairs):
+    """Bytes: q, k, v read once and o written once. Operations: Q.K^T and
+    P.V over the pairs the function needs, 4 hd FLOP a pair per head (the
+    lower triangle S(S+1)/2 for plain causal attention), at the input
+    type's peak."""
+    nbytes = esize * (2 * B * H * Sq * hd + 2 * B * KVH * Skv * hd)
+    ops = 4.0 * B * H * hd * pairs
+    peak = FP32_FLOPS if esize == 4 else BF16_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BW, ops / peak
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def cuda_kernel_names(fn):
+    """Names of the CUDA kernels one call of ``fn`` launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key[:60] for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
+def bf16_row_excess(out, ref):
+    """The largest amount by which an element of ``out`` strays from
+    ``ref`` beyond one bf16 step (2^-7 |ref|), in units of the rms of its
+    row of ``ref`` (over hd)."""
+    o, r = out.float(), ref.float()
+    rms = r.pow(2).mean(-1, keepdim=True).sqrt().clamp_min(1e-30)
+    return float(((o - r).abs() - 2 ** -7 * r.abs()).clamp_min(0)
+                 .div_(rms).max())
+
+
+def check_flash(device, cases, iters=10):
+    """``flash_attention`` against ``flash_attention_plain`` on the card.
+    Both compute the scores, the softmax and P.V in fp32 from the same
+    (exactly upcast) inputs and differ in the order of their sums (the
+    kernel's online softmax over key tiles against one pass over all
+    keys): fp32 outputs (|o| <= ~4) within FP32_ATOL. In bf16, p is also
+    rounded to bf16, against a running max in the kernel and the final max
+    in the plain version, each rounding off by up to 2^-8 of p and
+    typically under 2^-9: as o_d sums p_j v_jd of random sign, that moves
+    an output element by a small multiple of 2^-9 of its row's rms, and the
+    output's own rounding by up to one bf16 step. So each bf16 element is
+    held to ``|out - ref| <= 2^-7 |ref| + BF16_ROW * rms(ref's row)``,
+    BF16_ROW = 2^-6 = 8 * 2^-9 (the excess measured is printed). The
+    output is small: at unit-scale q, k, v a causal row r averages ~r/e keys, so
+    |o| ~ sqrt(e / r), ~0.03 at the median row of S 4096 (the median |ref|
+    is printed), and an absolute tolerance would pass a few-percent fault;
+    this one does not (a 2% scaling of every element fails it).
+    ``library_ms``: ``F.scaled_dot_product_attention`` on the same inputs
+    where one call computes the same function (is_causal for causal
+    attention, a boolean mask of the kept entries for window and stride;
+    no softcap), with the kernels it ran."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    rows = []
+    for c in cases:
+        B, H, KVH, Sq, Skv, hd = c["shape"]
+        kw = dict(causal=c.get("causal", True), window=c.get("window", 0),
+                  cap=c.get("cap", 0.0),
+                  kv_keep_stride=c.get("stride", 1))
+        q, k, v = flash_case(B, H, KVH, Sq, Skv, hd, c["dtype"], device)
+        out = fa.flash_attention(q, k, v, **kw)
+        ref = fa.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = max_err(out, ref)
+        assert torch.isfinite(out).all(), c["name"]
+        if c["dtype"] == torch.float32:
+            tol, excess = FP32_ATOL, None
+            assert err <= tol, (c["name"], err, tol)
+            tol_s = f"{tol:.3g}"
+        else:
+            tol, excess = BF16_ROW, bf16_row_excess(out, ref)
+            assert excess <= tol, (c["name"], excess, tol)
+            tol_s = (f"2^-7 |ref| + {tol:.3g} row rms: excess {excess:.3g} "
+                     f"row rms, median |ref| "
+                     f"{float(ref.float().abs().median()):.3g}")
+        kern = timed(lambda: fa.flash_attention(q, k, v, **kw), device, iters)
+        plain = timed(lambda: fa.flash_attention_plain(q, k, v, **kw),
+                      device, 3, warmup=1)
+        lib, backend = None, "none: no single call computes a softcap"
+        if not kw["cap"]:
+            if kw["causal"] and not kw["window"] and kw["kv_keep_stride"] \
+                    == 1 and Sq == Skv:
+                sdpa_kw = dict(is_causal=True)
+            else:
+                sdpa_kw = dict(attn_mask=flash_kept(Sq, Skv, kw, device))
+
+            def lib_call():
+                return F.scaled_dot_product_attention(q, k, v, enable_gqa=True,
+                                                      **sdpa_kw)
+            lib_err = max_err(lib_call(), ref)
+            lib = timed(lib_call, device, iters)
+            backend = ",".join(cuda_kernel_names(lib_call))[:160] \
+                + f" (max_abs_err vs plain {lib_err:.3g})"
+        pairs = flash_kept_pairs(Sq, Skv, kw, device)
+        bound, by = flash_bound_ms(B, H, KVH, Sq, Skv, hd, q.element_size(),
+                                   pairs)
+        rows.append(dict(name=c["name"], shape=c["shape"],
+                         dtype=str(c["dtype"]).split(".")[-1],
+                         max_abs_err=err, tol=tol, row_excess=excess,
+                         ms=kern, plain_ms=plain, library_ms=lib,
+                         bound_ms=bound, bound_by=by))
+        print(f"flash_attention {c['name']} B={B} H={H} KVH={KVH} Sq={Sq} "
+              f"Skv={Skv} hd={hd} {rows[-1]['dtype']}: max_abs_err={err:.3g} "
+              f"(tol {tol_s}) ms={kern:.4f} plain_ms={plain:.4f} "
+              f"library_ms={'null' if lib is None else f'{lib:.4f}'} "
+              f"bound_ms={bound:.4f} ({by}, {pairs} pairs) "
+              f"library: {backend}")
+    return rows
+
+
+def phi4_flash_cases():
+    import torch
+    cell = (2, 24, 8, 4096, 4096, 128)      # phi4-mini training, 2 x 4096
+    return [
+        dict(name="cell-fp32", shape=cell, dtype=torch.float32),
+        dict(name="cell-bf16", shape=cell, dtype=torch.bfloat16),
+        dict(name="cell-b1-fp32", shape=(1,) + cell[1:],
+             dtype=torch.float32),            # int8+drop50% keeps 1 row
+        dict(name="window+softcap+gqa", shape=(2, 24, 4, 2048, 2048, 128),
+             dtype=torch.float32, window=512, cap=50.0),
+        dict(name="stride2", shape=(2, 24, 8, 2048, 2048, 128),
+             dtype=torch.float32, stride=2),
+        dict(name="ragged", shape=(2, 8, 2, 1000, 1500, 80),
+             dtype=torch.float32, causal=True, window=300),
+        dict(name="ragged-bf16-hd256", shape=(1, 4, 1, 777, 333, 256),
+             dtype=torch.bfloat16, causal=False),
+    ]
+
+
+def check_flash_grads(device, shape=(2, 8, 2, 1100, 1100, 64)):
+    """``FlashAttention`` on the card (kernel forward, the plain version's
+    VJP recomputed per block of 1024 query rows) against autograd through
+    ``flash_attention_plain`` on the CPU, fp32, causal with perforation
+    (stride 2) over two row blocks. The card's forward is held to
+    FP32_ATOL, each gradient to 1e-5 of its largest entry (sums over up to
+    1100 terms in other orders)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    B, H, KVH, S, _, hd = shape
+    ins = flash_case(B, H, KVH, S, S, hd, torch.float32,
+                     torch.device("cpu"), seed=5)
+    go = torch.tensor(np.random.default_rng(6).normal(size=(B, H, S, hd)),
+                      dtype=torch.float32)
+    kw = (True, 0, 0.0, 2)
+    cpu = [t.clone().requires_grad_(True) for t in ins]
+    want = fa.flash_attention_plain(*cpu, causal=True, kv_keep_stride=2)
+    want_g = torch.autograd.grad(want, cpu, go)
+    dev = [t.to(device).requires_grad_(True) for t in ins]
+    got = fa.FlashAttention.apply(*dev, *kw)
+    got_g = torch.autograd.grad(got, dev, go.to(device))
+    err = max_err(got.detach().cpu(), want.detach())
+    rel = {n: max_err(g.cpu(), w) / float(w.abs().max())
+           for n, g, w in zip("qkv", got_g, want_g)}
+    print(f"flash_attention grads B={B} H={H} KVH={KVH} S={S} hd={hd} "
+          f"stride 2: card vs cpu plain, out max_abs_err={err:.3g}, "
+          f"grads max_abs_err / max|ref| "
+          + " ".join(f"{k}={v:.3g}" for k, v in rel.items()))
+    assert err <= FP32_ATOL and max(rel.values()) <= 1e-5, (err, rel)
+
+
 # ------------------------------------------------------- paged_attention --
 
 def paged_case(lengths, *, G, R, hd, P, M, dtype, quantized, device,
@@ -453,13 +679,56 @@ def check_parity(device):
               f"({sum(map(len, a))} tokens)")
 
 
+COUNTERS = ("flash_attention", "int8_matmul", "paged_attention",
+            "ssd_scan")
+
+
+def _kernel_mods():
+    from repro_torch.kernels import flash_attention, int8_matmul, \
+        paged_attention, ssd_scan
+    return {"flash_attention": flash_attention, "int8_matmul": int8_matmul,
+            "paged_attention": paged_attention, "ssd_scan": ssd_scan}
+
+
+def reset_launches():
+    for mod in _kernel_mods().values():
+        mod.launches = 0
+
+
+def read_launches():
+    return {name: mod.launches for name, mod in _kernel_mods().items()}
+
+
+def mamba_launches(cfg, knobs):
+    """Kernel launches of one mamba2 training step without remat: every
+    layer's ``ssd_scan`` once; on the int8 rungs each of its three int8
+    projections once forward and once backward (the exact int32 sums the
+    scales' gradients need)."""
+    L = cfg.n_layers
+    return {"ssd_scan": L, "flash_attention": 0, "paged_attention": 0,
+            "int8_matmul": 6 * L if knobs.matmul_precision == "int8" else 0}
+
+
+def attn_launches(cfg, knobs):
+    """Kernel launches of one dense-attention training step under remat
+    "full": the attention runs forward once and again in the recompute, on
+    the kernel unless the stride knob perforates it (``_causal_chunked``
+    in plain PyTorch); on the int8 rungs each of the MLP's three products
+    runs forward, again in the recompute and once in the backward."""
+    L = cfg.n_layers
+    return {"ssd_scan": 0, "paged_attention": 0,
+            "flash_attention": 2 * L if knobs.kv_keep_stride <= 1 else 0,
+            "int8_matmul": 9 * L if knobs.matmul_precision == "int8" else 0}
+
+
 def check_train_parity(device, arch="mamba2-780m-smoke", steps=3,
-                       batch=4, seq=32):
-    """mamba2-780m-smoke trained in fp32 from the same seeded weights, once
-    on the card (CUDA kernels, forward and backward) and once on the CPU
-    (plain versions), ``steps`` steps on each rung of the training ladder:
-    every step's loss within 1e-4 relative (fp32 sums in other orders,
-    carried through three AdamW steps)."""
+                       batch=4, seq=32, remat="none", per_step=None):
+    """``arch`` trained in fp32 from the same seeded weights, once on the
+    card (CUDA kernels, forward and backward) and once on the CPU (plain
+    versions), ``steps`` steps on each rung of the training ladder: every
+    step's loss within 1e-4 relative (fp32 sums in other orders, carried
+    through three AdamW steps). The card run's launches must be
+    ``per_step(cfg, knobs)`` a step."""
     import copy
 
     import torch
@@ -483,27 +752,30 @@ def check_train_parity(device, arch="mamba2-780m-smoke", steps=3,
             params = copy.deepcopy(cpu_params).to(d)
             opt = optim.init_opt(params)
             step = make_train_step(cfg, v.knobs, opt_cfg=opt_cfg,
-                                   remat="none")
+                                   remat=remat)
             losses.append([])
+            reset_launches()
             for i in range(steps):
                 tokens = torch.as_tensor(src.batch(i), device=d)
                 params, opt, m = step(params, opt, {"tokens": tokens})
                 losses[-1].append(float(m["loss"]))
+            if d == device:
+                launches = read_launches()
+        want = {k: steps * n for k, n in per_step(cfg, v.knobs).items()}
         rel = max(abs(a - b) / abs(b) for a, b in zip(*losses))
         worst = max(worst, rel)
-        assert rel <= 1e-4, (v.name, losses)
-        print(f"train parity {v.name}: {device} losses "
+        print(f"train parity {arch} {v.name}: {device} losses "
               f"{[round(x, 6) for x in losses[0]]} vs cpu "
-              f"{[round(x, 6) for x in losses[1]]} (max rel {rel:.3g})")
+              f"{[round(x, 6) for x in losses[1]]} (max rel {rel:.3g}), "
+              f"card launches {launches}")
+        assert rel <= 1e-4, (v.name, losses)
+        assert launches == want, (v.name, launches, want)
     return worst
 
 
 # ------------------------------------------------------------- full width --
 
 def serve_full(device, arch="phi4-mini-3.8b", requests=12, slots=8):
-    import numpy as np
-    from repro_torch.kernels import int8_matmul as i8
-    from repro_torch.kernels import paged_attention as pa
     from repro_torch.launch import serve
     argv = ["--arch", arch, "--paged", "--dtype", "bf16",
             "--device", str(device), "--slots", str(slots),
@@ -512,9 +784,9 @@ def serve_full(device, arch="phi4-mini-3.8b", requests=12, slots=8):
             "--prompt-len", "64", "--prompt-len-max", "400",
             "--max-new", "16", "--qos-target", "0.001",
             "--decision-interval", "0", "--min-samples", "4"]
-    i8.launches = pa.launches = 0
+    reset_launches()
     res = serve.main(argv)
-    launches = {"int8_matmul": i8.launches, "paged_attention": pa.launches}
+    launches = read_launches()
     eng, reqs = res["engine"], res["requests"]
     vocab = eng.cfg.vocab_size
     assert all(r.done and len(r.out) == r.max_new for r in reqs), \
@@ -524,7 +796,9 @@ def serve_full(device, arch="phi4-mini-3.8b", requests=12, slots=8):
     names = res["names"]
     assert names == ["precise", "int8", "int8+kvq8"], names
     assert {0, len(names) - 1} <= visited, (eng.swaps, names)
-    assert all(n > 0 for n in launches.values()), launches
+    assert launches["int8_matmul"] > 0 and launches["paged_attention"] > 0 \
+        and launches["flash_attention"] == launches["ssd_scan"] == 0, \
+        launches
     print(f"serve {arch}: {res['tokens']} tokens, "
           f"tok_s={res['tok_s']:.2f} p50_ms={1e3 * res['p50_s']:.3f} "
           f"p99_ms={1e3 * res['p99_s']:.3f} swaps={eng.swaps} "
@@ -566,7 +840,8 @@ def rung_walk(res, device, batch=8, prompt_len=128, max_new=16):
 def profile_rungs(res, device, batch=8, prompt_len=128, steps=8):
     """``torch.profiler`` over ``steps`` decode steps of a full batch on each
     rung of the full-width model: wall and device-busy time per step, and
-    the kernels that took the most device time."""
+    the kernels that took the most device time. Only the card's activity is
+    traced (host-side tracing of every operator costs more than the step)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -591,8 +866,7 @@ def profile_rungs(res, device, batch=8, prompt_len=128, steps=8):
             eng.step()
         eng.step()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(steps):
                 eng.step()
@@ -610,61 +884,63 @@ def profile_rungs(res, device, batch=8, prompt_len=128, steps=8):
                   f"{e.count / steps:6.1f} calls/step  {e.key[:90]}")
 
 
-def train_full(device, arch="mamba2-780m", steps=12, batch=4, seq=1024):
-    """The training slice at full width and depth:
-    ``repro_torch.launch.train.main`` on mamba2-780m (48 layers, fp32
-    params, random weights from a seed) under ``--pliant``, decisions every
-    step, so the burst in the middle of the run walks the ladder down and
+def train_full(device, arch, steps, batch, seq, names, per_step,
+               remat="none"):
+    """A training slice at full width and depth:
+    ``repro_torch.launch.train.main`` on ``arch`` (fp32 params, random
+    weights from a seed) under ``--pliant``, decisions every step, so the
+    burst in the middle of the run walks the ladder ``names`` down and
     back. The kernels' launch counters are zeroed just before and read just
-    after: every layer launches ``ssd_scan`` once a step, and on the int8
-    rungs each of its three int8 projections launches ``int8_matmul`` once
-    forward and once backward (the exact int32 sums for the scales'
-    gradients)."""
+    after, and must equal ``per_step(cfg, knobs)`` summed over the rungs
+    the run took."""
     import numpy as np
     import torch
-    from repro_torch.kernels import int8_matmul as i8
-    from repro_torch.kernels import ssd_scan as ss
     from repro_torch.launch import train
     argv = ["--arch", arch, "--steps", str(steps), "--batch", str(batch),
             "--seq", str(seq), "--pliant", "--decision-interval", "0",
             "--device", str(device)]
     torch.cuda.reset_peak_memory_stats()
-    i8.launches = ss.launches = 0
-    res = train.main(argv)
-    launches = {"ssd_scan": ss.launches, "int8_matmul": i8.launches}
-    cfg, names = res["cfg"], res["names"]
-    n_int8 = sum(res["table"].variants[v].knobs.matmul_precision == "int8"
-                 for v in res["variants"])
-    assert names == ["precise", "int8", "int8+drop12%", "int8+drop50%"], \
-        names
+    reset_launches()
+    res = train.main(argv, remat=remat)
+    launches = read_launches()
+    cfg, table = res["cfg"], res["table"]
+    assert res["names"] == names, res["names"]
     assert set(res["variants"]) == set(range(len(names))), res["variants"]
     assert all(np.isfinite(res["losses"])), res["losses"]
-    assert launches["ssd_scan"] == cfg.n_layers * steps, launches
-    assert launches["int8_matmul"] == 6 * cfg.n_layers * n_int8 > 0, \
-        (launches, n_int8)
+    want = dict.fromkeys(COUNTERS, 0)
+    for v in res["variants"]:
+        for k, n in per_step(cfg, table.variants[v].knobs).items():
+            want[k] += n
     walk = [names[v] for v in res["variants"]]
-    print(f"train {arch}: {steps} steps batch {batch} seq {seq}, losses "
-          f"{[round(x, 4) for x in res['losses']]}, rungs {walk}, "
-          f"step_s {[round(x, 3) for x in res['step_s']]}, data wait s "
-          f"{[round(x, 4) for x in res['wait_s']]}, peak "
+    print(f"train {arch}: {steps} steps batch {batch} seq {seq} remat "
+          f"{remat}, losses {[round(x, 4) for x in res['losses']]}, rungs "
+          f"{walk}, step_s {[round(x, 3) for x in res['step_s']]}, data "
+          f"wait s {[round(x, 4) for x in res['wait_s']]}, peak "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
           f"launches={launches}")
+    assert launches == want, (launches, want)
     return res, launches
 
 
-def train_rung_walk(res, device, steps=8):
-    """Each rung pinned by ``table.executable(i)`` on the full-width state:
-    ``steps`` steps, the median of all but the first (and their spread),
-    and the peak device memory of those steps."""
+def train_rung_walk(res, device, steps=8, per_step=None, skip=1,
+                    rungs=None, tag=""):
+    """Each rung (or those named in ``rungs``) pinned by
+    ``table.executable(i)`` on the full-width state: ``steps`` steps, the
+    median of all but the first ``skip`` (and their spread), the peak
+    device memory of those steps, and the kernel launches a step (held to
+    ``per_step``). ``tag`` follows the rung's name in the report."""
     import numpy as np
     import torch
-    table, src = res["table"], res["source"]
+    table, src, cfg = res["table"], res["source"], res["cfg"]
     params, opt = res["params"], res["opt"]
     out = {}
     for i, name in enumerate(res["names"]):
+        if rungs is not None and name not in rungs:
+            continue
         step = table.executable(i)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        reset_launches()
         times = []
         for k in range(steps):
             tokens = torch.as_tensor(src.batch(100 + k), device=device)
@@ -673,19 +949,107 @@ def train_rung_walk(res, device, steps=8):
             float(m["loss"])
             times.append(time.perf_counter() - t0)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        ms = 1e3 * float(np.median(times[1:]))
-        out[name] = dict(step_ms=ms, peak_gib=peak)
-        print(f"train rung {name}: median step {ms:.1f} ms over "
-              f"{steps - 1} steps (range {1e3 * min(times[1:]):.1f}-"
-              f"{1e3 * max(times[1:]):.1f}, first {1e3 * times[0]:.1f} ms), "
-              f"peak {peak:.2f} GiB")
+        per = {k: n / steps for k, n in read_launches().items() if n}
+        want = {k: n for k, n in per_step(cfg, table.variants[i].knobs
+                                          ).items() if n}
+        kept = times[skip:]
+        ms = 1e3 * float(np.median(kept))
+        out[name] = dict(step_ms=ms, peak_gib=peak, launches=per)
+        print(f"train rung {cfg.name} {name}{tag}: median step {ms:.1f} ms "
+              f"over "
+              f"{len(kept)} steps (range {1e3 * min(kept):.1f}-"
+              f"{1e3 * max(kept):.1f}, first {1e3 * times[0]:.1f} ms), "
+              f"peak {peak:.2f} GiB, launches a step {per}")
+        assert per == want, (name, per, want)
     res["params"], res["opt"] = params, opt
     return out
 
 
+def chunked_causal_attention():
+    """A context in which the model's causal attention at stride 1 runs
+    ``_causal_chunked`` at stride 1 (plain PyTorch: what the perforated
+    rung runs, less the perforation) in place of the kernel, so that the
+    stride rung's change of step time splits into the swap of kernel for
+    plain PyTorch and the perforation itself."""
+    from unittest import mock
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as am
+    flash = ops.flash
+
+    def chunked(q, k, v, *, causal=True, window=0, cap=0.0,
+                kv_keep_stride=1):
+        if not causal or window or kv_keep_stride > 1:
+            return flash(q, k, v, causal=causal, window=window, cap=cap,
+                         kv_keep_stride=kv_keep_stride)
+        B, H, S, hd = q.shape
+        G = k.shape[1]
+        o = am._causal_chunked(
+            q.transpose(1, 2).reshape(B, S, G, H // G, hd),
+            k.transpose(1, 2), v.transpose(1, 2),
+            q_chunk=am.default_q_chunk(S), kv_keep_stride=1, cap=cap)
+        return o.reshape(B, S, H, hd).transpose(1, 2)
+    return mock.patch.object(ops, "flash", chunked)
+
+
+def time_attention_paths(device, B=2, S=4096, H=24, KVH=8, hd=128,
+                         layers=32, iters=3):
+    """One layer's attention core at phi4-mini's training cell (fp32,
+    causal), from the model's (B, S, H, hd) layout, three ways: the kernel
+    through ``ops.flash`` (the precise and int8 rungs), and
+    ``_causal_chunked`` at stride 1 and at stride 2 (int8+kvstride2). Each
+    is timed forward alone (remat's first pass, which saves nothing) and
+    forward with backward (the recompute and the VJP): a step spends
+    ``layers`` x (forward + forward-and-backward). Kernel against chunked
+    stride 1 is the stride rung's swap of kernel for plain PyTorch;
+    chunked stride 1 against stride 2 its perforation. The kernel's and
+    chunked stride 1's outputs are held to each other (FP32_ATOL)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as am
+    q, k, v = (t.transpose(1, 2).contiguous() for t in flash_case(
+        B, H, KVH, S, S, hd, torch.float32, device, seed=1))
+    go = torch.randn(B, S, H, hd, device=device,
+                     generator=torch.Generator(device=device).manual_seed(2))
+
+    def kernel(q, k, v):
+        return ops.flash(q.transpose(1, 2), k.transpose(1, 2),
+                         v.transpose(1, 2), causal=True).transpose(1, 2)
+
+    def chunked(stride):
+        return lambda q, k, v: am._causal_chunked(
+            q.reshape(B, S, KVH, H // KVH, hd), k, v,
+            q_chunk=am.default_q_chunk(S), kv_keep_stride=stride,
+            cap=0.0).reshape(B, S, H, hd)
+
+    paths = {"kernel": kernel, "chunked stride 1": chunked(1),
+             "chunked stride 2": chunked(2)}
+    with torch.no_grad():
+        err = max_err(kernel(q, k, v), paths["chunked stride 1"](q, k, v))
+    assert err <= FP32_ATOL, err
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = {}
+    for name, fn in paths.items():
+        def fwd():
+            with torch.no_grad():
+                fn(q, k, v)
+
+        def fwd_bwd():
+            fn(*leaves).backward(go)
+        f, fb = timed(fwd, device, iters, 1), timed(fwd_bwd, device, iters, 1)
+        out[name] = dict(fwd_ms=f, fwd_bwd_ms=fb,
+                         step_ms=layers * (f + fb))
+        print(f"attention core {name}: forward {f:.3f} ms, forward+backward "
+              f"{fb:.3f} ms, {layers} layers under remat "
+              f"{layers * (f + fb):.1f} ms a step")
+    print(f"attention core: kernel vs chunked stride 1 max_abs_err "
+          f"{err:.3g} (tol {FP32_ATOL:.3g})")
+    return out
+
+
 def profile_train(res, device):
-    """``torch.profiler`` over one training step per rung at full width:
-    wall and device-busy time, the largest kernels."""
+    """``torch.profiler`` over one training step per rung at full width,
+    the card's activity only: wall and device-busy time, the largest
+    kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -699,8 +1063,8 @@ def profile_train(res, device):
         step = table.executable(i)
         tokens = torch.as_tensor(src.batch(200 + i), device=device)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             params, opt, m = step(params, opt, {"tokens": tokens})
             float(m["loss"])
@@ -709,8 +1073,9 @@ def profile_train(res, device):
                 if e.device_type == torch.autograd.DeviceType.CUDA
                 and dev_us(e) > 0]
         busy = sum(dev_us(e) for e in kern) / 1e3
-        print(f"train profile {name}: wall {wall:.1f} ms, device busy "
-              f"{busy:.1f} ms ({busy / wall:.3f})")
+        print(f"train profile {res['cfg'].name} {name}: wall {wall:.1f} ms, "
+              f"device busy {busy:.1f} ms ({busy / wall:.3f}), peak "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
         for e in sorted(kern, key=dev_us, reverse=True)[:12]:
             print(f"  {dev_us(e) / 1e3:9.3f} ms {e.count:6d} calls  "
                   f"{e.key[:90]}")
@@ -765,7 +1130,12 @@ def main():
     check_ssd_grads(device)
     ssd_bwd_ms = time_ssd_backward(device, ssd_full)
     check_int8_grads(device)
-    kernels = {"int8_matmul": next(r for r in i8_rows
+    fa_rows = check_flash(device, phi4_flash_cases())
+    check_flash_grads(device)
+    time_attention_paths(device)
+    kernels = {"flash_attention": next(r for r in fa_rows
+                                       if r["name"] == "cell-fp32"),
+               "int8_matmul": next(r for r in i8_rows
                                    if (r["M"], r["K"], r["N"])
                                    == (8, 3072, 8192)),
                "paged_attention": next(r for r in pa_rows
@@ -775,7 +1145,9 @@ def main():
                                 and r["dtype"] == "fp32")}
     phase_done("kernels")
     check_parity(device)
-    check_train_parity(device)
+    check_train_parity(device, per_step=mamba_launches)
+    check_train_parity(device, "phi4-mini-3.8b-smoke", batch=2, seq=4096,
+                       remat="full", per_step=attn_launches)
     phase_done("parity")
     res, serve_launches = serve_full(device)
     rung_walk(res, device)
@@ -784,22 +1156,46 @@ def main():
     phase_done("profile")
     del res
     torch.cuda.empty_cache()
-    tres, train_launches = train_full(device)
+    tres, train_launches = train_full(
+        device, "mamba2-780m", 12, 4, 1024,
+        ["precise", "int8", "int8+drop12%", "int8+drop50%"], mamba_launches)
     phase_done("train")
-    train_rung_walk(tres, device)
+    train_rung_walk(tres, device, steps=5, per_step=mamba_launches)
     profile_train(tres, device)
     phase_done("train-rungs")
     print(f"ssd_scan_backward: {48 * ssd_bwd_ms:.1f} ms a training step "
           f"(48 layers x {ssd_bwd_ms:.3f} ms)")
+    del tres
+    torch.cuda.empty_cache()
+    # phi4-mini-3.8b at 2 x 4096 tokens: 61.5 GB of fp32 params, grads and
+    # AdamW moments, so the layers' activations fit only under remat
+    ares, attn_train_launches = train_full(
+        device, "phi4-mini-3.8b", 8, 2, 4096,
+        ["precise", "int8", "int8+kvstride2", "int8+drop50%"],
+        attn_launches, remat="full")
+    phase_done("train-attn")
+    train_rung_walk(ares, device, steps=4, per_step=attn_launches)
+    with chunked_causal_attention():
+        train_rung_walk(ares, device, steps=4, rungs=["int8"],
+                        tag=" (attention chunked, stride 1)",
+                        per_step=lambda cfg, knobs: {
+                            **attn_launches(cfg, knobs),
+                            "flash_attention": 0})
+    profile_train(ares, device)
+    phase_done("train-attn-rungs")
 
-    src_of = {"int8_matmul": ("src/repro_torch/csrc/int8_matmul.cu",
+    src_of = {"flash_attention": (
+                  "src/repro_torch/csrc/flash_attention.cu",
+                  "src/repro/kernels/flash_attention.py:89"),
+              "int8_matmul": ("src/repro_torch/csrc/int8_matmul.cu",
                               "src/repro/kernels/int8_matmul.py:40"),
               "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                                   "src/repro/kernels/paged_attention.py:98"),
               "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
                            "src/repro/kernels/ssd_scan.py:62")}
-    by_path = {name: {"serve": serve_launches.get(name, 0),
-                      "train": train_launches.get(name, 0)}
+    by_path = {name: {"serve": serve_launches[name],
+                      "train": train_launches[name],
+                      "train-attn": attn_train_launches[name]}
                for name in kernels}
     line = []
     for name, r in kernels.items():

@@ -2,15 +2,19 @@
 
 Counterpart of the JAX package's ``kernels/ops.py``: a CUDA tensor launches
 the hand-written kernel (or raises), a CPU tensor takes the kernel's plain
-version. There is no switch beyond the device. ``quantized_matmul`` and
-``ssd`` are differentiable (the training path); their backward rules
-follow what ``jax.grad`` does with the JAX package's CPU path.
+version. There is no switch beyond the device. ``quantized_matmul``,
+``flash`` and ``ssd`` are differentiable (the training path); their
+backward rules follow what ``jax.grad`` does with the JAX package's CPU
+path. ``flash`` follows the Pallas kernel on both devices (start-aligned
+positions, ``kv_keep_stride`` honoured), where the JAX package's CPU branch
+falls back to the end-aligned ``mha_ref`` and drops the stride.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import FlashAttention
 from repro_torch.kernels.int8_matmul import int8_matmul
 from repro_torch.kernels.paged_attention import paged_attention  # noqa: F401
 from repro_torch.kernels.ssd_scan import SSDScan
@@ -68,6 +72,15 @@ def matmul(precision: str):
     if precision == "int8":
         return quantized_matmul
     return bf16_matmul
+
+
+def flash(q, k, v, *, causal=True, window=0, cap=0.0, kv_keep_stride=1):
+    """Blocked attention through the ``flash_attention`` kernel (its plain
+    version for CPU tensors), differentiable through ``FlashAttention``.
+    q: (B,H,Sq,hd); k/v: (B,KVH,Skv,hd); returns (B,H,Sq,hd)."""
+    return FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                v.contiguous(), causal, window, cap,
+                                kv_keep_stride)
 
 
 def ssd(x, dt, a, b, c, *, chunk=128, d_skip=None):

@@ -1,8 +1,9 @@
 """Plain PyTorch oracles: the counterparts of the JAX package's
 ``kernels/ref.py`` for the W8A8 matmul (``quantize_rowwise``,
-``int8_matmul_ref``, ``quantized_matmul_ref``) and the Mamba2 SSD
-(``ssd_ref``, ``ssd_chunked_ref``). The kernels' own plain versions sit
-beside their wrappers (``kernels/paged_attention.py``,
+``int8_matmul_ref``, ``quantized_matmul_ref``), masked attention
+(``mha_ref``) and the Mamba2 SSD (``ssd_ref``, ``ssd_chunked_ref``). The
+kernels' own plain versions sit beside their wrappers
+(``kernels/paged_attention.py``, ``kernels/flash_attention.py``,
 ``kernels/ssd_scan.py``)."""
 from __future__ import annotations
 
@@ -41,6 +42,36 @@ def quantized_matmul_ref(x, w, out_dtype=None):
     w_q, w_s = quantize_rowwise(w, axis=0)
     y = int8_matmul_ref(x_q, x_s, w_q, w_s, out_dtype)
     return y.reshape(lead + (w.shape[-1],))
+
+
+# ------------------------------------------------------- flash attention ----
+
+def mha_ref(q, k, v, *, causal=True, window=0, cap=0.0):
+    """Naive masked attention oracle. q: (B,H,Sq,hd), k/v: (B,KVH,Skv,hd).
+
+    GQA: q head h reads kv head h // (H // KVH). Query positions are
+    END-aligned with the keys (``qp = arange(Sq) + Skv - Sq``, the decode
+    convention); masked scores sit at -1e30 and the softmax is fp32, ``p``
+    cast to q's dtype before P.V."""
+    Sq, hd = q.shape[2], q.shape[3]
+    Skv = k.shape[2]
+    rep = q.shape[1] // k.shape[1]
+    k = k.repeat_interleave(rep, dim=1)
+    v = v.repeat_interleave(rep, dim=1)
+    f32 = torch.promote_types(q.dtype, torch.float32)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(f32), k.to(f32)) * hd ** -0.5
+    if cap:
+        s = cap * torch.tanh(s / cap)
+    qp = torch.arange(Sq, device=q.device)[:, None] + (Skv - Sq)
+    kp = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kp <= qp
+    if window:
+        mask &= kp > qp - window
+    s = torch.where(mask, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p.to(q.dtype), v)
 
 
 # ---------------------------------------------------------- Mamba2 SSD ----

@@ -11,11 +11,15 @@ job back toward precise.
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-780m \
       --steps 20 --batch 4 --seq 1024 --pliant --decision-interval 0
 
-``--device cpu`` runs the kernels' plain versions on the CPU. ``main``
-prints the same ``step ... loss ... variant=...`` and ``final loss`` lines
-as the JAX driver and returns a dict with the table, the trained state and
-the per-step record (loss, wall seconds, seconds waiting for data, active
-variant).
+The default arch is phi4-mini-3.8b-smoke, as in the JAX driver; every arch
+the port configures trains (attention and Mamba blocks). ``--device cpu``
+runs the kernels' plain versions on the CPU. ``main(argv, remat=...)``
+hands ``remat`` to ``build_variant_steps``: "none" by default, as in the
+JAX driver; full-width phi4-mini-3.8b at 2 x 4096 tokens needs "full" to
+fit one 80 GB card. ``main`` prints the same ``step ... loss ...
+variant=...`` and ``final loss`` lines as the JAX driver and returns a dict
+with the table, the trained state and the per-step record (loss, wall
+seconds, seconds waiting for data, active variant).
 """
 from __future__ import annotations
 
@@ -46,9 +50,9 @@ def build_variant_steps(cfg, table: VariantTable, opt_cfg, remat="none"):
         cfg, knobs, opt_cfg=opt_cfg, remat=remat))
 
 
-def main(argv=None):
+def main(argv=None, remat="none"):
     p = argparse.ArgumentParser()
-    p.add_argument("--arch", default="mamba2-780m-smoke")
+    p.add_argument("--arch", default="phi4-mini-3.8b-smoke")
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--seq", type=int, default=128)
@@ -69,7 +73,7 @@ def main(argv=None):
 
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
     table = explore(cfg, shape, serving=False, max_variants=4)
-    build_variant_steps(cfg, table, opt_cfg)
+    build_variant_steps(cfg, table, opt_cfg, remat=remat)
     names = [v.name for v in table.variants]
 
     monitor = LatencyMonitor(SERVICES["token-serve"].qos_target_s)

@@ -1,11 +1,16 @@
-"""GQA attention over the paged KV pool: specs, the fp32-softmax core, int8
-KV encoding, the paged cache, one-token decode and chunked prefill.
+"""GQA attention: specs, the fp32-softmax core, the full-sequence
+(training) forward, int8 KV encoding, the paged cache, one-token decode and
+chunked prefill.
 
 Counterpart of the JAX package's ``models/attention.py``, single device.
-Decode writes the new K/V entry with a plain index write and then calls the
-fused ``paged_attention`` kernel (CUDA on the card, its plain version on the
-CPU); chunked prefill gathers the slot's pages and runs ``_sdpa``, as the
-JAX package does. Cache writes update the pool tensors in place.
+The full-sequence forward goes through ``ops.flash`` (the CUDA
+``flash_attention`` kernel on the card, its plain version on the CPU) in
+every mode but the perforated causal one: with ``kv_keep_stride`` > 1 it is
+``_causal_chunked``, the JAX package's absolute perforation rule, in plain
+PyTorch. Decode writes the new K/V entry with a plain index write and then
+calls the fused ``paged_attention`` kernel; chunked prefill gathers the
+slot's pages and runs ``_sdpa``, as the JAX package does. Cache writes
+update the pool tensors in place.
 """
 from __future__ import annotations
 
@@ -42,6 +47,78 @@ def _sdpa(q, k, v, *, mask=None, cap: float = 0.0):
         s = torch.where(mask, s, -1e30)
     p = torch.softmax(s, dim=-1).to(q.dtype)
     return torch.einsum("bgrst,btgh->bsgrh", p, v)
+
+
+def default_q_chunk(seq_len: int) -> int:
+    """The JAX package's query chunk of ``_causal_chunked``: 1024 up to
+    8192 tokens, 256 beyond (bounds the fp32 score tile)."""
+    if seq_len <= 8192:
+        return 1024
+    return 256
+
+
+def attention(params, x, positions, cfg: ModelConfig, *,
+              mode: str = "causal",          # causal | window | cross | full
+              kv_x=None, q_chunk: int = 0, kv_keep_stride: int = 1,
+              rope: bool = True):
+    """Full-sequence attention. x: (B,S,D); positions: (B,S). Returns
+    (B,S,D).
+
+    ``causal`` (at ``kv_keep_stride`` <= 1), ``window`` (causal within
+    ``cfg.window``, the mask of the JAX package's ``_banded``) and
+    ``full``/``cross`` (no mask; ``cross`` attends over ``kv_x`` without
+    RoPE) go through ``ops.flash``. ``causal`` at ``kv_keep_stride`` > 1 is
+    ``_causal_chunked``: the kernel's own stride rule is relative to the
+    query block and keeps other blocks, so the model path does not use it."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    G, R = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    src = x if kv_x is None else kv_x
+    q = _split_heads(x @ params.wq, cfg.n_heads, hd)
+    k = _split_heads(src @ params.wk, G, hd)
+    v = _split_heads(src @ params.wv, G, hd)
+    if rope and mode != "cross":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    if mode == "causal" and kv_keep_stride > 1:
+        o = _causal_chunked(q.reshape(B, S, G, R, hd), k, v,
+                            q_chunk=q_chunk or default_q_chunk(S),
+                            kv_keep_stride=kv_keep_stride,
+                            cap=cfg.attn_softcap)
+    else:
+        o = kops.flash(q.transpose(1, 2), k.transpose(1, 2),
+                       v.transpose(1, 2), causal=mode in ("causal", "window"),
+                       window=cfg.window if mode == "window" else 0,
+                       cap=cfg.attn_softcap).transpose(1, 2)
+    return o.reshape(B, S, cfg.q_dim) @ params.wo
+
+
+def _causal_chunked(q, k, v, *, q_chunk: int, kv_keep_stride: int,
+                    cap: float):
+    """Query chunk i of C rows sees the keys of chunks 0..i, masked
+    causally; with ``kv_keep_stride=p`` > 1 the off-diagonal chunks are
+    perforated: chunk i keeps chunks i-1 and i and every old chunk j with
+    ``j % p == 0``. q: (B,S,G,R,hd); k/v: (B,S,G,hd)."""
+    S = q.shape[1]
+    C = min(q_chunk, S)
+    assert S % C == 0, (S, C)
+    dev = q.device
+    outs = []
+    for i in range(S // C):
+        if kv_keep_stride <= 1 or i <= 1:
+            keep = list(range(i + 1))
+        else:
+            keep = [j for j in range(i - 1) if j % kv_keep_stride == 0] \
+                + [i - 1, i]
+        ki = torch.cat([k[:, j * C:(j + 1) * C] for j in keep], dim=1)
+        vi = torch.cat([v[:, j * C:(j + 1) * C] for j in keep], dim=1)
+        kv_pos = torch.cat([torch.arange(j * C, (j + 1) * C, device=dev)
+                            for j in keep])
+        q_pos = torch.arange(i * C, (i + 1) * C, device=dev)
+        mask = kv_pos[None, :] <= q_pos[:, None]              # (C, Skv_i)
+        outs.append(_sdpa(q[:, i * C:(i + 1) * C], ki, vi,
+                          mask=mask[None, None, None], cap=cap))
+    return torch.cat(outs, dim=1)
 
 
 # Global static scale of the int8-quantized serving KV cache (the

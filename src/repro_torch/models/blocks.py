@@ -1,7 +1,8 @@
 """Pre-norm residual blocks. Counterpart of the JAX package's
-``models/blocks.py``: the ATTN and LOCAL_ATTN kinds with an MLP on the
-paged serving path (decode and paged chunked prefill), and the MAMBA kind's
-full-sequence forward on the training path."""
+``models/blocks.py``: the ATTN and LOCAL_ATTN kinds with an MLP, on the
+paged serving path (decode and paged chunked prefill) and in the
+full-sequence forward of the training path, and the MAMBA kind's
+full-sequence forward. MoE and cross-attention blocks are not ported."""
 from __future__ import annotations
 
 import torch
@@ -26,19 +27,27 @@ def block_specs(kind: str, cfg: ModelConfig):
             "mlp": mlp_mod.mlp_specs(cfg)}
 
 
-def block_forward(kind: str, params, h, cfg: ModelConfig,
-                  knobs: ApproxKnobs = PRECISE):
-    """Full-sequence block (the training forward). Returns (h, aux_loss).
-    The port runs the MAMBA kind here; the dense attention forward waits
-    for an attention-arch training slice."""
-    if kind != MAMBA:
-        raise NotImplementedError(
-            f"block_forward: the port trains MAMBA blocks only, not {kind}")
+def block_forward(kind: str, params, h, positions, cfg: ModelConfig,
+                  knobs: ApproxKnobs = PRECISE, *, causal: bool = True):
+    """Full-sequence block (the training forward). h: (B,S,D); positions:
+    (B,S). Returns (h, aux_loss). An attention block runs its attention in
+    ``window`` mode for LOCAL_ATTN, else ``causal`` (``full`` when
+    ``causal`` is False), with the ``kv_keep_stride`` knob, then the MLP at
+    the knob's matmul precision."""
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    y = mamba_mod.mamba_mixer(params.mixer,
-                              rms_norm(h, params.norm, cfg.norm_eps), cfg,
-                              precision=knobs.matmul_precision)
-    return h + y, aux
+    prec = knobs.matmul_precision
+    if kind == MAMBA:
+        y = mamba_mod.mamba_mixer(params.mixer,
+                                  rms_norm(h, params.norm, cfg.norm_eps),
+                                  cfg, precision=prec)
+        return h + y, aux
+    mode = ("window" if kind == LOCAL_ATTN else
+            ("causal" if causal else "full"))
+    h = h + attn_mod.attention(
+        params.attn, rms_norm(h, params.norm_attn, cfg.norm_eps), positions,
+        cfg, mode=mode, kv_keep_stride=knobs.kv_keep_stride)
+    hn = rms_norm(h, params.norm_mlp, cfg.norm_eps)
+    return h + mlp_mod.mlp(params.mlp, hn, precision=prec), aux
 
 
 def _kv_args(kind: str, cfg: ModelConfig, knobs: ApproxKnobs):

@@ -63,7 +63,8 @@ def logits_fn(params, h, cfg: ModelConfig):
 
 def forward_hidden(params, tokens, cfg: ModelConfig,
                    knobs: ApproxKnobs = PRECISE, *, remat: str = "full"):
-    """tokens: (B, S) -> (h (B,S,D) final-normed, aux loss).
+    """tokens: (B, S) -> (h (B,S,D) final-normed, aux loss). Every block
+    sees the positions ``arange(S)``.
 
     The ``layer_skip`` knob runs only ``keep_groups``' layer groups.
     ``remat``: "none" keeps every activation; "full" recomputes each layer
@@ -73,12 +74,14 @@ def forward_hidden(params, tokens, cfg: ModelConfig,
                          f"got {remat!r}")
     h = params.embed[tokens]
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    B, S = tokens.shape
+    positions = torch.arange(S, device=h.device).expand(B, S)
     period = len(cfg.pattern)
 
     def group_body(h, aux, g):
         for j, kind in enumerate(cfg.pattern):
-            h, a = block_forward(kind, params.layers[g * period + j], h, cfg,
-                                 knobs)
+            h, a = block_forward(kind, params.layers[g * period + j], h,
+                                 positions, cfg, knobs)
             aux = aux + a
         return h, aux
 
