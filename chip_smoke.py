@@ -22,14 +22,25 @@ Phases, each reported on its own line:
              one layer's attention core at phi4-mini's training cell timed
              through the kernel and through ``_causal_chunked`` at stride
              1 and 2, and the differentiable ``quantized_matmul``'s gradients (zero
-             pattern included) against the CPU plain path.
+             pattern included) against the CPU plain path. ``int8_matmul``
+             also at phi4-mini training's products (M 8192). ``ring_hop``
+             at the ring cell's hop (phi4-mini heads, Cl 512 of a 2048-token
+             chunk over 4 shards, Ll 4096) with bf16, fp32 and int8 K/V,
+             carried state, position holes and rows that see nothing, plus
+             window + softcap + GQA; then the whole
+             ``ring_chunk_attention`` at the cell's chunk (C 2048, L 16384,
+             bf16) against the single-device path, timed beside it and
+             beside ``scaled_dot_product_attention``.
 3. parity    phi4-mini-3.8b-smoke served in fp32 twice from the same seeded
              weights, on the card and on the CPU: the greedy token streams
              of each serving rung must be equal. mamba2-780m-smoke (4 x 32
              tokens, no remat) and phi4-mini-3.8b-smoke (2 x 4096 tokens,
              remat "full") trained in fp32 three steps on each training
              rung, on the card and on the CPU from the same weights: the
-             losses must agree.
+             losses must agree. phi4-mini-3.8b-smoke served in fp32 under
+             a 4x1 mesh on every serving rung: the ring engine on the card,
+             the same engine on the CPU and the single-device engine on the
+             card give the same greedy streams.
 4. serve     the serving slice at full width: ``repro_torch.launch.serve``
              on phi4-mini-3.8b (32 layers, bf16, random weights) under a QoS
              target tight enough that the Pliant runtime swaps variants,
@@ -51,6 +62,14 @@ Phases, each reported on its own line:
              the int8 rung again with its causal attention through
              ``_causal_chunked`` at stride 1 (the stride rung less its
              perforation), and one profiled step per rung.
+8. serve-ring  ring-attention admission at full width: phi4-mini-3.8b
+             (32 layers, bf16, random weights) served under a 4x1 mesh on
+             the one card (4 sequence shards run in turn), 4 slots, max_len
+             16384, chunk 2048, prompts of 16000, 12000, 9000 and 8194
+             tokens, on precise and int8+kvq8, launch counters zeroed just
+             before and read just after each ring run; each rung again on
+             the single-device engine: admission ms a chunk on both paths,
+             hops run and skipped, and the first-token logits gate.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``. Any
@@ -639,11 +658,12 @@ def phi4_paged_cases(dtype_main):
 
 # ---------------------------------------------------------------- parity --
 
-def engine_streams(cfg, params, table, device, rung, prompts, max_new):
+def engine_streams(cfg, params, table, device, rung, prompts, max_new,
+                   mesh=None, prefill_chunk=4, n_pages=24):
     from repro_torch.serve.engine import Request, ServeEngine
     eng = ServeEngine(cfg, batch_slots=2, max_len=64, params=params,
-                      table=table, prefill_chunk=4, page_size=4, n_pages=24,
-                      device=device)
+                      table=table, prefill_chunk=prefill_chunk, page_size=4,
+                      n_pages=n_pages, device=device, mesh=mesh)
     eng.request_variant(rung)
     reqs = [Request(i, prompt=list(p), max_new=max_new)
             for i, p in enumerate(prompts)]
@@ -680,19 +700,23 @@ def check_parity(device):
 
 
 COUNTERS = ("flash_attention", "int8_matmul", "paged_attention",
-            "ssd_scan")
+            "ring_hop", "ssd_scan")
 
 
 def _kernel_mods():
     from repro_torch.kernels import flash_attention, int8_matmul, \
-        paged_attention, ssd_scan
+        paged_attention, ring_attention, ssd_scan
     return {"flash_attention": flash_attention, "int8_matmul": int8_matmul,
-            "paged_attention": paged_attention, "ssd_scan": ssd_scan}
+            "paged_attention": paged_attention, "ring_hop": ring_attention,
+            "ssd_scan": ssd_scan}
 
 
 def reset_launches():
+    """Zero every kernel's launch count (and the ring's hop counts)."""
+    from repro_torch.kernels import ring_attention
     for mod in _kernel_mods().values():
         mod.launches = 0
+    ring_attention.hops_run = ring_attention.hops_skipped = 0
 
 
 def read_launches():
@@ -706,6 +730,7 @@ def mamba_launches(cfg, knobs):
     scales' gradients need)."""
     L = cfg.n_layers
     return {"ssd_scan": L, "flash_attention": 0, "paged_attention": 0,
+            "ring_hop": 0,
             "int8_matmul": 6 * L if knobs.matmul_precision == "int8" else 0}
 
 
@@ -716,7 +741,7 @@ def attn_launches(cfg, knobs):
     in plain PyTorch); on the int8 rungs each of the MLP's three products
     runs forward, again in the recompute and once in the backward."""
     L = cfg.n_layers
-    return {"ssd_scan": 0, "paged_attention": 0,
+    return {"ssd_scan": 0, "paged_attention": 0, "ring_hop": 0,
             "flash_attention": 2 * L if knobs.kv_keep_stride <= 1 else 0,
             "int8_matmul": 9 * L if knobs.matmul_precision == "int8" else 0}
 
@@ -797,8 +822,8 @@ def serve_full(device, arch="phi4-mini-3.8b", requests=12, slots=8):
     assert names == ["precise", "int8", "int8+kvq8"], names
     assert {0, len(names) - 1} <= visited, (eng.swaps, names)
     assert launches["int8_matmul"] > 0 and launches["paged_attention"] > 0 \
-        and launches["flash_attention"] == launches["ssd_scan"] == 0, \
-        launches
+        and launches["flash_attention"] == launches["ssd_scan"] \
+        == launches["ring_hop"] == 0, launches
     print(f"serve {arch}: {res['tokens']} tokens, "
           f"tok_s={res['tok_s']:.2f} p50_ms={1e3 * res['p50_s']:.3f} "
           f"p99_ms={1e3 * res['p99_s']:.3f} swaps={eng.swaps} "
@@ -1082,6 +1107,489 @@ def profile_train(res, device):
     res["params"], res["opt"] = params, opt
 
 
+# -------------------------------------------------------------- ring_hop --
+
+RING_N = 4                    # the ring cell's mesh 4x1: 4 sequence shards
+RING_CHUNK = 2048             # its prefill chunk
+RING_CTX = 16384              # its max_len: the gathered block row
+# fp32 hop state and ring outputs: kernel and plain version compute in fp32
+# from the same (exactly upcast) inputs and differ in the order of their
+# sums (online softmax over 64-key tiles against one pass over the hop;
+# dot products of 128 terms), ~1e-7 relative: held to RING_REL of the
+# largest |acc|, l, |m| or |o| of the reference.
+RING_REL = 1e-5
+
+
+def ring_hop_case(c, device, seed=0):
+    """One hop as the cell's ring gives it: shard 0's resident queries,
+    striped from a chunk of ``RING_N * Cl`` positions starting at
+    ``chunk_start`` (rows chunk_start, +n, +2n, ...), against a K/V shard
+    of Ll positions from ``kv_start``; entries at or past the chunk's end
+    are not written yet (-1). q, k unit-scale (the model's RoPE'd
+    projections are O(1)), v unit-scale, int8 K/V quantised with the
+    engine's ``quantize_kv``. ``holes``: unmapped runs of -1 in the K/V
+    positions; ``dead``: query rows at -1 and rows before every key (they
+    see nothing and must keep their state); ``carried``: the state a plain
+    hop over the diagonal shard left (else the initial state)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ring_attention as ra
+    from repro_torch.models.attention import KV_SCALE, quantize_kv
+    B, H, KVH, Cl, Ll, hd = c["shape"]
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape):
+        return torch.tensor(rng.normal(size=shape), dtype=torch.float32)
+
+    q = normal(B, H, Cl, hd).to(c["q_dtype"])
+    k, v = normal(B, KVH, Ll, hd), normal(B, KVH, Ll, hd)
+    kv_scale = 0.0
+    if c["kv_dtype"] == torch.int8:
+        k, v, kv_scale = quantize_kv(k), quantize_kv(v), KV_SCALE
+    else:
+        k, v = k.to(c["kv_dtype"]), v.to(c["kv_dtype"])
+    start, end = c["chunk_start"], c["chunk_start"] + RING_N * Cl
+    qp = torch.arange(start, end, RING_N, dtype=torch.int32).expand(
+        B, Cl).clone()
+    kvp = torch.arange(c["kv_start"], c["kv_start"] + Ll,
+                       dtype=torch.int32).expand(B, Ll).clone()
+    kvp[kvp >= end] = -1
+    if c.get("holes"):
+        kvp[:, Ll // 8: Ll // 8 + 48] = -1
+        kvp[:, Ll // 2: Ll // 2 + 16] = -1
+    if c.get("dead"):
+        qp[:, :5] = -1
+        qp[:, 5:9] = c["kv_start"] - 1 - torch.arange(4, dtype=torch.int32)
+    m = torch.full((B, H, Cl, 1), ra.NEG_INF)
+    l, acc = torch.zeros(B, H, Cl, 1), torch.zeros(B, H, Cl, hd)
+    args = [t.to(device) for t in (q, k, v, qp, kvp, m, l, acc)]
+    kw = dict(window=c.get("window", 0), cap=c.get("cap", 0.0),
+              kv_scale=kv_scale)
+    if c.get("carried"):
+        kd = args[1][:, :, :Ll // 2]
+        vd = args[2][:, :, :Ll // 2]
+        kpd = torch.arange(start, start + Ll // 2, dtype=torch.int32,
+                           device=device).expand(B, Ll // 2).contiguous()
+        ra.ring_hop_plain(args[0], kd.contiguous(), vd.contiguous(),
+                          args[3], kpd, *args[5:], **kw)
+    return args, kw
+
+
+def ring_hop_bound_ms(args, kw):
+    """Bytes: q, K, V and the positions read once, m, l and acc read and
+    written once. Operations: Q.K^T and P.V over the pairs this hop's
+    positions make visible, 4 hd FLOP a pair per head, at the query type's
+    peak (the fp32 peak for fp32 queries, the bf16 one otherwise: the int8
+    K/V are dequantised to the products' type)."""
+    import torch
+    from repro_torch.kernels import ring_attention as ra
+    q, k, v, qp, kvp, m, l, acc = args
+    B, H, Cl, hd = q.shape
+    pairs = int(ra.visible(qp, kvp, kw["window"]).sum())
+    nbytes = (q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
+              + 4 * (qp.numel() + kvp.numel()) + 2 * 4 * (2 * m.numel())
+              + 2 * 4 * acc.numel())
+    ops = 4.0 * H * hd * pairs
+    peak = FP32_FLOPS if q.dtype == torch.float32 else BF16_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BW, ops / peak
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", pairs)
+
+
+def state_errors(got, ref):
+    """(m, l, acc) differences, each over the reference's largest entry (m
+    over its rows that saw a key; rows still at -1e30 must stay there)."""
+    import torch
+    from repro_torch.kernels import ring_attention as ra
+    (gm, gl, ga), (rm, rl, ra_) = got, ref
+    live = rm > ra.NEG_INF / 10
+    assert torch.equal(gm[~live], rm[~live]), "untouched rows moved"
+    scale_m = float(rm[live].abs().max()) if live.any() else 1.0
+    return dict(
+        m=max_err(gm[live], rm[live]) / max(scale_m, 1.0) if live.any()
+        else 0.0,
+        l=max_err(gl, rl) / max(float(rl.abs().max()), 1e-30),
+        acc=max_err(ga, ra_) / max(float(ra_.abs().max()), 1e-30))
+
+
+def check_ring_hop(device, cases, iters=10):
+    """``ring_hop`` against ``ring_hop_plain`` on the card, each updating
+    its own copy of the state, held to RING_REL (both compute in fp32 from
+    the same inputs, bf16 and int8 included: nothing in a hop is rounded to
+    bf16). Rows that see nothing keep their state exactly. Times: the
+    kernel, the plain version, and the bound; ``library_ms`` is null (no
+    PyTorch call carries (m, l, acc) across calls)."""
+    import torch
+    from repro_torch.kernels import ring_attention as ra
+    rows = []
+    for c in cases:
+        args, kw = ring_hop_case(c, device)
+        state = args[5:]
+        got = ra.ring_hop(*args[:5], *[t.clone() for t in state], **kw)
+        ref = ra.ring_hop_plain(*args[:5], *[t.clone() for t in state],
+                                **kw)
+        torch.cuda.synchronize()
+        assert all(torch.isfinite(t).all() for t in got[1:]), c["name"]
+        err = state_errors(got, ref)
+        seen = ra.visible(args[3], args[4], kw["window"]).any(-1)
+        blind = ~seen[:, None, :].expand(args[0].shape[:3])
+        assert torch.equal(got[2][blind], state[2][blind]), c["name"]
+        assert max(err.values()) <= RING_REL, (c["name"], err)
+        work = [t.clone() for t in state]
+        kern = timed(lambda: ra.ring_hop(*args[:5], *work, **kw), device,
+                     iters)
+        plain = timed(lambda: ra.ring_hop_plain(*args[:5], *work, **kw),
+                      device, 3, warmup=1)
+        bound, by, pairs = ring_hop_bound_ms(args, kw)
+        rows.append(dict(name=c["name"], shape=c["shape"],
+                         max_abs_err=max_err(got[2], ref[2]), rel=err,
+                         ms=kern, plain_ms=plain, library_ms=None,
+                         bound_ms=bound, bound_by=by, pairs=pairs))
+        print(f"ring_hop {c['name']} (B,H,KVH,Cl,Ll,hd)={c['shape']} q "
+              f"{str(args[0].dtype)[6:]} kv {str(args[1].dtype)[6:]}: "
+              f"rel err m={err['m']:.3g} l={err['l']:.3g} "
+              f"acc={err['acc']:.3g} (tol {RING_REL:g}), blind rows "
+              f"{int(blind.sum())} kept, ms={kern:.4f} plain_ms="
+              f"{plain:.4f} library_ms=null bound_ms={bound:.4f} ({by}, "
+              f"{pairs} visible pairs)")
+    return rows
+
+
+def phi4_ring_hop_cases():
+    """The cell's hop (phi4-mini-3.8b: H 24, KVH 8, hd 128; Cl 512 of a
+    2048-token chunk over 4 shards, Ll 4096 of a 16384-token block row) in
+    bf16, fp32 and int8 K/V, carried state, holes and dead rows; then
+    window + softcap with GQA at a small shape."""
+    import torch
+    bf16, f32, i8 = torch.bfloat16, torch.float32, torch.int8
+    cell = dict(shape=(1, 24, 8, 512, 4096, 128), chunk_start=14336)
+    small = dict(shape=(2, 8, 2, 100, 300, 64), chunk_start=250,
+                 kv_start=200, window=64, cap=30.0)
+    return [
+        dict(cell, name="cell-bf16", q_dtype=bf16, kv_dtype=bf16,
+             kv_start=0, carried=True),
+        dict(cell, name="cell-bf16-diagonal", q_dtype=bf16, kv_dtype=bf16,
+             kv_start=12288, holes=True),
+        dict(cell, name="cell-fp32", q_dtype=f32, kv_dtype=f32, kv_start=0,
+             carried=True),
+        dict(cell, name="cell-int8", q_dtype=bf16, kv_dtype=i8, kv_start=0,
+             carried=True),
+        dict(cell, name="cell-int8-diagonal-dead", q_dtype=bf16,
+             kv_dtype=i8, kv_start=12288, holes=True, dead=True,
+             carried=True),
+        dict(cell, name="cell-fp32-dead-rows", q_dtype=f32, kv_dtype=f32,
+             kv_start=14400, holes=True, dead=True),
+        dict(small, name="window-cap-gqa-fp32", q_dtype=f32, kv_dtype=f32),
+        dict(small, name="window-cap-gqa-bf16-carried", q_dtype=bf16,
+             kv_dtype=bf16, carried=True),
+    ]
+
+
+def ring_chunk_case(device, *, prompt_done=14336, seed=0):
+    """The cell's admission chunk: a slot whose block row maps 1024 pages
+    of 16 (the 16384-token context), written through ``prompt_done``
+    (the chunk's last position + 1, the chunk the last 2048 of them), -1
+    beyond; a 2048-token query chunk; phi4-mini heads; bf16."""
+    import numpy as np
+    import torch
+    from repro_torch.models.attention import PagedKVCache
+    G, R, hd, P = 8, 3, 128, 16
+    M = RING_CTX // P
+    rng = np.random.default_rng(seed)
+    kp = torch.tensor(rng.normal(size=(M + 1, P, G, hd)),
+                      dtype=torch.bfloat16)
+    vp = torch.tensor(rng.normal(size=(M + 1, P, G, hd)),
+                      dtype=torch.bfloat16)
+    ppos = torch.full((M + 1, P), -1, dtype=torch.int32)
+    pos = torch.arange(RING_CTX, dtype=torch.int32).reshape(M, P)
+    ppos[1:] = torch.where(pos < prompt_done, pos, -1)
+    block = torch.arange(1, M + 1, dtype=torch.int32)[None]
+    q = torch.tensor(rng.normal(size=(1, RING_CHUNK, G, R, hd)),
+                     dtype=torch.bfloat16)
+    q_pos = torch.arange(prompt_done - RING_CHUNK, prompt_done,
+                         dtype=torch.int32)[None]
+    cache = PagedKVCache(kp.to(device), vp.to(device), ppos.to(device),
+                         block.to(device))
+    return q.to(device), q_pos.to(device), cache
+
+
+def check_ring_chunk(device, iters=3):
+    """The chunk cell's ring branch (``ring_attend``: the block row's gather
+    and ``ring_chunk_attention``, the kernel over 4 shards in turn) on the
+    cell's chunk against the single-device path of the same admission cell,
+    ``_gather_pages`` + ``_sdpa`` (p rounded to bf16 before P.V), and
+    against ``_sdpa`` in fp32: bf16 outputs per element within 2^-7 |ref|
+    + BF16_ROW x the row's rms (``bf16_row_excess``). Times the ring, the
+    single-device path, and one ``scaled_dot_product_attention`` call over
+    the gathered context with the boolean mask (the path's yardstick: per
+    chunk and layer)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import prefill_plan
+    from repro_torch.kernels import ring_attention as ra
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.attention import _gather_pages, _sdpa, ring_attend
+    out = {}
+    mesh = make_mesh((RING_N, 1), ("data", "model"), device)
+    plan, reason = prefill_plan(get_config("phi4-mini-3.8b"), mesh,
+                                RING_CHUNK)
+    assert plan is not None and plan.n_shards == RING_N, reason
+    for done in (14336, 10240):
+        q, q_pos, cache = ring_chunk_case(device, prompt_done=done)
+        B, C, G, R, hd = q.shape
+
+        def ring():
+            return ring_attend(q, cache, cache.block[0], q_pos, mesh=mesh,
+                               plan=plan)
+
+        def single(dtype=torch.bfloat16):
+            kk, vv, _, valid = _gather_pages(cache, cache.block, q_pos,
+                                             window=0)
+            return _sdpa(q.to(dtype), kk.to(dtype), vv.to(dtype),
+                         mask=valid[:, None, None])
+
+        ra.hops_run = ra.hops_skipped = ra.launches = 0
+        o = ring()
+        hops = (ra.hops_run, ra.hops_skipped, ra.launches)
+        ref, ref32 = single(), single(torch.float32)
+        torch.cuda.synchronize()
+        assert torch.isfinite(o.float()).all()
+        ex, ex32 = bf16_row_excess(o, ref), bf16_row_excess(o, ref32)
+        assert max(ex, ex32) <= BF16_ROW, (done, ex, ex32)
+        kk, vv, _, valid = _gather_pages(cache, cache.block, q_pos, window=0)
+        qh = q.reshape(B, C, G * R, hd).transpose(1, 2)
+        kh, vh = kk.transpose(1, 2), vv.transpose(1, 2)
+
+        def lib():
+            return F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=valid[:, None], enable_gqa=True)
+        lib_ex = bf16_row_excess(lib().transpose(1, 2).reshape(o.shape),
+                                 ref32)
+        row = dict(ring_ms=timed(ring, device, iters, warmup=1),
+                   single_ms=timed(single, device, iters, warmup=1),
+                   sdpa_ms=timed(lib, device, iters),
+                   hops=hops, excess=ex, excess32=ex32)
+        out[done] = row
+        print(f"ring_chunk_attention C={C} L={RING_CTX} bf16 {RING_N} "
+              f"shards, context written through {done}: excess vs "
+              f"single-device path {ex:.3g} row rms, vs fp32 {ex32:.3g} "
+              f"(tol 2^-7 |ref| + {BF16_ROW:g} row rms), hops run/skipped/"
+              f"launched {hops}, ring_ms={row['ring_ms']:.3f} "
+              f"single_device_ms={row['single_ms']:.3f} sdpa_ms (library "
+              f"yardstick, boolean mask; excess vs fp32 {lib_ex:.3g}) "
+              f"{row['sdpa_ms']:.3f} a chunk and layer; kernels: "
+              + ",".join(cuda_kernel_names(lib))[:120])
+        del cache, ref, ref32, kk, vv, valid
+    return out
+
+
+def check_ring_parity(device):
+    """phi4-mini-3.8b-smoke in fp32, mesh 4x1, every serving rung: the
+    greedy streams of the ring engine on the card (``ring_hop``), the same
+    engine on the CPU (``ring_hop_plain``) and the single-device engine on
+    the card must be identical. Prompts of 11-35 tokens over chunks of 8
+    share an 8-token prefix; tails of 3 and 2 tokens take the single-device
+    path."""
+    import copy
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ring_attention as ra
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import serving_table
+    from repro_torch.models.lm import init_lm
+    cfg = get_config("phi4-mini-3.8b-smoke")
+    cpu = torch.device("cpu")
+    cpu_params = init_lm(cfg, 0, torch.float32, "cpu")
+    dev_params = copy.deepcopy(cpu_params).to(device)
+    table = serving_table(cfg, slots=2, max_len=64, page_occupancy=0.5)
+    rng = np.random.default_rng(4)
+    prefix = list(rng.integers(1, cfg.vocab_size, 8))
+    prompts = [prefix + list(rng.integers(1, cfg.vocab_size, n))
+               for n in (3, 19, 27, 10)]
+    kw = dict(max_new=6, prefill_chunk=8, n_pages=40)
+    for rung, v in enumerate(table.variants):
+        ra.launches = 0
+        a = engine_streams(cfg, dev_params, table, device, rung, prompts,
+                           mesh=make_mesh((RING_N, 1), ("data", "model"),
+                                          device), **kw)
+        launched = ra.launches
+        b = engine_streams(cfg, cpu_params, table, cpu, rung, prompts,
+                           mesh=make_mesh((RING_N, 1), ("data", "model"),
+                                          cpu), **kw)
+        c = engine_streams(cfg, dev_params, table, device, rung, prompts,
+                           **kw)
+        assert launched > 0
+        assert a == b == c, (v.name, a, b, c)
+        print(f"ring parity {v.name}: ring on {device} == ring on cpu == "
+              f"single device on {device} ({sum(map(len, a))} tokens, "
+              f"{launched} ring_hop launches)")
+
+
+class AdmissionTrace:
+    """Records every admission chunk of an engine run: its length and its
+    wall time, the card synchronised before and after (so the chunk's
+    device work is inside), and the last-token logits of each prompt's
+    final chunk (its first token's logits), keyed by prompt length."""
+
+    def __init__(self, prompt_lens):
+        self.ends = set(prompt_lens)
+        self.chunks, self.first_logits = [], {}
+
+    def __enter__(self):
+        import torch
+        from repro_torch.serve import prefill as prefill_mod
+        self._mod, self._orig = prefill_mod, prefill_mod.paged_prefill_chunk
+
+        def traced(params, tokens, start, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = self._orig(params, tokens, start, *a, **kw)
+            torch.cuda.synchronize()
+            C = tokens.shape[1]
+            self.chunks.append((C, time.perf_counter() - t0))
+            if start + C in self.ends:
+                self.first_logits[start + C] = logits[0].float().cpu()
+            return logits, caches
+        prefill_mod.paged_prefill_chunk = traced
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.paged_prefill_chunk = self._orig
+
+    def summary(self):
+        import numpy as np
+        full = [t for c, t in self.chunks if c == RING_CHUNK]
+        tails = sorted((c, round(1e3 * t, 3)) for c, t in self.chunks
+                       if c != RING_CHUNK)
+        return 1e3 * float(np.mean(full)), len(full), tails
+
+
+# ring cell traffic: prompts of 16000, 12000, 9000 and 8194 tokens (tails of
+# 1664, 1760, 808 and 2: the last shorter than the 4 shards)
+RING_PROMPTS = (16000, 12000, 9000, 8194)
+# first-token logits, ring against single device: max |diff| over the rms of
+# the single-device logits. The two paths differ in rounding only: the ring
+# keeps p in fp32, the single-device `_sdpa` rounds p to bf16 (2^-9
+# relative, random sign) before P.V; in bf16 the residual stream rounds
+# again at every layer, so each of the 32 layers adds an O(2^-9) relative
+# perturbation that the next ones carry and amplify, and on int8+kvq8 a K/V
+# entry whose two versions straddle a rounding boundary takes another int8
+# code (a 1/0.05 = 20x coarser step). Over ~2e5 logits the largest lands
+# several sigma out. A fault (a hop dropped, a shard's positions shifted, a
+# mask turned) replaces a share of every layer's attention and moves the
+# logits by several times their rms. Held to 0.5.
+RING_LOGIT_TOL = 0.5
+
+
+def ring_cell(device, rungs=("precise", "int8+kvq8")):
+    """The ring admission cell at full width: phi4-mini-3.8b (32 layers,
+    random bf16 weights from seed 0), 4 slots, max_len 16384, page 16,
+    prefill chunk 2048, a pool of 65,664 tokens (8.6 GB of bf16 K/V), mesh
+    4x1; 4 greedy requests of RING_PROMPTS tokens, 16 new tokens each, on
+    each rung of ``rungs``: once on the ring engine (launch counters zeroed
+    just before and read just after) and once on the single-device engine.
+    Per rung: admission ms per chunk on each path, ring_hop launches and
+    hops run and skipped, host syncs per ring chunk (one a layer: the
+    wrapper decides whole-hop skips on the host), the first-token logits
+    gate and the streams that are identical."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ring_attention as ra
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import serving_table
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models.lm import init_lm
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = get_config("phi4-mini-3.8b")
+    params = init_lm(cfg, 0, torch.bfloat16, device)
+    table = serving_table(cfg, slots=4, max_len=RING_CTX,
+                          page_occupancy=0.7)
+    names = [v.name for v in table.variants]
+    mesh = make_mesh((RING_N, 1), ("data", "model"), device)
+    rng = np.random.default_rng(5)
+    prompts = [list(rng.integers(1, cfg.vocab_size, n)) for n in
+               RING_PROMPTS]
+    total = dict.fromkeys(COUNTERS, 0)
+    report = {}
+    for name in rungs:
+        rung = names.index(name)
+        res = {}
+        for path, m in (("ring", mesh), ("single", None)):
+            eng = ServeEngine(cfg, batch_slots=4, max_len=RING_CTX,
+                              params=params, table=table,
+                              prefill_chunk=RING_CHUNK, page_size=16,
+                              n_pages=4 * RING_CTX // 16 + 8,
+                              cache_dtype=torch.bfloat16, device=device,
+                              mesh=m)
+            eng.request_variant(rung)
+            assert eng.sharded_prefill == (m is not None)
+            reqs = [Request(i, prompt=p, max_new=16)
+                    for i, p in enumerate(prompts)]
+            for r in reqs:
+                eng.submit(r)
+            torch.cuda.synchronize()
+            reset_launches()
+            attn_mod.mesh_fallbacks = 0
+            t0 = time.perf_counter()
+            with AdmissionTrace(RING_PROMPTS) as tr:
+                eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            assert all(r.done and len(r.out) == 16 for r in reqs)
+            res[path] = dict(trace=tr, launches=launches, wall=wall,
+                             streams=[r.out for r in reqs],
+                             hops=(ra.hops_run, ra.hops_skipped),
+                             fallbacks=attn_mod.mesh_fallbacks)
+            if m is not None:
+                for k in total:
+                    total[k] += launches[k]
+            del eng
+            torch.cuda.empty_cache()
+        ring, single = res["ring"], res["single"]
+        run, skipped = ring["hops"]
+        ring_chunks = sum(c >= RING_N for c, _ in ring["trace"].chunks)
+        short = sum(c < RING_N for c, _ in ring["trace"].chunks)
+        assert ring["launches"]["ring_hop"] == run > 0, ring["launches"]
+        assert run + skipped == RING_N ** 2 * cfg.n_layers * ring_chunks
+        assert short == 1 and ring["fallbacks"] == cfg.n_layers, \
+            (short, ring["fallbacks"])
+        assert single["launches"]["ring_hop"] == 0
+        diffs = []
+        for n in RING_PROMPTS:
+            a, b = ring["trace"].first_logits[n], single["trace"].first_logits[n]
+            assert torch.isfinite(a).all() and a.shape == (cfg.vocab_size,)
+            diffs.append(float((a - b).abs().max() / b.pow(2).mean().sqrt()))
+        same = sum(x == y for x, y in zip(ring["streams"], single["streams"]))
+        r_ms, r_n, r_tails = ring["trace"].summary()
+        s_ms, s_n, s_tails = single["trace"].summary()
+        print(f"ring cell {name}: admission ms a {RING_CHUNK}-token chunk "
+              f"(32 layers) ring {r_ms:.1f} vs single device {s_ms:.1f} "
+              f"({r_n} chunks each); tails (tokens, ms) ring {r_tails} vs "
+              f"single {s_tails}; run wall ring {ring['wall']:.2f}s single "
+              f"{single['wall']:.2f}s")
+        print(f"ring cell {name}: ring_hop launches {run}, hops run {run} "
+              f"skipped {skipped} over {ring_chunks} ring chunks, host syncs "
+              f"{cfg.n_layers} a ring chunk (one per layer: whole-hop skips "
+              f"decided on the host), short tail on the single-device path "
+              f"{short} chunk ({ring['fallbacks']} layer calls); launches "
+              f"ring {ring['launches']} single {single['launches']}")
+        print(f"ring cell {name}: first-token logits max|ring - single| / "
+              f"rms {[round(d, 4) for d in diffs]} (tol {RING_LOGIT_TOL}); "
+              f"streams identical {same}/4")
+        assert max(diffs) <= RING_LOGIT_TOL, diffs
+        report[name] = dict(ring_ms=r_ms, single_ms=s_ms, hops_run=run,
+                            hops_skipped=skipped, logit_diff=max(diffs),
+                            same=same)
+    del params
+    torch.cuda.empty_cache()
+    return report, total
+
+
 # ------------------------------------------------------------------ main --
 
 def main():
@@ -1120,6 +1628,8 @@ def main():
               for k, n in ((3072, 8192), (8192, 3072))] + [(5, 3000, 1000)]
     # mamba2-780m training: the projections at 4 x 1024 tokens
     shapes += [(4096, 1536, 3072), (4096, 3072, 1536)]
+    # phi4-mini-3.8b training: the MLP's products at 2 x 4096 tokens
+    shapes += [(8192, 3072, 8192), (8192, 8192, 3072)]
     i8_rows = check_int8(device, shapes)
     pa_rows = check_paged(device, phi4_paged_cases(torch.bfloat16))
     ssd_full = (4, 1024, 48, 64, 128, 128)      # mamba2-780m training
@@ -1133,6 +1643,8 @@ def main():
     fa_rows = check_flash(device, phi4_flash_cases())
     check_flash_grads(device)
     time_attention_paths(device)
+    rh_rows = check_ring_hop(device, phi4_ring_hop_cases())
+    check_ring_chunk(device)
     kernels = {"flash_attention": next(r for r in fa_rows
                                        if r["name"] == "cell-fp32"),
                "int8_matmul": next(r for r in i8_rows
@@ -1140,11 +1652,14 @@ def main():
                                    == (8, 3072, 8192)),
                "paged_attention": next(r for r in pa_rows
                                        if r["name"] == "bf16"),
+               "ring_hop": next(r for r in rh_rows
+                                if r["name"] == "cell-bf16"),
                "ssd_scan": next(r for r in ssd_rows
                                 if r["shape"] == ssd_full
                                 and r["dtype"] == "fp32")}
     phase_done("kernels")
     check_parity(device)
+    check_ring_parity(device)
     check_train_parity(device, per_step=mamba_launches)
     check_train_parity(device, "phi4-mini-3.8b-smoke", batch=2, seq=4096,
                        remat="full", per_step=attn_launches)
@@ -1174,15 +1689,21 @@ def main():
         ["precise", "int8", "int8+kvstride2", "int8+drop50%"],
         attn_launches, remat="full")
     phase_done("train-attn")
-    train_rung_walk(ares, device, steps=4, per_step=attn_launches)
+    # 3 steps a rung (median of the last 2): cut from 4 to keep the whole
+    # script near half its time limit with the serve-ring phase added
+    train_rung_walk(ares, device, steps=3, per_step=attn_launches)
     with chunked_causal_attention():
-        train_rung_walk(ares, device, steps=4, rungs=["int8"],
+        train_rung_walk(ares, device, steps=3, rungs=["int8"],
                         tag=" (attention chunked, stride 1)",
                         per_step=lambda cfg, knobs: {
                             **attn_launches(cfg, knobs),
                             "flash_attention": 0})
     profile_train(ares, device)
     phase_done("train-attn-rungs")
+    del ares
+    torch.cuda.empty_cache()
+    _, ring_launches = ring_cell(device)
+    phase_done("serve-ring")
 
     src_of = {"flash_attention": (
                   "src/repro_torch/csrc/flash_attention.cu",
@@ -1191,11 +1712,14 @@ def main():
                               "src/repro/kernels/int8_matmul.py:40"),
               "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                                   "src/repro/kernels/paged_attention.py:98"),
+              "ring_hop": ("src/repro_torch/csrc/ring_hop.cu",
+                           "src/repro/kernels/ring_attention.py:113"),
               "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
                            "src/repro/kernels/ssd_scan.py:62")}
     by_path = {name: {"serve": serve_launches[name],
                       "train": train_launches[name],
-                      "train-attn": attn_train_launches[name]}
+                      "train-attn": attn_train_launches[name],
+                      "serve-ring": ring_launches[name]}
                for name in kernels}
     line = []
     for name, r in kernels.items():

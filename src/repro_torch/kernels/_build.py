@@ -20,7 +20,8 @@ from typing import Dict
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD = pathlib.Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("flash_attention", "int8_matmul", "paged_attention", "ssd_scan")
+SOURCES = ("flash_attention", "int8_matmul", "paged_attention", "ring_hop",
+           "ssd_scan")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

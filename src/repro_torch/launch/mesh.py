@@ -1,0 +1,60 @@
+"""A device mesh for the port. Counterpart of the JAX package's
+``launch/mesh.py`` (``make_mesh``) over ``jax.sharding.Mesh``.
+
+A ``Mesh`` names its axes and gives each position a torch device. Its
+``shape`` is an ordered dict of axis name -> size, as
+``jax.sharding.Mesh.shape`` reads, so the plan functions of
+``dist.sharding`` take either mesh. Every position of a mesh here is the
+same device: the ring prefill runs its sequence shards one after another on
+that device, and a rotation of the ring is a re-index of the shard list.
+Spreading positions over several cards (K/V moved between them over NCCL)
+is not ported yet, so a mesh whose positions name different devices raises.
+"""
+from __future__ import annotations
+
+import collections
+import math
+from typing import Sequence
+
+import torch
+
+
+class Mesh:
+    """``shape``: one size per name of ``axis_names``; ``devices``: one
+    torch device per position, in row-major order."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
+                 devices: Sequence):
+        shape, axis_names = tuple(int(s) for s in shape), tuple(axis_names)
+        if len(shape) != len(axis_names):
+            raise ValueError(f"mesh shape {shape} and axes {axis_names} "
+                             "differ in length")
+        if len(devices) != math.prod(shape):
+            raise ValueError(f"mesh {shape} needs {math.prod(shape)} "
+                             f"devices, got {len(devices)}")
+        devices = [_indexed(torch.device(d)) for d in devices]
+        if len(set(devices)) > 1:
+            raise NotImplementedError(
+                f"mesh positions on {sorted(map(str, set(devices)))}: a mesh "
+                "spread over several devices (ring rotation over NCCL) is "
+                "not ported yet (ROADMAP queue 1 item 13); every position "
+                "must be the same device")
+        self.shape = collections.OrderedDict(zip(axis_names, shape))
+        self.devices = devices
+        self.device = devices[0]
+
+    def __repr__(self):
+        dims = ", ".join(f"{a}={n}" for a, n in self.shape.items())
+        return f"Mesh({dims}; {self.device})"
+
+
+def _indexed(device: torch.device) -> torch.device:
+    """``cuda`` names the current card, as a tensor's ``.device`` does."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def make_mesh(shape, axes, device="cuda") -> Mesh:
+    """A mesh of ``shape`` with every position on ``device``."""
+    return Mesh(shape, axes, [device] * math.prod(shape))

@@ -11,7 +11,10 @@ precise-first.
       --prompt-len-max 400 --max-new 16 --qos-target 0.001
 
 ``--qos-target 0`` disables control (pin a variant with ``--variant``);
-``--device cpu`` runs the kernels' plain versions on the CPU. ``main``
+``--device cpu`` runs the kernels' plain versions on the CPU. ``--mesh DxM``
+serves under a (data=D, model=M) mesh whose positions are all the one
+device: admission chunks run ring attention over D sequence shards in turn
+(the ``ring_hop`` kernel on the card); decode stays single-device. ``main``
 prints the summary lines and returns a dict with the engine, the requests
 and the headline numbers.
 """
@@ -30,6 +33,7 @@ from repro_torch.core.explorer import explore
 from repro_torch.core.monitor import LatencyMonitor
 from repro_torch.core.runtime import PliantRuntime
 from repro_torch.core.variants import VariantTable
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.lm import init_lm
 from repro_torch.serve.engine import Request, ServeEngine
 
@@ -77,6 +81,10 @@ def main(argv=None):
     p.add_argument("--variant", default=None,
                    help="pin a variant by name (e.g. int8)")
     p.add_argument("--temperature", type=float, default=0.0)
+    p.add_argument("--mesh", default="",
+                   help="serve under a mesh, e.g. 4x1 -> (data=4, model=1): "
+                        "ring-attention admission over 4 sequence shards, "
+                        "all on --device")
     p.add_argument("--paged", action="store_true",
                    help="paged page-pool caches (the port's only layout; "
                         "accepted for the JAX driver's command line)")
@@ -103,6 +111,14 @@ def main(argv=None):
                           page_occupancy=occupancy)
     names = [v.name for v in table.variants]
 
+    mesh = None
+    if args.mesh:
+        shape = args.mesh.split("x")
+        if len(shape) != 2 or not all(x.isdigit() for x in shape):
+            p.error(f"--mesh must be DxM (data x model), got {args.mesh!r}")
+        mesh = make_mesh([int(x) for x in shape], ("data", "model"),
+                         args.device)
+
     runtime = None
     if args.qos_target > 0:
         monitor = LatencyMonitor(
@@ -120,8 +136,9 @@ def main(argv=None):
                       max_admission_chunks=args.max_admission_chunks,
                       qos_guard=args.qos_guard,
                       admission_timeout_s=args.admission_timeout,
-                      eos_id=args.eos_id, device=args.device)
+                      eos_id=args.eos_id, device=args.device, mesh=mesh)
     print(f"dispatch: {eng.explain_dispatch()}")
+    print(f"dispatch: {eng.explain_prefill_dispatch()}")
     if args.variant is not None:
         eng.set_variant(names.index(args.variant))
 

@@ -9,17 +9,22 @@ every mode but the perforated causal one: with ``kv_keep_stride`` > 1 it is
 ``_causal_chunked``, the JAX package's absolute perforation rule, in plain
 PyTorch. Decode writes the new K/V entry with a plain index write and then
 calls the fused ``paged_attention`` kernel; chunked prefill gathers the
-slot's pages and runs ``_sdpa``, as the JAX package does. Cache writes
-update the pool tensors in place.
+slot's pages and runs ``_sdpa``, as the JAX package does, or, under a mesh
+whose plan carries a sequence ring, ``ring_chunk_attention`` over the
+gathered block row (the ``ring_hop`` kernel). Cache writes update the pool
+tensors in place.
 """
 from __future__ import annotations
 
+import sys
 from typing import NamedTuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import prefill_plan
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ring_attention import ring_chunk_attention
 from repro_torch.models.common import ParamSpec, apply_rope, softcap
 
 
@@ -227,14 +232,89 @@ def paged_decode_attention(params, x, position, cache: PagedKVCache,
     return o.reshape(B, 1, cfg.q_dim) @ params.wo, cache
 
 
+# admission chunk attentions under a mesh that took the single-device path
+# (the chunk is shorter than the ring's shard count); counted per layer
+mesh_fallbacks = 0
+_PREFILL_WARNED: set = set()
+
+
+def _warn_prefill(reason: str) -> None:
+    """Say once per reason, loudly, that an admission chunk under a mesh
+    runs its attention whole on one device (no sequence ring)."""
+    if reason in _PREFILL_WARNED:
+        return
+    _PREFILL_WARNED.add(reason)
+    print("repro_torch: chunked-prefill admission under a mesh is taking the "
+          f"single-device path — {reason}; the chunk's attention runs whole "
+          "(no sequence ring)", file=sys.stderr)
+
+
+def _prefill_ring_plan(cfg: ModelConfig, mesh, chunk_len: int):
+    """The (plan, reason) a chunk cell dispatches on: the ring when
+    ``prefill_plan`` finds a sequence layout for this chunk length, else
+    the single-device path, counted in ``mesh_fallbacks`` and warned once
+    when a mesh was given."""
+    global mesh_fallbacks
+    if mesh is None:
+        return None, "no mesh (single device)"
+    plan, reason = prefill_plan(cfg, mesh, chunk_len)
+    if plan is None:
+        mesh_fallbacks += 1
+        _warn_prefill(reason)
+    return plan, reason
+
+
+def explain_prefill_dispatch(cfg: ModelConfig, mesh, *,
+                             chunk_len: int) -> str:
+    """One-line description of the chunked-prefill admission path this
+    configuration dispatches to (``launch/serve.py``'s startup banner)."""
+    if mesh is None:
+        return "chunked prefill: whole-chunk admission cell, single device"
+    plan, reason = prefill_plan(cfg, mesh, chunk_len)
+    if plan is not None:
+        heads = (f"kv_heads over {plan.kv_head_axis!r} in the plan, all "
+                 "heads computed per shard" if plan.kv_head_axis
+                 else "kv_heads replicated")
+        hop = ("the ring_hop kernel" if mesh.device.type == "cuda"
+               else "ring_hop's plain version")
+        return (f"chunked prefill: ring attention over {plan.seq_axis!r} "
+                f"({plan.n_shards} sequence shards run in turn on "
+                f"{mesh.device} through {hop}, {heads})")
+    return ("chunked prefill: single-device admission FALLBACK under mesh — "
+            f"{reason}")
+
+
+def ring_attend(q, cache: PagedKVCache, brow, positions, *, mesh, plan,
+                window: int = 0, cap: float = 0.0, kv_scale: float = 0.0):
+    """The ring branch of the chunk cell: one slot's whole block row
+    ``brow`` (M,) gathered from the pool, unmapped entries folded into the
+    position lane as -1, then ``ring_chunk_attention``. q: (1, C, G, R, hd)
+    at the chunk's ``positions`` (1, C). Returns (1, C, G, R, hd)."""
+    P = cache.ppos.shape[1]
+    idx = brow.long()
+    L = idx.shape[0] * P
+    gk = cache.kp[idx].reshape(1, L, *cache.kp.shape[2:])
+    gv = cache.vp[idx].reshape(1, L, *cache.vp.shape[2:])
+    mapped = (brow != 0).repeat_interleave(P)[None]
+    kv_pos = torch.where(mapped, cache.ppos[idx].reshape(1, L), -1)
+    return ring_chunk_attention(q, gk, gv, positions, kv_pos, mesh=mesh,
+                                plan=plan, window=window, cap=cap,
+                                kv_scale=kv_scale)
+
+
 def paged_chunk_attention(params, x, positions, cache: PagedKVCache,
                           cfg: ModelConfig, slot: int, *, window: int = 0,
-                          kv_scale: float = 0.0):
+                          kv_scale: float = 0.0, mesh=None):
     """C-token prompt-chunk step for ONE slot of the paged pool (chunked
     admission). x: (1,C,D); positions: (1,C). Writes the chunk's K/V into
     the slot's (pre-allocated, private) pages in place, then attends over
     every mapped page, the chunk's own entries included, causally masked by
-    position: the gather + ``_sdpa`` of the JAX package."""
+    position: the gather + ``_sdpa`` of the JAX package.
+
+    Under a ``mesh`` whose ``prefill_plan`` finds a sequence layout for C,
+    the attend is ``ring_chunk_attention`` over the slot's whole gathered
+    block row instead, unmapped block entries folded into the position lane
+    as -1 (masked as ``_gather_pages`` masks them)."""
     B, C, _ = x.shape
     hd = cfg.resolved_head_dim
     G, R = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
@@ -248,6 +328,12 @@ def paged_chunk_attention(params, x, positions, cache: PagedKVCache,
     cache.kp[phys, off] = k_store[0]
     cache.vp[phys, off] = v_store[0]
     cache.ppos[phys, off] = positions[0].to(torch.int32)
+    plan, _ = _prefill_ring_plan(cfg, mesh, C)
+    if plan is not None:
+        o = ring_attend(q.reshape(B, C, G, R, hd), cache, brow, positions,
+                        mesh=mesh, plan=plan, window=window,
+                        cap=cfg.attn_softcap, kv_scale=kv_scale)
+        return o.reshape(B, C, cfg.q_dim) @ params.wo, cache
     kk, vv, _, valid = _gather_pages(cache, brow[None], positions,
                                      window=window)
     if kv_scale:

@@ -58,13 +58,15 @@ def _kv_args(kind: str, cfg: ModelConfig, knobs: ApproxKnobs):
 
 def block_prefill_paged(kind: str, params, h, positions, cache,
                         cfg: ModelConfig, knobs: ApproxKnobs = PRECISE, *,
-                        slot: int):
+                        slot: int, mesh=None):
     """One slot's prompt chunk against the shared page pool. h: (1,C,D).
-    Returns (h, cache)."""
+    Under ``mesh`` the attention may run the sequence ring. Returns (h,
+    cache)."""
     window, kv_scale = _kv_args(kind, cfg, knobs)
     y, cache = attn_mod.paged_chunk_attention(
         params.attn, rms_norm(h, params.norm_attn, cfg.norm_eps),
-        positions, cache, cfg, slot, window=window, kv_scale=kv_scale)
+        positions, cache, cfg, slot, window=window, kv_scale=kv_scale,
+        mesh=mesh)
     h = h + y
     hn = rms_norm(h, params.norm_mlp, cfg.norm_eps)
     return h + mlp_mod.mlp(params.mlp, hn,

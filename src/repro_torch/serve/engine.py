@@ -25,6 +25,14 @@ RECLAIM/RETURN shrink and regrow the pool's page budget.
 The engine runs on ``device`` (CUDA unless the caller asks for the CPU);
 on the card decode attention and the int8 matmuls are the hand-written
 kernels, on the CPU their plain versions. Caches update in place.
+
+With a ``mesh`` (``launch.mesh.Mesh``, every position on ``device``),
+admission chunks run their attention as a sequence ring when
+``dist.sharding.prefill_plan`` finds a layout for the chunk length
+(``ring_chunk_attention``, the ``ring_hop`` kernel on the card): the plan is
+derived once for ``prefill_chunk`` and again by the chunk cell for each
+chunk length, so a ragged tail re-plans and a tail shorter than the shard
+count takes the loud single-device path. Decode stays single-device.
 """
 from __future__ import annotations
 
@@ -42,6 +50,8 @@ from repro_torch.core import tenant as tenant_mod
 from repro_torch.core.controller import headroom_burst
 from repro_torch.core.runtime import PliantRuntime
 from repro_torch.core.variants import VariantTable
+from repro_torch.dist.sharding import prefill_plan
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import lm
 from repro_torch.models.common import resolve_device
 from repro_torch.serve import pages as pages_mod
@@ -114,9 +124,15 @@ class ServeEngine:
     backoff_cap: int = 8               # request; doubles per failure, capped
     eos_id: int = -1                   # stop-token id (-1 = none)
     device: object = "cuda"
+    mesh: object = None                # launch.mesh.Mesh: ring admission
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+        if self.mesh is not None and self.mesh.device.type != \
+                self.device.type:
+            raise ValueError(f"mesh on {self.mesh.device}, engine on "
+                             f"{self.device}")
+        self._derive_plans()
         assert self.params is not None, "ServeEngine needs params"
         self.params = self.params.to(self.device)
         if self.runtime is not None:
@@ -168,13 +184,35 @@ class ServeEngine:
             self.runtime.bind(self._tenant)
             self._bound = True
 
+    def _derive_plans(self) -> None:
+        """The ring-prefill sequence plan for full-size chunks, from (cfg,
+        mesh, prefill_chunk) by the pure plan function the chunk cell
+        re-derives for each chunk length."""
+        self._prefill_plan, self._prefill_reason = None, "single device"
+        if self.mesh is not None:
+            self._prefill_plan, self._prefill_reason = prefill_plan(
+                self.cfg, self.mesh, self.prefill_chunk)
+
+    @property
+    def sharded_prefill(self) -> bool:
+        """True when full-size admission chunks run the sequence ring
+        (ragged tails re-plan)."""
+        return self._prefill_plan is not None
+
     def explain_dispatch(self) -> str:
         """One-line decode dispatch description (startup banner)."""
+        where = (f"{self.device}, single device (decode is not sharded "
+                 "over the mesh)" if self.mesh is not None
+                 else f"{self.device}")
         if self.device.type == "cuda":
             return ("paged decode: fused CUDA paged_attention kernel, "
-                    f"int8_matmul on int8 rungs, {self.device}")
-        return ("paged decode: plain PyTorch versions of the kernels, "
-                f"{self.device}")
+                    f"int8_matmul on int8 rungs, {where}")
+        return f"paged decode: plain PyTorch versions of the kernels, {where}"
+
+    def explain_prefill_dispatch(self) -> str:
+        """One-line chunked-prefill dispatch description (startup banner)."""
+        return attn_mod.explain_prefill_dispatch(
+            self.cfg, self.mesh, chunk_len=self.prefill_chunk)
 
     # ------------------------------------------------------------ variants --
 
@@ -433,7 +471,7 @@ class ServeEngine:
         t0 = time.perf_counter()
         adm.logits, self.caches = prefill_mod.paged_prefill_chunk(
             self.params, toks, adm.next, self.caches, adm.slot, self.cfg,
-            self.active_knobs)
+            self.active_knobs, mesh=self.mesh)
         adm.next += C
         adm.compute_s += time.perf_counter() - t0
         if adm.next < S:
