@@ -23,7 +23,12 @@ Phases, each reported on its own line:
              through the kernel and through ``_causal_chunked`` at stride
              1 and 2, and the differentiable ``quantized_matmul``'s gradients (zero
              pattern included) against the CPU plain path. ``int8_matmul``
-             also at phi4-mini training's products (M 8192). ``ring_hop``
+             at every shape a path launches (decode M 1 and 8 with L2 cold,
+             admission M 128 and 2048, mamba2 and phi4-mini training),
+             bit for bit in each of its three designs, beside
+             ``torch._int_mm`` on both layouts of the weight, and
+             ``quantize_rows`` forward and backward at the shapes the
+             int8 paths quantise, bit for bit. ``ring_hop``
              at the ring cell's hop (phi4-mini heads, Cl 512 of a 2048-token
              chunk over 4 shards, Ll 4096) with bf16, fp32 and int8 K/V,
              carried state, position holes and rows that see nothing, plus
@@ -78,6 +83,7 @@ it does when CUDA is unavailable or the repository's sources are missing.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import pathlib
 import subprocess
@@ -105,18 +111,27 @@ BF16_ROW = 2 ** -6
 
 def timed(fn, device, iters=20, warmup=3):
     """Mean milliseconds of ``fn()`` over ``iters`` calls (CUDA events on
-    the card, after ``warmup`` calls)."""
+    the card, after ``warmup`` calls). The card first spins for about as
+    long as the host took to enqueue the warm-up calls (at most 50 ms), so
+    the timed calls queue up behind it: a kernel shorter than its launch's
+    host work is timed on the card, not at the host's pace."""
     import torch
-    for _ in range(warmup):
-        fn()
     if device.type != "cuda":
+        for _ in range(warmup):
+            fn()
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
         return (time.perf_counter() - t0) * 1e3 / iters
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(warmup):
+        fn()
+    host_s = (time.perf_counter() - t0) / warmup
+    torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
         enable_timing=True)
+    torch.cuda._sleep(int(2e9 * min(1.5 * host_s * iters, 0.05)))
     a.record()
     for _ in range(iters):
         fn()
@@ -132,6 +147,8 @@ def max_err(a, b):
 # ----------------------------------------------------------- int8_matmul --
 
 def int8_case(M, K, N, device, seed=0):
+    """Operands of the (K, N) signature: x_q (M, K), xs (M, 1), w_q (K, N),
+    ws (1, N)."""
     import torch
     g = torch.Generator(device="cpu").manual_seed(seed)
     x_q = torch.randint(-127, 128, (M, K), generator=g, dtype=torch.int8)
@@ -149,36 +166,184 @@ def int8_bound_ms(M, K, N, out_bytes=2):
                                        else "operations")
 
 
+COLD_BYTES = 100e6      # > twice the H100's 50 MB L2
+
+
+def rotating(fn, args_list):
+    """``fn`` over ``args_list`` in turn, one entry a call: with enough
+    weight copies each call finds its weight out of L2."""
+    it = itertools.cycle(args_list)
+    return lambda: fn(*next(it))
+
+
 def check_int8(device, shapes, iters=20):
-    """The int8 kernel against its plain version: the int32 sums are exact
-    in both, and the epilogue rounds identically, so they must agree bit
-    for bit (tolerance 0)."""
+    """The int8 kernel against its plain version at each (M, K, N): the
+    int32 sums are exact in every design and the epilogue rounds as the
+    oracle does, so ``int8_matmul_t`` on ``w_t`` (N, K) and ``int8_matmul``
+    on ``w_q`` (K, N) must both equal ``int8_matmul_plain`` bit for bit
+    (tolerance 0), in bf16 and fp32, and the design ``select_design`` names
+    must be the one that launched. Timed: the kernel on ``w_t``, bf16 out
+    (the serving paths) and fp32 (training); the plain version;
+    ``torch._int_mm`` with the scaling epilogue, and alone, on both layouts
+    of B, ``w_q`` row-major and ``w_t.t()`` K-contiguous (rows <= 16 padded
+    to 32 with zeros, as ``_int_mm`` needs M > 16), the faster one reported
+    with its layout. Shapes of at most 16 rows are bound by bytes, and the
+    decode path finds its weight out of L2: they rotate over weight copies
+    of more than ``COLD_BYTES`` in all, the library too."""
     import torch
     from repro_torch.kernels import int8_matmul as mod
     rows = []
     for M, K, N in shapes:
         x_q, xs, w_q, ws = int8_case(M, K, N, device)
+        w_t, ws_t = w_q.t().contiguous(), ws.reshape(N, 1)
+        design = mod.select_design(M, N, K)
+        err = 0.0
         for dt in (torch.bfloat16, torch.float32):
-            out = mod.int8_matmul(x_q, xs, w_q, ws, out_dtype=dt)
             ref = mod.int8_matmul_plain(x_q, xs, w_q, ws, dt)
-            err = max_err(out, ref)
-            assert err == 0.0, (M, K, N, dt, err)
-        kern = timed(lambda: mod.int8_matmul(x_q, xs, w_q, ws), device, iters)
+            before = dict(mod.design_launches)
+            outs = (mod.int8_matmul_t(x_q, xs, w_t, ws_t, out_dtype=dt),
+                    mod.int8_matmul(x_q, xs, w_q, ws, out_dtype=dt))
+            torch.cuda.synchronize()
+            assert mod.design_launches[design] == before[design] + 2, \
+                (M, K, N, design, before, mod.design_launches)
+            for out in outs:
+                err = max(err, max_err(out, ref))
+                assert torch.equal(out, ref), (M, K, N, dt, design, err)
+        cold = M <= 16
+        copies = max(1, -(-int(COLD_BYTES) // (K * N))) if cold else 1
+        w_ts = [w_t] + [w_t.clone() for _ in range(copies - 1)]
+
+        def kernel(dt):
+            return timed(rotating(
+                lambda w: mod.int8_matmul_t(x_q, xs, w, ws_t, out_dtype=dt),
+                [(w,) for w in w_ts]), device, iters)
+        kern, kern32 = kernel(torch.bfloat16), kernel(torch.float32)
         plain = timed(lambda: mod.int8_matmul_plain(
             x_q, xs, w_q, ws, torch.bfloat16), device, iters)
-        lib = None
-        if device.type == "cuda" and M > 16 and K % 8 == 0 and N % 8 == 0:
-            lib = timed(lambda: (torch._int_mm(x_q, w_q).float() * xs
-                                 * ws).to(torch.bfloat16), device, iters)
+        lib, lib_layout = None, None
+        if K % 8 == 0 and N % 8 == 0:
+            xp, xsp = x_q, xs
+            if M <= 16:
+                xp = torch.zeros((32, K), dtype=torch.int8, device=device)
+                xp[:M] = x_q
+                xsp = torch.zeros((32, 1), device=device)
+                xsp[:M] = xs
+
+            def int_mm(b):
+                return (torch._int_mm(xp, b)[:M].float() * xsp[:M]
+                        * ws).to(torch.bfloat16)
+            for layout, bs in (
+                    ("w row-major", [w_q] + [w.t().contiguous()
+                                             for w in w_ts[1:]]),
+                    ("w_t.t() K-contiguous", [w.t() for w in w_ts])):
+                args = [(b,) for b in bs]
+                ms = timed(rotating(int_mm, args), device, iters)
+                bare = timed(rotating(lambda b: torch._int_mm(xp, b), args),
+                             device, iters)
+                print(f"  _int_mm M={M} K={K} N={N} {layout}"
+                      f"{' (padded to M 32)' if M <= 16 else ''}"
+                      f"{' (L2 cold)' if cold else ''}: {ms:.4f} ms with "
+                      f"the scaling epilogue, {bare:.4f} ms int32 sums "
+                      "alone")
+                if lib is None or ms < lib:
+                    lib, lib_layout = ms, layout + (
+                        ", padded to M 32" if M <= 16 else "")
+        del w_ts
         bound, by = int8_bound_ms(M, K, N)
-        rows.append(dict(M=M, K=K, N=N, max_abs_err=err, ms=kern,
-                         plain_ms=plain, library_ms=lib, bound_ms=bound,
-                         bound_by=by))
-        print(f"int8_matmul M={M} K={K} N={N}: max_abs_err={err} "
-              f"ms={kern:.4f} plain_ms={plain:.4f} library_ms="
-              f"{'null' if lib is None else f'{lib:.4f}'} "
-              f"bound_ms={bound:.4f} ({by})")
+        rows.append(dict(M=M, K=K, N=N, design=design, max_abs_err=err,
+                         ms=kern, ms_fp32=kern32, plain_ms=plain,
+                         library_ms=lib,
+                         library_layout=lib_layout, bound_ms=bound,
+                         bound_by=by, cold_l2=cold))
+        print(f"int8_matmul M={M} K={K} N={N} design {design}"
+              f"{' tile_n ' + str(mod.tile_n(M, N)) if design == 'A' else ''}"
+              f"{f' (L2 cold, {copies} weight copies)' if cold else ''}"
+              f": max_abs_err={err} ms={kern:.4f} (fp32 out {kern32:.4f}) "
+              f"plain_ms={plain:.4f} "
+              f"library_ms={'null' if lib is None else f'{lib:.4f}'} "
+              f"({lib_layout}) bound_ms={bound:.4f} ({by}) "
+              f"share of bound {bound / kern:.3f}")
     return rows
+
+
+def int8_shapes():
+    """The products the paths launch: serving decode (M 1 and 8, L2 cold)
+    and admission chunks (M 128; the ring cell's M 2048) over phi4-mini's
+    MLP (K 3072 -> N 8192 and K 8192 -> N 3072), a ragged shape the
+    fallback takes, mamba2-780m training (4 x 1024 tokens) and phi4-mini
+    training (2 x 4096 tokens)."""
+    shapes = [(m, k, n) for m in (1, 8, 128, 2048)
+              for k, n in ((3072, 8192), (8192, 3072))] + [(5, 3000, 1000)]
+    shapes += [(4096, 1536, 3072), (4096, 3072, 1536)]
+    shapes += [(8192, 3072, 8192), (8192, 8192, 3072)]
+    return shapes
+
+
+def quantize_bound_ms(M, K, esize, backward=False):
+    """Bytes: x read once, q (int8) and s written once; backward x and d s
+    read, d x written in x's dtype. The operations are a few a byte."""
+    nbytes = M * K * esize + (M * K * esize if backward else M * K) + 4 * M
+    return 1e3 * nbytes / HBM_BW, "bytes"
+
+
+def check_quantize(device, shapes, iters=20):
+    """``quantize_rows`` and ``quantize_rows_backward`` against their plain
+    versions (``quantize_rowwise`` and autograd's rules through it, op for
+    op) at each (M, K, dtype): the same fp32 operations in the same order
+    on the same values, so q, s and d x must be equal bit for bit
+    (tolerance 0). Each x has a row of zeros and a row whose largest
+    magnitude appears twice. Timed beside the plain versions (about ten
+    launches forward and a dozen backward)."""
+    import torch
+    from repro_torch.kernels import quantize_rows as mod
+    rows = []
+    for M, K, dt in shapes:
+        g = torch.Generator(device="cpu").manual_seed(M + K)
+        x = torch.randn((M, K), generator=g)
+        x[0] = 0.0
+        x[-1, 0], x[-1, K - 1] = 9.0, -9.0
+        x = x.to(device=device, dtype=dt)
+        d_s = torch.randn((M, 1), generator=g).to(device)
+        err = 0
+        for got, want in ((mod.quantize_rows(x),
+                           mod.quantize_rows_plain(x)),
+                          ((mod.quantize_rows_backward(x, d_s),),
+                           (mod.quantize_rows_backward_plain(x, d_s),))):
+            for a, b in zip(got, want):
+                err = max(err, max_err(a, b))
+                assert torch.equal(a, b), (M, K, dt, err)
+        fwd = timed(lambda: mod.quantize_rows(x), device, iters)
+        bwd = timed(lambda: mod.quantize_rows_backward(x, d_s), device,
+                    iters)
+        fwd_plain = timed(lambda: mod.quantize_rows_plain(x), device, iters)
+        bwd_plain = timed(lambda: mod.quantize_rows_backward_plain(x, d_s),
+                          device, iters)
+        bound, by = quantize_bound_ms(M, K, x.element_size())
+        bwd_bound, _ = quantize_bound_ms(M, K, x.element_size(), True)
+        rows.append(dict(M=M, K=K, dtype=str(dt)[6:], max_abs_err=err,
+                         ms=fwd, plain_ms=fwd_plain, bound_ms=bound,
+                         bound_by=by, library_ms=None, backward_ms=bwd,
+                         backward_plain_ms=bwd_plain,
+                         backward_bound_ms=bwd_bound))
+        print(f"quantize_rows M={M} K={K} {str(dt)[6:]}: max_abs_err={err} "
+              f"ms={fwd:.4f} plain_ms={fwd_plain:.4f} bound_ms={bound:.4f}"
+              f" ({by}); backward ms={bwd:.4f} plain_ms={bwd_plain:.4f} "
+              f"bound_ms={bwd_bound:.4f}; library_ms=null (no PyTorch call "
+              "quantises rows)")
+    return rows
+
+
+def quantize_shapes():
+    """What the int8 paths quantise: decode (8 rows) and admission (2048)
+    activations in bf16 over phi4-mini's MLP widths; in fp32 mamba2-780m's
+    training activations (4096 rows of 1536 and 3072) and phi4-mini's (8192
+    rows of 3072 and 8192), and its weights as rows of ``w.t()`` (8192 x
+    3072 for ``wi``, 3072 x 8192 for ``wo``)."""
+    import torch
+    bf16, f32 = torch.bfloat16, torch.float32
+    return [(8, 3072, bf16), (8, 8192, bf16), (2048, 3072, bf16),
+            (4096, 1536, f32), (4096, 3072, f32), (8192, 3072, f32),
+            (8192, 8192, f32), (3072, 8192, f32)]
 
 
 # -------------------------------------------------------------- ssd_scan --
@@ -700,38 +865,62 @@ def check_parity(device):
 
 
 COUNTERS = ("flash_attention", "int8_matmul", "paged_attention",
-            "ring_hop", "ssd_scan")
+            "quantize_rows", "ring_hop", "ssd_scan")
 
 
 def _kernel_mods():
     from repro_torch.kernels import flash_attention, int8_matmul, \
-        paged_attention, ring_attention, ssd_scan
+        paged_attention, quantize_rows, ring_attention, ssd_scan
     return {"flash_attention": flash_attention, "int8_matmul": int8_matmul,
-            "paged_attention": paged_attention, "ring_hop": ring_attention,
+            "paged_attention": paged_attention,
+            "quantize_rows": quantize_rows, "ring_hop": ring_attention,
             "ssd_scan": ssd_scan}
 
 
 def reset_launches():
-    """Zero every kernel's launch count (and the ring's hop counts)."""
-    from repro_torch.kernels import ring_attention
+    """Zero every kernel's launch count (and the ring's hop counts and
+    ``int8_matmul``'s count per design)."""
+    from repro_torch.kernels import int8_matmul, ring_attention
     for mod in _kernel_mods().values():
         mod.launches = 0
     ring_attention.hops_run = ring_attention.hops_skipped = 0
+    for k in int8_matmul.design_launches:
+        int8_matmul.design_launches[k] = 0
 
 
 def read_launches():
     return {name: mod.launches for name, mod in _kernel_mods().items()}
 
 
+def int8_designs(tag):
+    """``int8_matmul``'s launches per design since the last reset, printed
+    under ``tag``: a model path must take designs A and B only, never the
+    fallback kernel."""
+    from repro_torch.kernels import int8_matmul
+    d = dict(int8_matmul.design_launches)
+    print(f"{tag}: int8_matmul launches by design {d}")
+    assert d["fallback"] == 0, (tag, d)
+    return d
+
+
+def drop_int8_weights():
+    """Empty the int8 weight cache, so that a run that follows pays for its
+    own quantisation and no dead model's int8 weights stay on the card."""
+    from repro_torch.kernels import ops
+    ops.clear_weight_cache()
+
+
 def mamba_launches(cfg, knobs):
     """Kernel launches of one mamba2 training step without remat: every
     layer's ``ssd_scan`` once; on the int8 rungs each of its three int8
     projections once forward and once backward (the exact int32 sums the
-    scales' gradients need)."""
+    scales' gradients need), and ``quantize_rows`` forward for its input
+    and weight and backward for both."""
     L = cfg.n_layers
+    int8 = knobs.matmul_precision == "int8"
     return {"ssd_scan": L, "flash_attention": 0, "paged_attention": 0,
-            "ring_hop": 0,
-            "int8_matmul": 6 * L if knobs.matmul_precision == "int8" else 0}
+            "ring_hop": 0, "int8_matmul": 6 * L if int8 else 0,
+            "quantize_rows": 12 * L if int8 else 0}
 
 
 def attn_launches(cfg, knobs):
@@ -739,11 +928,15 @@ def attn_launches(cfg, knobs):
     "full": the attention runs forward once and again in the recompute, on
     the kernel unless the stride knob perforates it (``_causal_chunked``
     in plain PyTorch); on the int8 rungs each of the MLP's three products
-    runs forward, again in the recompute and once in the backward."""
+    runs forward, again in the recompute and once in the backward, with
+    ``quantize_rows`` for its input and weight in both forwards and for
+    both in the backward."""
     L = cfg.n_layers
+    int8 = knobs.matmul_precision == "int8"
     return {"ssd_scan": 0, "paged_attention": 0, "ring_hop": 0,
             "flash_attention": 2 * L if knobs.kv_keep_stride <= 1 else 0,
-            "int8_matmul": 9 * L if knobs.matmul_precision == "int8" else 0}
+            "int8_matmul": 9 * L if int8 else 0,
+            "quantize_rows": 18 * L if int8 else 0}
 
 
 def check_train_parity(device, arch="mamba2-780m-smoke", steps=3,
@@ -786,6 +979,7 @@ def check_train_parity(device, arch="mamba2-780m-smoke", steps=3,
                 losses[-1].append(float(m["loss"]))
             if d == device:
                 launches = read_launches()
+                int8_designs(f"train parity {arch} {v.name}")
         want = {k: steps * n for k, n in per_step(cfg, v.knobs).items()}
         rel = max(abs(a - b) / abs(b) for a, b in zip(*losses))
         worst = max(worst, rel)
@@ -809,9 +1003,11 @@ def serve_full(device, arch="phi4-mini-3.8b", requests=12, slots=8):
             "--prompt-len", "64", "--prompt-len-max", "400",
             "--max-new", "16", "--qos-target", "0.001",
             "--decision-interval", "0", "--min-samples", "4"]
+    drop_int8_weights()
     reset_launches()
     res = serve.main(argv)
     launches = read_launches()
+    int8_designs(f"serve {arch}")
     eng, reqs = res["engine"], res["requests"]
     vocab = eng.cfg.vocab_size
     assert all(r.done and len(r.out) == r.max_new for r in reqs), \
@@ -852,7 +1048,13 @@ def rung_walk(res, device, batch=8, prompt_len=128, max_new=16):
             for i in range(batch)]
         for r in reqs:
             eng.submit(r)
+        drop_int8_weights()
+        reset_launches()
         eng.run()
+        designs = int8_designs(f"rung {name}")
+        if eng.active_knobs.matmul_precision == "int8":
+            # admission chunks of prompt_len rows, decode steps of batch
+            assert designs["A"] > 0 and designs["B"] > 0, designs
         assert all(r.done for r in reqs)
         step_ms = 1e3 * float(np.median(eng.step_latencies))
         out[name] = step_ms
@@ -928,6 +1130,7 @@ def train_full(device, arch, steps, batch, seq, names, per_step,
     reset_launches()
     res = train.main(argv, remat=remat)
     launches = read_launches()
+    int8_designs(f"train {arch}")
     cfg, table = res["cfg"], res["table"]
     assert res["names"] == names, res["names"]
     assert set(res["variants"]) == set(range(len(names))), res["variants"]
@@ -975,6 +1178,7 @@ def train_rung_walk(res, device, steps=8, per_step=None, skip=1,
             times.append(time.perf_counter() - t0)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         per = {k: n / steps for k, n in read_launches().items() if n}
+        int8_designs(f"train rung {cfg.name} {name}{tag}")
         want = {k: n for k, n in per_step(cfg, table.variants[i].knobs
                                           ).items() if n}
         kept = times[skip:]
@@ -1532,6 +1736,7 @@ def ring_cell(device, rungs=("precise", "int8+kvq8")):
             for r in reqs:
                 eng.submit(r)
             torch.cuda.synchronize()
+            drop_int8_weights()
             reset_launches()
             attn_mod.mesh_fallbacks = 0
             t0 = time.perf_counter()
@@ -1540,6 +1745,7 @@ def ring_cell(device, rungs=("precise", "int8+kvq8")):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = read_launches()
+            int8_designs(f"ring cell {name} {path}")
             assert all(r.done and len(r.out) == 16 for r in reqs)
             res[path] = dict(trace=tr, launches=launches, wall=wall,
                              streams=[r.out for r in reqs],
@@ -1586,6 +1792,7 @@ def ring_cell(device, rungs=("precise", "int8+kvq8")):
                             hops_skipped=skipped, logit_diff=max(diffs),
                             same=same)
     del params
+    drop_int8_weights()
     torch.cuda.empty_cache()
     return report, total
 
@@ -1624,13 +1831,9 @@ def main():
         print(f"phase {name}: {time.perf_counter() - t:.1f}s")
         t = time.perf_counter()
 
-    shapes = [(m, k, n) for m in (1, 8, 128)
-              for k, n in ((3072, 8192), (8192, 3072))] + [(5, 3000, 1000)]
-    # mamba2-780m training: the projections at 4 x 1024 tokens
-    shapes += [(4096, 1536, 3072), (4096, 3072, 1536)]
-    # phi4-mini-3.8b training: the MLP's products at 2 x 4096 tokens
-    shapes += [(8192, 3072, 8192), (8192, 8192, 3072)]
-    i8_rows = check_int8(device, shapes)
+    i8_rows = check_int8(device, int8_shapes())
+    assert {r["design"] for r in i8_rows} == {"A", "B", "fallback"}
+    q_rows = check_quantize(device, quantize_shapes())
     pa_rows = check_paged(device, phi4_paged_cases(torch.bfloat16))
     ssd_full = (4, 1024, 48, 64, 128, 128)      # mamba2-780m training
     ssd_rows = check_ssd(device, [(2, 64, 8, 16, 16, 16), ssd_full])
@@ -1652,6 +1855,8 @@ def main():
                                    == (8, 3072, 8192)),
                "paged_attention": next(r for r in pa_rows
                                        if r["name"] == "bf16"),
+               "quantize_rows": next(r for r in q_rows
+                                     if (r["M"], r["K"]) == (8, 3072)),
                "ring_hop": next(r for r in rh_rows
                                 if r["name"] == "cell-bf16"),
                "ssd_scan": next(r for r in ssd_rows
@@ -1670,6 +1875,7 @@ def main():
     profile_rungs(res, device)
     phase_done("profile")
     del res
+    drop_int8_weights()
     torch.cuda.empty_cache()
     tres, train_launches = train_full(
         device, "mamba2-780m", 12, 4, 1024,
@@ -1712,6 +1918,9 @@ def main():
                               "src/repro/kernels/int8_matmul.py:40"),
               "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                                   "src/repro/kernels/paged_attention.py:98"),
+              # jnp ops in the JAX package (XLA fuses them), no Pallas call
+              "quantize_rows": ("src/repro_torch/csrc/quantize_rows.cu",
+                                "src/repro/kernels/ref.py:11"),
               "ring_hop": ("src/repro_torch/csrc/ring_hop.cu",
                            "src/repro/kernels/ring_attention.py:113"),
               "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
@@ -1729,7 +1938,9 @@ def main():
                          max_abs_err=r["max_abs_err"], ms=r["ms"],
                          plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                          bound_by=r["bound_by"], library_ms=r["library_ms"],
-                         launches_by_path=by_path[name]))
+                         launches_by_path=by_path[name],
+                         **({k: r[k] for k in ("design", "library_layout")}
+                            if name == "int8_matmul" else {})))
     print(json.dumps({"kernels": line}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -16,16 +16,17 @@ import pathlib
 import shutil
 import subprocess
 import time
-from typing import Dict
+from typing import Dict, Set, Tuple
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD = pathlib.Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("flash_attention", "int8_matmul", "paged_attention", "ring_hop",
-           "ssd_scan")
+SOURCES = ("flash_attention", "int8_matmul", "paged_attention",
+           "quantize_rows", "ring_hop", "ssd_scan")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_TYPED: Set[Tuple[str, str]] = set()   # (library, entry) given argtypes
 ptxas_log: Dict[str, str] = {}       # nvcc's -Xptxas -v report per source
 
 
@@ -70,10 +71,10 @@ def build_all() -> float:
     return time.perf_counter() - t0
 
 
-def load(name: str, argtypes) -> ctypes.CDLL:
+def load(name: str, argtypes, entry: str = "") -> ctypes.CDLL:
     """The loaded library of kernel ``name`` (building all on first use),
-    with its C entry point ``name`` typed by ``argtypes`` (returns the
-    launch's ``cudaGetLastError()`` as an int)."""
+    with its C entry point ``entry`` (default ``name``) typed by
+    ``argtypes`` (returns the launch's ``cudaGetLastError()`` as an int)."""
     lib = _LIBS.get(name)
     if lib is None:
         import torch
@@ -81,8 +82,10 @@ def load(name: str, argtypes) -> ctypes.CDLL:
             raise RuntimeError(f"kernel {name}: CUDA is not available")
         build_all()
         lib = ctypes.CDLL(str(_so_path(name)))
-        fn = getattr(lib, name)
+        _LIBS[name] = lib
+    if (name, entry) not in _TYPED:
+        fn = getattr(lib, entry or name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _LIBS[name] = lib
+        _TYPED.add((name, entry))
     return lib

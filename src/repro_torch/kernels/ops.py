@@ -12,54 +12,107 @@ falls back to the end-aligned ``mha_ref`` and drops the stride.
 from __future__ import annotations
 
 import torch
+from torch.multiprocessing.reductions import StorageWeakRef
 
-from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import FlashAttention
-from repro_torch.kernels.int8_matmul import int8_matmul
+from repro_torch.kernels.int8_matmul import int8_matmul_t
 from repro_torch.kernels.paged_attention import paged_attention  # noqa: F401
+from repro_torch.kernels.quantize_rows import (quantize_rows,
+                                               quantize_rows_backward)
 from repro_torch.kernels.ssd_scan import SSDScan
 
 
-def int8_acc(x_q, w_q):
-    """The exact int32 sums of ``x_q @ w_q`` as fp32 (``acc.astype(f32)`` in
-    the JAX reference): ``int8_matmul`` with unit scales and an fp32 output,
-    which multiplies by 1 exactly."""
-    ones = torch.ones((), dtype=torch.float32, device=x_q.device)
-    return int8_matmul(x_q, ones.expand(x_q.shape[0], 1).contiguous(), w_q,
-                       ones.expand(1, w_q.shape[1]).contiguous(),
-                       out_dtype=torch.float32)
+def int8_acc(x_q, w_t):
+    """The exact int32 sums of ``x_q @ w_t.T`` as fp32 (``acc.astype(f32)``
+    in the JAX reference): ``int8_matmul_t`` with unit scales and an fp32
+    output."""
+    return int8_matmul_t(x_q, None, w_t, None, out_dtype=torch.float32)
 
 
-class _Int8Matmul(torch.autograd.Function):
-    """``int8_matmul`` for autograd. ``round`` and the int8 cast have zero
-    derivative, so, as under ``jax.grad`` of ``int8_matmul_ref``, gradient
-    reaches only the scales: with ``out = (acc * x_s) * w_s``,
-    ``d x_s = sum_n (g * w_s) * acc`` and ``d w_s = sum_m g * (acc * x_s)``."""
+class _QuantizedMatmul(torch.autograd.Function):
+    """W8A8 product of x (M, K) and w (K, N) for autograd: both quantised
+    (``quantize_rows``, the weight as rows of ``w.t()``), multiplied by
+    ``int8_matmul_t``. With ``out = (acc * x_s) * w_s`` the gradient reaches
+    only the scales, as under ``jax.grad`` of ``quantized_matmul_ref``:
+    ``d x_s = sum_n (g * w_s) * acc`` and ``d w_s = sum_m g * (acc * x_s)``,
+    the exact int32 sums ``acc`` taken again by the kernel; from the scales
+    ``quantize_rows_backward`` carries them to x and w."""
 
     @staticmethod
-    def forward(ctx, x_q, x_scale, w_q, w_scale, out_dtype):
-        ctx.save_for_backward(x_q, x_scale, w_q, w_scale)
-        return int8_matmul(x_q, x_scale, w_q, w_scale, out_dtype=out_dtype)
+    def forward(ctx, x, w):
+        x_q, x_s = quantize_rows(x)
+        w_t, w_s = quantize_weight(w)
+        ctx.save_for_backward(x, w, x_q, x_s, w_t, w_s)
+        return int8_matmul_t(x_q, x_s, w_t, w_s, out_dtype=x.dtype)
 
     @staticmethod
     def backward(ctx, g):
-        x_q, x_scale, w_q, w_scale = ctx.saved_tensors
-        acc = int8_acc(x_q, w_q)
+        x, w, x_q, x_s, w_t, w_s = ctx.saved_tensors
+        acc = int8_acc(x_q, w_t)
         g = g.float()
-        d_xs = ((g * w_scale) * acc).sum(1, keepdim=True)
-        d_ws = (g * (acc * x_scale)).sum(0, keepdim=True)
-        return None, d_xs, None, d_ws, None
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            d_xs = ((g * w_s.t()) * acc).sum(1, keepdim=True)
+            gx = quantize_rows_backward(x, d_xs)
+        if ctx.needs_input_grad[1]:
+            d_ws = (g * (acc * x_s)).sum(0).unsqueeze(1)
+            gw = quantize_rows_backward(w.t().contiguous(), d_ws).t()
+        return gx, gw
+
+
+# (w_t, w_s) of the weights that serve without autograd, keyed on the
+# weight's storage, offset, shape, strides and dtype; an entry holds the
+# version counter it was made at, so an in-place update (a view shares its
+# base's counter) misses. The key's weak reference to the storage keeps a
+# dead storage's identity (the key's hash) from passing to a new one while
+# the entry exists.
+_weight_cache: dict = {}
+
+
+def quantize_weight(w):
+    """``(w_t, w_s)`` of a (K, N) weight: int8 (N, K), K-major, and fp32
+    (N, 1), the rows of ``w.t()`` quantised. That takes the same amax over
+    the same entries and the same fp32 division as the JAX package's
+    ``quantize_rowwise(w, axis=0)``, so it is that bit for bit, transposed."""
+    return quantize_rows(w.t().contiguous())
+
+
+def cached_weight(w):
+    """``quantize_weight(w)``, made once for as long as ``w`` is unchanged."""
+    key = (StorageWeakRef(w.untyped_storage()), w.storage_offset(),
+           tuple(w.shape), w.stride(), w.dtype)
+    hit = _weight_cache.get(key)
+    if hit is not None and hit[0] == w._version:
+        return hit[1], hit[2]
+    if hit is None:     # a new weight: drop the entries of dead ones
+        for k in [k for k in _weight_cache if k[0].expired()]:
+            del _weight_cache[k]
+    w_t, w_s = quantize_weight(w)
+    _weight_cache[key] = (w._version, w_t, w_s)
+    return w_t, w_s
+
+
+def clear_weight_cache():
+    """Drop every cached int8 weight (a swap away from the int8 rungs)."""
+    _weight_cache.clear()
 
 
 def quantized_matmul(x, w):
-    """W8A8 dynamic-quantized matmul (the Pliant lower-precision knob):
-    x per row and w per column are quantized on every call, as in the JAX
-    package, then multiplied by ``int8_matmul``. Differentiable: autograd
-    carries the scales' gradient through ``quantize_rowwise``'s row max."""
+    """W8A8 dynamic-quantized matmul (the Pliant lower-precision knob), as
+    the JAX package computes it: x per row on every call, w (K, N) per
+    column, multiplied by ``int8_matmul_t``. Without autograd (serving) the
+    weight is quantised once while it is unchanged (``cached_weight``);
+    when autograd needs the graph (training) every call quantises both
+    through ``_QuantizedMatmul``, whose backward carries the scales'
+    gradient as autograd would through ``quantize_rowwise``."""
     lead = x.shape[:-1]
-    x_q, x_s = ref.quantize_rowwise(x.reshape(-1, x.shape[-1]))
-    w_q, w_s = ref.quantize_rowwise(w, axis=0)
-    y = _Int8Matmul.apply(x_q, x_s, w_q, w_s, x.dtype)
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        y = _QuantizedMatmul.apply(x2, w)
+    else:
+        x_q, x_s = quantize_rows(x2)
+        w_t, w_s = cached_weight(w)
+        y = int8_matmul_t(x_q, x_s, w_t, w_s, out_dtype=x.dtype)
     return y.reshape(lead + (w.shape[-1],))
 
 

@@ -51,6 +51,7 @@ from repro_torch.core.controller import headroom_burst
 from repro_torch.core.runtime import PliantRuntime
 from repro_torch.core.variants import VariantTable
 from repro_torch.dist.sharding import prefill_plan
+from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import lm
 from repro_torch.models.common import resolve_device
@@ -226,7 +227,8 @@ class ServeEngine:
 
     def set_variant(self, idx: int) -> None:
         """Hot-swap the active variant at a step boundary, converting the
-        page pool when the swap crosses the ``kv_quant`` boundary."""
+        page pool when the swap crosses the ``kv_quant`` boundary and
+        dropping the cached int8 weights when it leaves the int8 matmuls."""
         if idx == self._active:
             return
         old, new = self.active_knobs, self._variant_knobs[idx]
@@ -237,6 +239,9 @@ class ServeEngine:
             # prefix entries are tagged by the knobs that computed them; a
             # swap re-encodes the pool in place, so drop the stale index
             self.pool.flush_prefixes()
+        if old.matmul_precision == "int8" and new.matmul_precision != "int8":
+            # the int8 weights live only while an int8 rung is active
+            kops.clear_weight_cache()
         self._active = idx
         self.swaps.append((len(self.step_latencies), idx))
 
