@@ -32,10 +32,15 @@ Phases, each reported on its own line:
              at the ring cell's hop (phi4-mini heads, Cl 512 of a 2048-token
              chunk over 4 shards, Ll 4096) with bf16, fp32 and int8 K/V,
              carried state, position holes and rows that see nothing, plus
-             window + softcap + GQA; then the whole
+             window + softcap + GQA, each through the design
+             ``select_hop_design`` names (tensor-core "tc" for bf16
+             queries, "simt" for fp32), the cell cases also as one
+             4-shard ``ring_hop_step``, timed beside
+             ``scaled_dot_product_attention``; then the whole
              ``ring_chunk_attention`` at the cell's chunk (C 2048, L 16384,
              bf16) against the single-device path, timed beside it and
-             beside ``scaled_dot_product_attention``.
+             beside ``scaled_dot_product_attention``, with its host syncs
+             counted (one).
 3. parity    phi4-mini-3.8b-smoke served in fp32 twice from the same seeded
              weights, on the card and on the CPU: the greedy token streams
              of each serving rung must be equal. mamba2-780m-smoke (4 x 32
@@ -74,7 +79,10 @@ Phases, each reported on its own line:
              tokens, on precise and int8+kvq8, launch counters zeroed just
              before and read just after each ring run; each rung again on
              the single-device engine: admission ms a chunk on both paths,
-             hops run and skipped, and the first-token logits gate.
+             hops run and skipped, one ``ring_hop`` launch a ring step, all
+             of design "tc", the first-token logits gate, and a
+             ``torch.profiler`` summary of the deepest full chunk on both
+             paths.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``. Any
@@ -83,6 +91,7 @@ it does when CUDA is unavailable or the repository's sources are missing.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import pathlib
@@ -570,6 +579,20 @@ def cuda_kernel_names(fn):
                    if e.device_type == torch.autograd.DeviceType.CUDA})
 
 
+def host_syncs(fn):
+    """The host's waits for the stream (``cudaStreamSynchronize`` calls, a
+    device-to-host copy's or a pageable host-to-device copy's) in one call
+    of ``fn``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+    return sum(e.count for e in prof.key_averages()
+               if e.key == "cudaStreamSynchronize")
+
+
 def bf16_row_excess(out, ref):
     """The largest amount by which an element of ``out`` strays from
     ``ref`` beyond one bf16 step (2^-7 |ref|), in units of the rms of its
@@ -878,14 +901,16 @@ def _kernel_mods():
 
 
 def reset_launches():
-    """Zero every kernel's launch count (and the ring's hop counts and
-    ``int8_matmul``'s count per design)."""
+    """Zero every kernel's launch count (and the ring's hop and step counts,
+    and ``int8_matmul``'s and ``ring_hop``'s counts per design)."""
     from repro_torch.kernels import int8_matmul, ring_attention
     for mod in _kernel_mods().values():
         mod.launches = 0
     ring_attention.hops_run = ring_attention.hops_skipped = 0
-    for k in int8_matmul.design_launches:
-        int8_matmul.design_launches[k] = 0
+    ring_attention.steps_run = 0
+    for mod in (int8_matmul, ring_attention):
+        for k in mod.design_launches:
+            mod.design_launches[k] = 0
 
 
 def read_launches():
@@ -1416,20 +1441,91 @@ def state_errors(got, ref):
         acc=max_err(ga, ra_) / max(float(ra_.abs().max()), 1e-30))
 
 
+def hop_library(args, kw):
+    """One ``scaled_dot_product_attention`` call computing a fresh-state hop
+    on the same inputs (bf16 queries only: the hop's visibility as a
+    boolean ``attn_mask``, GQA by ``enable_gqa``, int8 K/V dequantised to
+    bf16 beforehand; the soft cap has no counterpart). Merging its output
+    into a carried (m, l, acc) would take three more elementwise passes.
+    Returns the call, or None for fp32 queries."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ring_attention as ra
+    q, k, v, qp, kvp = args[:5]
+    if q.dtype != torch.bfloat16:
+        return None
+    if kw["kv_scale"]:
+        k, v = (t.to(torch.bfloat16) * kw["kv_scale"] for t in (k, v))
+    mask = ra.visible(qp, kvp, kw["window"])[:, None]
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+def ring_step_case(c, device):
+    """The cell case ``c`` as a ring step over RING_N shards: shard d's
+    inputs are ``ring_hop_case(c, seed=d)`` (shard 0 the case itself), and
+    shard d meets K/V shard (d - 1) mod RING_N, as at hop 1."""
+    import torch
+    cases = [ring_hop_case(c, device, seed=d) for d in range(RING_N)]
+    stacks = [torch.stack([a[i] for a, _ in cases]) for i in range(8)]
+    pairs = [(d, (d - 1) % RING_N) for d in range(RING_N)]
+    return stacks, pairs, cases[0][1]
+
+
+def check_ring_step(c, device, iters):
+    """``ring_hop_step`` (one launch for the RING_N shards of a hop step)
+    against ``ring_hop_step_plain`` at RING_REL, blind rows kept exactly,
+    the launch counted once in the design ``select_hop_design`` names;
+    returns its time."""
+    import torch
+    from repro_torch.kernels import ring_attention as ra
+    stacks, pairs, kw = ring_step_case(c, device)
+    state = stacks[5:]
+    design = ra.select_hop_design(stacks[0].dtype, stacks[1].dtype,
+                                  stacks[0].shape[-1])
+    before = (ra.launches, ra.design_launches[design])
+    got = ra.ring_hop_step(*stacks[:5], *[t.clone() for t in state], pairs,
+                           **kw)
+    assert (ra.launches, ra.design_launches[design]) == \
+        (before[0] + 1, before[1] + 1), (c["name"], ra.design_launches)
+    ref = ra.ring_hop_step_plain(*stacks[:5], *[t.clone() for t in state],
+                                 pairs, **kw)
+    torch.cuda.synchronize()
+    for d, src in pairs:
+        err = state_errors([t[d] for t in got], [t[d] for t in ref])
+        assert max(err.values()) <= RING_REL, (c["name"], d, err)
+        seen = ra.visible(stacks[3][d], stacks[4][src], kw["window"]).any(-1)
+        blind = ~seen[:, None, :].expand(stacks[0].shape[1:4])
+        assert torch.equal(got[2][d][blind], state[2][d][blind]), c["name"]
+    work = [t.clone() for t in state]
+    return timed(lambda: ra.ring_hop_step(*stacks[:5], *work, pairs, **kw),
+                 device, iters)
+
+
 def check_ring_hop(device, cases, iters=10):
     """``ring_hop`` against ``ring_hop_plain`` on the card, each updating
     its own copy of the state, held to RING_REL (both compute in fp32 from
-    the same inputs, bf16 and int8 included: nothing in a hop is rounded to
-    bf16). Rows that see nothing keep their state exactly. Times: the
-    kernel, the plain version, and the bound; ``library_ms`` is null (no
-    PyTorch call carries (m, l, acc) across calls)."""
+    the same inputs up to the order of the sums: design "tc" takes bf16
+    products, exact in fp32, and splits P into two bf16 halves for P.V).
+    Rows that see nothing keep their state exactly. bf16 queries (bf16 or
+    int8 K/V) must launch design "tc", fp32 ones "simt". The cell cases
+    also run as a ``ring_hop_step`` of RING_N shards. Times: the kernel,
+    the plain version, the bound, the step, and the library yardstick
+    ``hop_library`` for bf16 queries."""
     import torch
     from repro_torch.kernels import ring_attention as ra
     rows = []
     for c in cases:
         args, kw = ring_hop_case(c, device)
         state = args[5:]
+        design = ra.select_hop_design(args[0].dtype, args[1].dtype,
+                                      args[0].shape[-1])
+        assert design == ("tc" if c["q_dtype"] == torch.bfloat16
+                          else "simt"), (c["name"], design)
+        before = dict(ra.design_launches)
         got = ra.ring_hop(*args[:5], *[t.clone() for t in state], **kw)
+        assert ra.design_launches[design] == before[design] + 1, \
+            (c["name"], before, ra.design_launches)
         ref = ra.ring_hop_plain(*args[:5], *[t.clone() for t in state],
                                 **kw)
         torch.cuda.synchronize()
@@ -1444,18 +1540,31 @@ def check_ring_hop(device, cases, iters=10):
                      iters)
         plain = timed(lambda: ra.ring_hop_plain(*args[:5], *work, **kw),
                       device, 3, warmup=1)
+        lib = hop_library(args, kw)
+        lib_ms = timed(lib, device, iters) if lib else None
+        step_ms = (check_ring_step(c, device, iters)
+                   if c["name"].startswith("cell") else None)
         bound, by, pairs = ring_hop_bound_ms(args, kw)
-        rows.append(dict(name=c["name"], shape=c["shape"],
+        rows.append(dict(name=c["name"], shape=c["shape"], design=design,
                          max_abs_err=max_err(got[2], ref[2]), rel=err,
-                         ms=kern, plain_ms=plain, library_ms=None,
-                         bound_ms=bound, bound_by=by, pairs=pairs))
+                         ms=kern, plain_ms=plain, library_ms=lib_ms,
+                         step_ms=step_ms, bound_ms=bound, bound_by=by,
+                         pairs=pairs))
+        lib_s = "null" if lib_ms is None else f"{lib_ms:.4f}" + (
+            " (no cap)" if kw["cap"] else "")
+        step_s = "" if step_ms is None else (
+            f" step_ms={step_ms:.4f} ({RING_N} shards, one launch; "
+            f"{step_ms / kern:.2f}x one hop)")
         print(f"ring_hop {c['name']} (B,H,KVH,Cl,Ll,hd)={c['shape']} q "
-              f"{str(args[0].dtype)[6:]} kv {str(args[1].dtype)[6:]}: "
-              f"rel err m={err['m']:.3g} l={err['l']:.3g} "
+              f"{str(args[0].dtype)[6:]} kv {str(args[1].dtype)[6:]} design "
+              f"{design}: rel err m={err['m']:.3g} l={err['l']:.3g} "
               f"acc={err['acc']:.3g} (tol {RING_REL:g}), blind rows "
               f"{int(blind.sum())} kept, ms={kern:.4f} plain_ms="
-              f"{plain:.4f} library_ms=null bound_ms={bound:.4f} ({by}, "
-              f"{pairs} visible pairs)")
+              f"{plain:.4f} library_ms={lib_s} bound_ms={bound:.4f} ({by}, "
+              f"{pairs} visible pairs){step_s}")
+        if lib is not None and c["name"] == "cell-bf16":
+            print("  library kernels: "
+                  + ",".join(cuda_kernel_names(lib))[:160])
     return rows
 
 
@@ -1463,7 +1572,8 @@ def phi4_ring_hop_cases():
     """The cell's hop (phi4-mini-3.8b: H 24, KVH 8, hd 128; Cl 512 of a
     2048-token chunk over 4 shards, Ll 4096 of a 16384-token block row) in
     bf16, fp32 and int8 K/V, carried state, holes and dead rows; then
-    window + softcap with GQA at a small shape."""
+    window + softcap with GQA at a small shape, and GQA groups wider than
+    a "tc" block holds."""
     import torch
     bf16, f32, i8 = torch.bfloat16, torch.float32, torch.int8
     cell = dict(shape=(1, 24, 8, 512, 4096, 128), chunk_start=14336)
@@ -1486,6 +1596,14 @@ def phi4_ring_hop_cases():
         dict(small, name="window-cap-gqa-fp32", q_dtype=f32, kv_dtype=f32),
         dict(small, name="window-cap-gqa-bf16-carried", q_dtype=bf16,
              kv_dtype=bf16, carried=True),
+        # query heads a KV head beyond the tc design's 3 a block: R 4 in
+        # two blocks of 2, R 8 in three of 3 (the last with idle warps)
+        dict(name="gqa4-bf16", shape=(1, 8, 2, 128, 320, 128),
+             chunk_start=600, kv_start=400, q_dtype=bf16, kv_dtype=bf16,
+             holes=True, dead=True, carried=True),
+        dict(name="gqa8-int8-ragged", shape=(2, 8, 1, 70, 200, 128),
+             chunk_start=300, kv_start=150, q_dtype=bf16, kv_dtype=i8,
+             window=96, carried=True),
     ]
 
 
@@ -1553,9 +1671,11 @@ def check_ring_chunk(device, iters=3):
             return _sdpa(q.to(dtype), kk.to(dtype), vv.to(dtype),
                          mask=valid[:, None, None])
 
-        ra.hops_run = ra.hops_skipped = ra.launches = 0
+        reset_launches()
         o = ring()
         hops = (ra.hops_run, ra.hops_skipped, ra.launches)
+        assert ra.launches == ra.steps_run == ra.design_launches["tc"], \
+            (ra.launches, ra.steps_run, ra.design_launches)
         ref, ref32 = single(), single(torch.float32)
         torch.cuda.synchronize()
         assert torch.isfinite(o.float()).all()
@@ -1573,13 +1693,18 @@ def check_ring_chunk(device, iters=3):
         row = dict(ring_ms=timed(ring, device, iters, warmup=1),
                    single_ms=timed(single, device, iters, warmup=1),
                    sdpa_ms=timed(lib, device, iters),
-                   hops=hops, excess=ex, excess32=ex32)
+                   hops=hops, excess=ex, excess32=ex32,
+                   syncs=host_syncs(ring))
+        # the whole-hop skips are decided on the host after ONE copy of the
+        # shards' position bounds: no other wait for the stream
+        assert row["syncs"] == 1, row["syncs"]
         out[done] = row
         print(f"ring_chunk_attention C={C} L={RING_CTX} bf16 {RING_N} "
               f"shards, context written through {done}: excess vs "
               f"single-device path {ex:.3g} row rms, vs fp32 {ex32:.3g} "
               f"(tol 2^-7 |ref| + {BF16_ROW:g} row rms), hops run/skipped/"
-              f"launched {hops}, ring_ms={row['ring_ms']:.3f} "
+              f"launched {hops}, host syncs {row['syncs']}, ring_ms="
+              f"{row['ring_ms']:.3f} "
               f"single_device_ms={row['single_ms']:.3f} sdpa_ms (library "
               f"yardstick, boolean mask; excess vs fp32 {lib_ex:.3g}) "
               f"{row['sdpa_ms']:.3f} a chunk and layer; kernels: "
@@ -1636,11 +1761,16 @@ class AdmissionTrace:
     """Records every admission chunk of an engine run: its length and its
     wall time, the card synchronised before and after (so the chunk's
     device work is inside), and the last-token logits of each prompt's
-    final chunk (its first token's logits), keyed by prompt length."""
+    final chunk (its first token's logits), keyed by prompt length. With
+    ``profile_at``, the first full chunk starting there runs under
+    ``torch.profiler`` (the card's activity only): ``profile`` keeps its
+    wall, device-busy time and kernels by device time, and the chunk stays
+    out of ``summary``'s mean."""
 
-    def __init__(self, prompt_lens):
+    def __init__(self, prompt_lens, profile_at=None):
         self.ends = set(prompt_lens)
         self.chunks, self.first_logits = [], {}
+        self.profile_at, self.profile = profile_at, None
 
     def __enter__(self):
         import torch
@@ -1648,12 +1778,22 @@ class AdmissionTrace:
         self._mod, self._orig = prefill_mod, prefill_mod.paged_prefill_chunk
 
         def traced(params, tokens, start, *a, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            logits, caches = self._orig(params, tokens, start, *a, **kw)
-            torch.cuda.synchronize()
             C = tokens.shape[1]
-            self.chunks.append((C, time.perf_counter() - t0))
+            profiling = self.profile is None and start == self.profile_at \
+                and C == RING_CHUNK
+            prof = (torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA])
+                if profiling else contextlib.nullcontext())
+            torch.cuda.synchronize()
+            with prof:
+                t0 = time.perf_counter()
+                logits, caches = self._orig(params, tokens, start, *a, **kw)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            if profiling:
+                self.profile = profile_summary(prof, wall)
+            # a profiled chunk is kept out of the mean by its sign
+            self.chunks.append((-C if profiling else C, wall))
             if start + C in self.ends:
                 self.first_logits[start + C] = logits[0].float().cpu()
             return logits, caches
@@ -1667,8 +1807,26 @@ class AdmissionTrace:
         import numpy as np
         full = [t for c, t in self.chunks if c == RING_CHUNK]
         tails = sorted((c, round(1e3 * t, 3)) for c, t in self.chunks
-                       if c != RING_CHUNK)
+                       if abs(c) != RING_CHUNK)
         return 1e3 * float(np.mean(full)), len(full), tails
+
+
+def profile_summary(prof, wall, top=10):
+    """Wall ms, device-busy ms and the ``top`` kernels by device time (ms,
+    calls) of one profiled region."""
+    import torch
+
+    def dev_us(e):
+        return (getattr(e, "self_device_time_total", None)
+                or getattr(e, "self_cuda_time_total", 0))
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and dev_us(e) > 0]
+    return dict(wall_ms=1e3 * wall,
+                busy_ms=sum(dev_us(e) for e in kern) / 1e3,
+                kernels=[(round(dev_us(e) / 1e3, 3), e.count, e.key[:80])
+                         for e in sorted(kern, key=dev_us,
+                                         reverse=True)[:top]])
 
 
 # ring cell traffic: prompts of 16000, 12000, 9000 and 8194 tokens (tails of
@@ -1686,6 +1844,10 @@ RING_PROMPTS = (16000, 12000, 9000, 8194)
 # mask turned) replaces a share of every layer's attention and moves the
 # logits by several times their rms. Held to 0.5.
 RING_LOGIT_TOL = 0.5
+# the ring cell with the hop of one launch a shard hop, fp32 FMAs on the
+# CUDA cores (H100 80GB HBM3, 700 W), printed beside each run
+RING_CELL_BEFORE = {"precise": dict(chunk_ms=526.5, wall=20.40, same=4),
+                    "int8+kvq8": dict(chunk_ms=522.5, wall=20.24, same=2)}
 
 
 def ring_cell(device, rungs=("precise", "int8+kvq8")):
@@ -1740,7 +1902,8 @@ def ring_cell(device, rungs=("precise", "int8+kvq8")):
             reset_launches()
             attn_mod.mesh_fallbacks = 0
             t0 = time.perf_counter()
-            with AdmissionTrace(RING_PROMPTS) as tr:
+            deep = (max(RING_PROMPTS) - RING_CHUNK) // RING_CHUNK * RING_CHUNK
+            with AdmissionTrace(RING_PROMPTS, profile_at=deep) as tr:
                 eng.run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
@@ -1750,6 +1913,8 @@ def ring_cell(device, rungs=("precise", "int8+kvq8")):
             res[path] = dict(trace=tr, launches=launches, wall=wall,
                              streams=[r.out for r in reqs],
                              hops=(ra.hops_run, ra.hops_skipped),
+                             steps=ra.steps_run,
+                             designs=dict(ra.design_launches),
                              fallbacks=attn_mod.mesh_fallbacks)
             if m is not None:
                 for k in total:
@@ -1758,9 +1923,13 @@ def ring_cell(device, rungs=("precise", "int8+kvq8")):
             torch.cuda.empty_cache()
         ring, single = res["ring"], res["single"]
         run, skipped = ring["hops"]
-        ring_chunks = sum(c >= RING_N for c, _ in ring["trace"].chunks)
-        short = sum(c < RING_N for c, _ in ring["trace"].chunks)
-        assert ring["launches"]["ring_hop"] == run > 0, ring["launches"]
+        ring_chunks = sum(abs(c) >= RING_N for c, _ in ring["trace"].chunks)
+        short = sum(abs(c) < RING_N for c, _ in ring["trace"].chunks)
+        # one launch a ring step with a running shard, every one design tc
+        assert ring["launches"]["ring_hop"] == ring["steps"] > 0, \
+            (ring["launches"], ring["steps"])
+        assert ring["designs"] == {"tc": ring["steps"], "simt": 0}, \
+            ring["designs"]
         assert run + skipped == RING_N ** 2 * cfg.n_layers * ring_chunks
         assert short == 1 and ring["fallbacks"] == cfg.n_layers, \
             (short, ring["fallbacks"])
@@ -1773,12 +1942,15 @@ def ring_cell(device, rungs=("precise", "int8+kvq8")):
         same = sum(x == y for x, y in zip(ring["streams"], single["streams"]))
         r_ms, r_n, r_tails = ring["trace"].summary()
         s_ms, s_n, s_tails = single["trace"].summary()
+        was = RING_CELL_BEFORE[name]
         print(f"ring cell {name}: admission ms a {RING_CHUNK}-token chunk "
               f"(32 layers) ring {r_ms:.1f} vs single device {s_ms:.1f} "
               f"({r_n} chunks each); tails (tokens, ms) ring {r_tails} vs "
               f"single {s_tails}; run wall ring {ring['wall']:.2f}s single "
-              f"{single['wall']:.2f}s")
-        print(f"ring cell {name}: ring_hop launches {run}, hops run {run} "
+              f"{single['wall']:.2f}s (fp32 SIMT hop, a launch a hop: ring "
+              f"chunk {was['chunk_ms']} ms, run wall {was['wall']} s)")
+        print(f"ring cell {name}: ring_hop launches {ring['steps']} (one a "
+              f"ring step, by design {ring['designs']}), hops run {run} "
               f"skipped {skipped} over {ring_chunks} ring chunks, host syncs "
               f"{cfg.n_layers} a ring chunk (one per layer: whole-hop skips "
               f"decided on the host), short tail on the single-device path "
@@ -1786,11 +1958,22 @@ def ring_cell(device, rungs=("precise", "int8+kvq8")):
               f"ring {ring['launches']} single {single['launches']}")
         print(f"ring cell {name}: first-token logits max|ring - single| / "
               f"rms {[round(d, 4) for d in diffs]} (tol {RING_LOGIT_TOL}); "
-              f"streams identical {same}/4")
+              f"streams identical {same}/4 (fp32 SIMT hop: "
+              f"{was['same']}/4)")
+        for path in ("ring", "single"):
+            pr = res[path]["trace"].profile
+            print(f"ring cell {name} {path}: profiled chunk at "
+                  f"{res[path]['trace'].profile_at} ({RING_CHUNK} tokens): "
+                  f"wall {pr['wall_ms']:.1f} ms, device busy "
+                  f"{pr['busy_ms']:.1f} ms "
+                  f"({pr['busy_ms'] / pr['wall_ms']:.3f})")
+            for ms, n, key in pr["kernels"]:
+                print(f"  {ms:9.3f} ms {n:6d} calls  {key}")
         assert max(diffs) <= RING_LOGIT_TOL, diffs
         report[name] = dict(ring_ms=r_ms, single_ms=s_ms, hops_run=run,
-                            hops_skipped=skipped, logit_diff=max(diffs),
-                            same=same)
+                            hops_skipped=skipped, steps=ring["steps"],
+                            logit_diff=max(diffs), same=same,
+                            wall=ring["wall"])
     del params
     drop_int8_weights()
     torch.cuda.empty_cache()
@@ -1940,7 +2123,9 @@ def main():
                          bound_by=r["bound_by"], library_ms=r["library_ms"],
                          launches_by_path=by_path[name],
                          **({k: r[k] for k in ("design", "library_layout")}
-                            if name == "int8_matmul" else {})))
+                            if name == "int8_matmul" else {}),
+                         **({k: r[k] for k in ("design", "step_ms")}
+                            if name == "ring_hop" else {})))
     print(json.dumps({"kernels": line}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,6 +1,6 @@
 """Ring-attention chunked prefill: the CUDA kernel ``csrc/ring_hop.cu`` for
-one hop, its plain PyTorch version, the ring over sequence shards, and the
-per-device cost account.
+the hops of one ring step, its plain PyTorch version, the ring over sequence
+shards, and the per-device cost account.
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/ring_attention.py``
 (``_hop`` / ``_hop_kernel``) and its ``ring_chunk_attention``. A hop
@@ -15,19 +15,29 @@ masked changes nothing. That makes the result independent of the tiling:
 the kernel uses its own 64 x 64 tiles and skips every tile with no visible
 entry, which covers the tiles the Pallas kernel skips by position bounds.
 
-``ring_hop`` UPDATES m, l and acc IN PLACE (and returns them), on both
-devices: a CPU tensor takes ``ring_hop_plain``, a CUDA tensor launches the
-kernel, anything else raises; it never falls back.
+The kernel has two designs, picked by ``select_hop_design``: "tc" (bf16
+queries with bf16 or int8 K/V: tensor-core tiles, each K/V tile shared by
+the query heads of a GQA group, P.V with P split into two bf16 halves so
+the sums keep fp32 accuracy) and "simt" (fp32 queries or K/V: fp32 FMAs).
+``launches`` counts launches, ``design_launches`` the launches of each
+design.
 
-``ring_chunk_attention`` runs the n sequence shards of ``plan`` one after
-another on the mesh's one device: every shard's resident queries and its
-K/V live in that device's memory, and the ring's rotation is a re-index of
-the shard list (shard d meets K/V shard (d - t) mod n at hop t, as after t
-``ppermute`` steps), so no K/V bytes move between hops. Whole hops are
-skipped on position bounds, decided on the host: the bounds of all shards
-come across in ONE device-to-host copy per call (one sync per layer and
-chunk), because a skipped hop then costs no launch at all, where a skip on
-the device would still launch every hop and read its positions.
+``ring_hop`` (one hop) and ``ring_hop_step`` (the hops of every shard that
+runs at one ring step, in one launch) UPDATE m, l and acc IN PLACE (and
+return them), on both devices: a CPU tensor takes ``ring_hop_plain``, a
+CUDA tensor launches the kernel, anything else raises; they never fall
+back.
+
+``ring_chunk_attention`` runs the n sequence shards of ``plan`` on the
+mesh's one device: every shard's resident queries and its K/V live in that
+device's memory, and the ring's rotation is a re-index of the shard stacks
+(shard d meets K/V shard (d - t) mod n at hop t, as after t ``ppermute``
+steps), so no K/V bytes move between hops; the shards that run at hop t go
+in one ``ring_hop_step``. Whole hops are skipped on position bounds,
+decided on the host: the bounds of all shards come across in ONE
+device-to-host copy per call (one sync per layer and chunk), because a
+skipped hop then costs no launch at all, where a skip on the device would
+still launch every hop and read its positions.
 """
 from __future__ import annotations
 
@@ -39,18 +49,33 @@ import torch
 from repro_torch.kernels import _build
 
 launches = 0          # kernel launches since the last reset (plain runs: 0)
-hops_run = 0          # hops the ring ran (either device)
-hops_skipped = 0      # hops skipped whole on position bounds
+design_launches = {"tc": 0, "simt": 0}
+hops_run = 0          # shard hops the ring ran (either device)
+hops_skipped = 0      # shard hops skipped whole on position bounds
+steps_run = 0         # ring steps with at least one shard's hop to run
 
 NEG_INF = -1e30
 _BIG = 2 ** 30
 TILE = 64             # the kernel's query and key tile
+MAX_PAIRS = 64        # shards one launch runs
 
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
-    + [ctypes.c_float] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+_DESIGN_CODES = {"simt": 0, "tc": 1}
+_TC_HD = (64, 128)
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 \
+    + [ctypes.c_float] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _HD_MAX = 256
+
+
+def select_hop_design(q_dtype, kv_dtype, hd: int) -> str:
+    """The kernel design for a hop: ``"tc"`` (tensor cores) for bf16
+    queries with bf16 or int8 K/V at head width 64 or 128, ``"simt"`` (fp32
+    FMAs) for anything else the kernel takes."""
+    if q_dtype == torch.bfloat16 and kv_dtype in (torch.bfloat16, torch.int8) \
+            and hd in _TC_HD:
+        return "tc"
+    return "simt"
 
 
 def visible(qp, kvp, window: int = 0):
@@ -104,19 +129,80 @@ def ring_hop(qf, kf, vf, qp, kvp, m, l, acc, *, window: int = 0,
     if qf.device.type == "cpu":
         return ring_hop_plain(qf, kf, vf, qp, kvp, m, l, acc, window=window,
                               cap=cap, kv_scale=kv_scale)
-    return _launch(qf, kf, vf, qp, kvp, m, l, acc, window, cap, kv_scale)
+    _check_cuda(qf.device)
+    _launch([t[None] for t in (qf, kf, vf, qp, kvp, m, l, acc)], [(0, 0)],
+            window, cap, kv_scale)
+    return m, l, acc
 
 
-def _launch(qf, kf, vf, qp, kvp, m, l, acc, window, cap, kv_scale):
-    global launches
-    dev = qf.device
+def ring_hop_step(qf, kf, vf, qp, kvp, m, l, acc, pairs, *, window: int = 0,
+                  cap: float = 0.0, kv_scale: float = 0.0):
+    """The hops of one ring step: for each (d, src) in ``pairs``, advance
+    shard d's state by K/V shard src, in place, all in one launch.
+
+    Stacks over n shards, each entry shaped as in ``ring_hop``: qf
+    (n, B, H, Cl, hd), kf/vf (n, B, KVH, Ll, hd), qp (n, B, Cl), kvp
+    (n, B, Ll), m/l (n, B, H, Cl, 1), acc (n, B, H, Cl, hd). The d of
+    ``pairs`` must be distinct (each shard's state is written by one hop);
+    a src may repeat. Returns (m, l, acc)."""
+    pairs = [(int(d), int(s)) for d, s in pairs]
+    n = qf.shape[0] if qf.dim() == 5 else -1
+    shapes = [t.shape for t in (qf, kf, vf, qp, kvp, m, l, acc)]
+    if n < 0 or any(len(sh) == 0 or sh[0] != n for sh in shapes):
+        raise ValueError(f"ring_hop_step: every stack needs the same leading "
+                         f"shard dimension, got {[tuple(sh) for sh in shapes]}")
+    for d, s in pairs:
+        if not (0 <= d < n and 0 <= s < n):
+            raise ValueError(f"ring_hop_step: pair {(d, s)} out of range "
+                             f"for {n} shards")
+    if len({d for d, _ in pairs}) != len(pairs):
+        raise ValueError(f"ring_hop_step: repeated destination shard in "
+                         f"{pairs}")
+    B, H, Cl, hd = qf.shape[1:]
+    KVH, Ll = kf.shape[2], kf.shape[3]
+    want = {"kf": (n, B, KVH, Ll, hd), "vf": (n, B, KVH, Ll, hd),
+            "qp": (n, B, Cl), "kvp": (n, B, Ll), "m": (n, B, H, Cl, 1),
+            "l": (n, B, H, Cl, 1), "acc": (n, B, H, Cl, hd)}
+    for name, t in zip(want, (kf, vf, qp, kvp, m, l, acc)):
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"ring_hop_step: {name} must be {want[name]} "
+                             f"beside q {tuple(qf.shape)}, got "
+                             f"{tuple(t.shape)}")
+    if qf.device.type == "cpu":
+        return ring_hop_step_plain(qf, kf, vf, qp, kvp, m, l, acc, pairs,
+                                   window=window, cap=cap, kv_scale=kv_scale)
+    if pairs:
+        _launch((qf, kf, vf, qp, kvp, m, l, acc), pairs, window, cap,
+                kv_scale)
+    return m, l, acc
+
+
+def ring_hop_step_plain(qf, kf, vf, qp, kvp, m, l, acc, pairs, *,
+                        window: int = 0, cap: float = 0.0,
+                        kv_scale: float = 0.0):
+    """``ring_hop_step``'s plain version: ``ring_hop_plain`` pair by pair on
+    the shards' views, so the stacks update in place."""
+    for d, s in pairs:
+        ring_hop_plain(qf[d], kf[s], vf[s], qp[d], kvp[s], m[d], l[d],
+                       acc[d], window=window, cap=cap, kv_scale=kv_scale)
+    return m, l, acc
+
+
+def _check_cuda(dev):
     if dev.type != "cuda":
         raise ValueError(f"ring_hop: needs a CPU or CUDA tensor, got {dev}")
-    if qf.dim() != 4 or qf.dtype not in _Q_CODES:
+
+
+def _launch(stacks, pairs, window, cap, kv_scale):
+    global launches
+    qf, kf, vf, qp, kvp, m, l, acc = stacks
+    dev = qf.device
+    _check_cuda(dev)
+    if qf.dim() != 5 or qf.dtype not in _Q_CODES:
         raise ValueError(f"ring_hop: q must be (B,H,Cl,hd) fp32 or bf16, "
-                         f"got {qf.dtype} {tuple(qf.shape)}")
-    B, H, Cl, hd = qf.shape
-    KVH, Ll = kf.shape[1], kf.shape[2]
+                         f"got {qf.dtype} {tuple(qf.shape[1:])}")
+    n, B, H, Cl, hd = qf.shape
+    KVH, Ll = kf.shape[2], kf.shape[3]
     if kf.dtype not in _KV_CODES:
         raise ValueError(f"ring_hop: K/V must be fp32, bf16 or int8, got "
                          f"{kf.dtype}")
@@ -129,30 +215,40 @@ def _launch(qf, kf, vf, qp, kvp, m, l, acc, window, cap, kv_scale):
             ("m", m, torch.float32, (B, H, Cl, 1)),
             ("l", l, torch.float32, (B, H, Cl, 1)),
             ("acc", acc, torch.float32, (B, H, Cl, hd))):
-        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
-                or not t.is_contiguous():
+        if t.device != dev or t.dtype != dtype \
+                or tuple(t.shape) != (n,) + shape or not t.is_contiguous():
             raise ValueError(
                 f"ring_hop: {name} must be a contiguous {dtype} {shape} on "
-                f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device} "
+                f"{dev}, got {t.dtype} {tuple(t.shape[1:])} on {t.device} "
                 f"(contiguous={t.is_contiguous()})")
     if hd % 16 or not 0 < hd <= _HD_MAX or KVH == 0 or H % KVH:
         raise ValueError(f"ring_hop: needs hd a multiple of 16 up to "
                          f"{_HD_MAX} and H a multiple of KVH; got hd={hd}, "
                          f"H={H}, KVH={KVH}")
+    if len(pairs) > MAX_PAIRS or B * len(pairs) > 65535:
+        raise ValueError(f"ring_hop: at most {MAX_PAIRS} shards and 65535 "
+                         f"batch rows a launch, got {len(pairs)} x {B}")
     if acc.numel() == 0 or Ll == 0:
-        return m, l, acc
-    lib = _build.load("ring_hop", _ARGTYPES)
-    rc = lib.ring_hop(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(),
-                      qp.data_ptr(), kvp.data_ptr(), m.data_ptr(),
-                      l.data_ptr(), acc.data_ptr(), B, H, KVH, Cl, Ll, hd,
-                      int(window), float(cap), float(kv_scale),
-                      float(hd ** -0.5), _Q_CODES[qf.dtype],
-                      _KV_CODES[kf.dtype],
-                      torch.cuda.current_stream(dev).cuda_stream)
+        return
+    design = select_hop_design(qf.dtype, kf.dtype, hd)
+    if design == "tc" and any(t.data_ptr() % 16 for t in (qf, kf, vf)):
+        raise ValueError("ring_hop: design tc needs q, k and v 16-byte "
+                         "aligned")
+    lib = _build.load("ring_hop", _ARGTYPES, "ring_hop_step")
+    flat = (ctypes.c_int * (2 * len(pairs)))(*[i for p in pairs for i in p])
+    rc = lib.ring_hop_step(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(),
+                           qp.data_ptr(), kvp.data_ptr(), m.data_ptr(),
+                           l.data_ptr(), acc.data_ptr(),
+                           ctypes.addressof(flat), len(pairs), B, H, KVH,
+                           Cl, Ll, hd, int(window), float(cap),
+                           float(kv_scale), float(hd ** -0.5),
+                           _Q_CODES[qf.dtype], _KV_CODES[kf.dtype],
+                           _DESIGN_CODES[design],
+                           torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         raise RuntimeError(f"ring_hop: launch failed, cudaError {rc}")
     launches += 1
-    return m, l, acc
+    design_launches[design] += 1
 
 
 def _pad_tail(x, dim: int, to: int, fill):
@@ -183,12 +279,13 @@ def ring_chunk_attention(q, k, v, q_pos, kv_pos, *, mesh, plan,
     holds rows d, d+n, d+2n, ...) so every shard sees early and late
     positions, window chunks stay contiguous so whole hops behind the band
     skip; K/V and positions split contiguously; each shard's lengths pad
-    once to the kernel's tile. Then n hops per shard and ``acc / max(l,
+    once to the kernel's tile. Then n ring steps, each one
+    ``ring_hop_step`` over the shards whose hop runs, and ``acc / max(l,
     1e-30)``."""
     if q.device != mesh.device:
         raise ValueError(f"ring_chunk_attention: q on {q.device}, the mesh "
                          f"on {mesh.device}")
-    global hops_run, hops_skipped
+    global hops_run, hops_skipped, steps_run
     B, C, G, R, hd = q.shape
     n = plan.n_shards
     H = G * R
@@ -198,13 +295,16 @@ def ring_chunk_attention(q, k, v, q_pos, kv_pos, *, mesh, plan,
     v = _pad_tail(v, 1, n, 0)
     kv_pos = _pad_tail(kv_pos.to(torch.int32), 1, n, -1)
     Cp, Lp = q.shape[1], k.shape[1]
+    Cl, Ll = Cp // n, Lp // n
     inv = None
     if window == 0 and n > 1:
-        stripe = torch.cat([torch.arange(d, Cp, n) for d in range(n)])
-        inv = torch.argsort(stripe).to(q.device)
-        stripe = stripe.to(q.device)
+        # shard d holds rows d, d + n, ...: row i goes to (i % n) * Cl + i // n.
+        # Built on the device: a host index copied there would wait for the
+        # stream, a sync of its own beside the bounds' one.
+        rows = torch.arange(Cp, device=q.device)
+        stripe = rows.reshape(Cl, n).t().reshape(-1)
+        inv = rows % n * Cl + rows // n
         q, q_pos = q[:, stripe], q_pos[:, stripe]
-    Cl, Ll = Cp // n, Lp // n
     # shard-major layouts: qf[d] (B, H, Cl, hd), kf[d] (B, G, Ll, hd)
     qf = q.reshape(B, n, Cl, H, hd).permute(1, 0, 3, 2, 4)
     qp = q_pos.reshape(B, n, Cl).transpose(0, 1)
@@ -230,6 +330,7 @@ def ring_chunk_attention(q, k, v, q_pos, kv_pos, *, mesh, plan,
         torch.where(kvv, kvp, -1).amax((1, 2))]).tolist()   # the host sync
     q_max, q_min, kv_min, kv_max = bounds
     for hop in range(n):
+        pairs = []
         for d in range(n):
             src = (d - hop) % n
             # whole-hop skip: the visiting shard is empty (kv_max < 0) or
@@ -237,12 +338,14 @@ def ring_chunk_attention(q, k, v, q_pos, kv_pos, *, mesh, plan,
             run = kv_max[src] >= 0 and kv_min[src] <= q_max[d]
             if window:
                 run = run and kv_max[src] > q_min[d] - window
-            if not run:
-                hops_skipped += 1
-                continue
-            hops_run += 1
-            ring_hop(qf[d], kf[src], vf[src], qp[d], kvp[src], m[d], l[d],
-                     acc[d], window=window, cap=cap, kv_scale=kv_scale)
+            if run:
+                pairs.append((d, src))
+        hops_run += len(pairs)
+        hops_skipped += n - len(pairs)
+        if pairs:
+            steps_run += 1
+            ring_hop_step(qf, kf, vf, qp, kvp, m, l, acc, pairs,
+                          window=window, cap=cap, kv_scale=kv_scale)
     o = (acc / l.clamp_min(1e-30))[:, :, :, :Cl]          # (n,B,H,Cl,hd)
     o = o.reshape(n, B, G, R, Cl, hd).permute(1, 0, 4, 2, 3, 5)
     o = o.reshape(B, Cp, G, R, hd).to(q.dtype)
