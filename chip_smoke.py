@@ -8,11 +8,16 @@ Phases, each reported on its own line:
 1. build     nvcc builds every kernel of the port from ``csrc/``, one
              process per source, all at once.
 2. kernels   each kernel against its plain PyTorch version on the card, at
-             the shapes its path gives it (phi4-mini-3.8b serving widths;
-             mamba2-780m training widths for ``ssd_scan`` and the int8
-             projections; phi4-mini-3.8b training at 2 x 4096 tokens for
+             the shapes its path gives it (phi4-mini-3.8b serving widths,
+             ``paged_attention`` at the serve cell's decode and the ring
+             cell's, 4 slots of up to 16000 tokens, with inactive rows and
+             odd widths, and no host sync a call; mamba2-780m training
+             widths for ``ssd_scan`` and the int8 projections;
+             phi4-mini-3.8b training at 2 x 4096 tokens for
              ``flash_attention``, plus window + softcap + GQA, stride-2
-             perforation and ragged Sq != Skv cases), fp32 and bf16, with
+             perforation and ragged Sq != Skv cases, each through the
+             design ``select_flash_design`` names, the tiled one on every
+             fp32 hd-128 case), fp32 and bf16, with
              its time beside the plain version's, a library call's where one
              computes the same function, and its bound. Then the training
              path's gradients: ``SSDScan`` (kernel forward, VJP of the
@@ -79,10 +84,11 @@ Phases, each reported on its own line:
              tokens, on precise and int8+kvq8, launch counters zeroed just
              before and read just after each ring run; each rung again on
              the single-device engine: admission ms a chunk on both paths,
-             hops run and skipped, one ``ring_hop`` launch a ring step, all
-             of design "tc", the first-token logits gate, and a
-             ``torch.profiler`` summary of the deepest full chunk on both
-             paths.
+             the mean decode step on both engines and ``paged_attention``'s
+             share of a profiled one, hops run and skipped, one
+             ``ring_hop`` launch a ring step, all of design "tc", the
+             first-token logits gate, and a ``torch.profiler`` summary of
+             the deepest full chunk on both paths.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``. Any
@@ -634,7 +640,14 @@ def check_flash(device, cases, iters=10):
                   cap=c.get("cap", 0.0),
                   kv_keep_stride=c.get("stride", 1))
         q, k, v = flash_case(B, H, KVH, Sq, Skv, hd, c["dtype"], device)
+        design = fa.select_flash_design(c["dtype"], hd)
+        for key in fa.design_launches:
+            fa.design_launches[key] = 0
         out = fa.flash_attention(q, k, v, **kw)
+        assert fa.design_launches[design] == 1, (c["name"], design,
+                                                fa.design_launches)
+        if c["dtype"] == torch.float32 and hd == 128:
+            assert design == "tiled", (c["name"], design)
         ref = fa.flash_attention_plain(q, k, v, **kw)
         torch.cuda.synchronize()
         err = max_err(out, ref)
@@ -670,13 +683,14 @@ def check_flash(device, cases, iters=10):
         pairs = flash_kept_pairs(Sq, Skv, kw, device)
         bound, by = flash_bound_ms(B, H, KVH, Sq, Skv, hd, q.element_size(),
                                    pairs)
-        rows.append(dict(name=c["name"], shape=c["shape"],
+        rows.append(dict(name=c["name"], shape=c["shape"], design=design,
                          dtype=str(c["dtype"]).split(".")[-1],
                          max_abs_err=err, tol=tol, row_excess=excess,
                          ms=kern, plain_ms=plain, library_ms=lib,
                          bound_ms=bound, bound_by=by))
         print(f"flash_attention {c['name']} B={B} H={H} KVH={KVH} Sq={Sq} "
-              f"Skv={Skv} hd={hd} {rows[-1]['dtype']}: max_abs_err={err:.3g} "
+              f"Skv={Skv} hd={hd} {rows[-1]['dtype']}, design {design}: "
+              f"max_abs_err={err:.3g} "
               f"(tol {tol_s}) ms={kern:.4f} plain_ms={plain:.4f} "
               f"library_ms={'null' if lib is None else f'{lib:.4f}'} "
               f"bound_ms={bound:.4f} ({by}, {pairs} pairs) "
@@ -700,6 +714,14 @@ def phi4_flash_cases():
              dtype=torch.float32, causal=True, window=300),
         dict(name="ragged-bf16-hd256", shape=(1, 4, 1, 777, 333, 256),
              dtype=torch.bfloat16, causal=False),
+        # the tiled design off its cell: ragged Sq != Skv both ways, a
+        # window over the KV tail, and hd 64
+        dict(name="ragged-hd128", shape=(2, 6, 2, 1000, 1500, 128),
+             dtype=torch.float32, causal=True, window=300, cap=30.0),
+        dict(name="full-ragged-hd64", shape=(1, 4, 1, 777, 333, 64),
+             dtype=torch.float32, causal=False),
+        dict(name="stride2-hd64", shape=(1, 6, 3, 1100, 1100, 64),
+             dtype=torch.float32, stride=2),
     ]
 
 
@@ -738,16 +760,18 @@ def check_flash_grads(device, shape=(2, 8, 2, 1100, 1100, 64)):
 # ------------------------------------------------------- paged_attention --
 
 def paged_case(lengths, *, G, R, hd, P, M, dtype, quantized, device,
-               seed=0, speculative=2):
+               seed=0, speculative=2, blind=False):
     """A paged pool holding ``lengths[b]`` resident tokens per slot (ragged
     page counts, partial last pages), the decode query at position
     ``lengths[b]``, plus ``speculative`` mapped-but-future pages per slot
-    filled with large values that must not matter."""
+    filled with large values that must not matter. With ``blind``, two
+    inactive slots follow: one with no running page (zeros) and one whose
+    two running pages hold no valid entry (the mean of their V)."""
     import numpy as np
     import torch
     from repro_torch.models.attention import quantize_kv
     rng = np.random.default_rng(seed)
-    B = len(lengths)
+    B = len(lengths) + 2 * blind
     n_pages = 1 + B * M
     kp = torch.tensor(rng.normal(size=(n_pages, P, G, hd)) * 0.3,
                       dtype=torch.float32)
@@ -767,12 +791,16 @@ def paged_case(lengths, *, G, R, hd, P, M, dtype, quantized, device,
                 kp[pid] = 1e3
                 vp[pid] = -1e3
             pid += 1
+    positions = list(lengths)
+    if blind:
+        block[B - 1, :2] = (pid, pid + 1)
+        positions += [7, 2 * P]
     if quantized:
         kp, vp = quantize_kv(kp.clamp(-6, 6)), quantize_kv(vp.clamp(-6, 6))
     else:
         kp, vp = kp.to(dtype), vp.to(dtype)
     q = torch.tensor(rng.normal(size=(B, G, R, hd)), dtype=dtype)
-    pos = torch.tensor(np.asarray(lengths, np.int32))
+    pos = torch.tensor(np.asarray(positions, np.int32))
     return [t.to(device) for t in (q, kp, vp, torch.tensor(ppos),
                                    torch.tensor(block), pos)]
 
@@ -798,7 +826,7 @@ def check_paged(device, cases, iters=20):
         lengths, M = c["lengths"], c["M"]
         q, kp, vp, ppos, block, pos = paged_case(
             lengths, G=G, R=R, hd=hd, P=P, M=M, dtype=c["dtype"],
-            quantized=c["int8"], device=device)
+            quantized=c["int8"], device=device, blind=c.get("blind", False))
         kw = dict(window=c.get("window", 0), cap=c.get("cap", 0.0),
                   kv_scale=KV_SCALE if c["int8"] else 0.0)
         out = mod.paged_attention(q, kp, vp, ppos, block, pos, **kw)
@@ -806,6 +834,10 @@ def check_paged(device, cases, iters=20):
         tol = FP32_ATOL if c["dtype"] == torch.float32 else BF16_ATOL
         err = max_err(out, ref)
         assert err <= tol, (c["name"], err, tol)
+        # the decode step is host-bound: a call must not wait for the card
+        syncs = host_syncs(lambda: mod.paged_attention(q, kp, vp, ppos,
+                                                       block, pos, **kw))
+        assert syncs == 0, (c["name"], syncs)
         kern = timed(lambda: mod.paged_attention(q, kp, vp, ppos, block, pos,
                                                  **kw), device, iters)
         plain = timed(lambda: mod.paged_attention_plain(
@@ -823,17 +855,21 @@ def check_paged(device, cases, iters=20):
         rows.append(dict(name=c["name"], max_abs_err=err, tol=tol, ms=kern,
                          plain_ms=plain, library_ms=None, bound_ms=bound,
                          bound_by=by, live_pages=live))
-        print(f"paged_attention {c['name']}: max_abs_err={err:.3g} "
-              f"(tol {tol:.3g}) ms={kern:.4f} plain_ms={plain:.4f} "
-              f"library_ms=null bound_ms={bound:.5f} ({by}, "
-              f"{live} live pages)")
+        print(f"paged_attention {c['name']} B={len(lengths)} M={M}: "
+              f"max_abs_err={err:.3g} (tol {tol:.3g}) ms={kern:.4f} "
+              f"plain_ms={plain:.4f} library_ms=null bound_ms={bound:.5f} "
+              f"({by}, {live} live pages), host syncs {syncs}")
     return rows
 
 
 def phi4_paged_cases(dtype_main):
+    """The serve cell's decode (8 ragged slots, M 64) and the ring cell's
+    ("ring-decode": its 4 slots at the prompts' lengths, M 1024 of a
+    16384-token max_len)."""
     import torch
     lengths = [0, 15, 16, 17, 100, 255, 400, 1000]     # 8 slots, ragged
     base = dict(G=8, R=3, hd=128, P=16, M=64, lengths=lengths)
+    ring = dict(base, M=RING_CTX // 16, lengths=list(RING_PROMPTS))
     return [
         dict(base, name="bf16", dtype=dtype_main, int8=False),
         dict(base, name="int8", dtype=dtype_main, int8=True),
@@ -841,6 +877,24 @@ def phi4_paged_cases(dtype_main):
         dict(base, name="fp32-int8", dtype=torch.float32, int8=True),
         dict(base, name="softcap+window", dtype=torch.float32, int8=False,
              cap=50.0, window=128),
+        dict(ring, name="ring-decode", dtype=dtype_main, int8=False),
+        dict(ring, name="ring-decode-int8", dtype=dtype_main, int8=True),
+        # the smoke serving width; a GQA group of 8 (two blocks of 4 query
+        # heads); rows of 24 bytes (no 16-byte copies); hd 256 in fp32 (two
+        # warps a block); each with the two inactive rows
+        dict(name="smoke+blind", G=2, R=2, hd=16, P=4, M=12,
+             lengths=[0, 5, 9, 30], dtype=torch.float32, int8=False,
+             blind=True),
+        dict(name="smoke-int8+blind", G=2, R=2, hd=16, P=4, M=12,
+             lengths=[0, 5, 9, 30], dtype=dtype_main, int8=True, blind=True),
+        dict(name="gqa8+window+blind", G=2, R=8, hd=64, P=16, M=24,
+             lengths=[3, 40, 170, 300], dtype=dtype_main, int8=False,
+             window=100, cap=30.0, blind=True),
+        dict(name="hd12+blind", G=3, R=3, hd=12, P=4, M=16,
+             lengths=[2, 21, 50], dtype=dtype_main, int8=False, blind=True),
+        dict(name="hd256-fp32+blind", G=2, R=3, hd=256, P=16, M=12,
+             lengths=[15, 70, 160], dtype=torch.float32, int8=False,
+             blind=True),
     ]
 
 
@@ -902,19 +956,28 @@ def _kernel_mods():
 
 def reset_launches():
     """Zero every kernel's launch count (and the ring's hop and step counts,
-    and ``int8_matmul``'s and ``ring_hop``'s counts per design)."""
-    from repro_torch.kernels import int8_matmul, ring_attention
+    ``paged_attention``'s merge launches, and ``flash_attention``'s,
+    ``int8_matmul``'s and ``ring_hop``'s counts per design)."""
+    from repro_torch.kernels import flash_attention, int8_matmul, \
+        paged_attention, ring_attention
     for mod in _kernel_mods().values():
         mod.launches = 0
+    paged_attention.merge_launches = 0
     ring_attention.hops_run = ring_attention.hops_skipped = 0
     ring_attention.steps_run = 0
-    for mod in (int8_matmul, ring_attention):
+    for mod in (flash_attention, int8_matmul, ring_attention):
         for k in mod.design_launches:
             mod.design_launches[k] = 0
 
 
 def read_launches():
-    return {name: mod.launches for name, mod in _kernel_mods().items()}
+    """Launch counts since the last reset; ``paged_attention`` counts its
+    wrapper's calls, each of which also launched the merge pass once."""
+    from repro_torch.kernels import paged_attention
+    out = {name: mod.launches for name, mod in _kernel_mods().items()}
+    assert paged_attention.merge_launches == out["paged_attention"], \
+        (paged_attention.merge_launches, out)
+    return out
 
 
 def int8_designs(tag):
@@ -925,6 +988,20 @@ def int8_designs(tag):
     d = dict(int8_matmul.design_launches)
     print(f"{tag}: int8_matmul launches by design {d}")
     assert d["fallback"] == 0, (tag, d)
+    return d
+
+
+def flash_designs(tag, cfg):
+    """``flash_attention``'s launches per design since the last reset,
+    printed under ``tag``: a training path (fp32) must take the design
+    ``select_flash_design`` gives its head size, the tiled one at
+    phi4-mini's hd 128."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    d = dict(fa.design_launches)
+    want = fa.select_flash_design(torch.float32, cfg.resolved_head_dim)
+    print(f"{tag}: flash_attention launches by design {d}")
+    assert sum(d.values()) == d[want], (tag, d, want)
     return d
 
 
@@ -1005,6 +1082,7 @@ def check_train_parity(device, arch="mamba2-780m-smoke", steps=3,
             if d == device:
                 launches = read_launches()
                 int8_designs(f"train parity {arch} {v.name}")
+                flash_designs(f"train parity {arch} {v.name}", cfg)
         want = {k: steps * n for k, n in per_step(cfg, v.knobs).items()}
         rel = max(abs(a - b) / abs(b) for a, b in zip(*losses))
         worst = max(worst, rel)
@@ -1134,6 +1212,10 @@ def profile_rungs(res, device, batch=8, prompt_len=128, steps=8):
         for e in sorted(kern, key=dev_us, reverse=True)[:10]:
             print(f"  {dev_us(e) / 1e3 / steps:9.3f} ms/step "
                   f"{e.count / steps:6.1f} calls/step  {e.key[:90]}")
+        paged = sum(dev_us(e) for e in kern if "paged" in e.key)
+        print(f"profile {name}: paged_attention's kernels "
+              f"{paged / 1e3 / steps:.3f} ms/step "
+              f"({paged / 1e3 / steps / busy:.3f} of busy)")
 
 
 def train_full(device, arch, steps, batch, seq, names, per_step,
@@ -1157,6 +1239,7 @@ def train_full(device, arch, steps, batch, seq, names, per_step,
     launches = read_launches()
     int8_designs(f"train {arch}")
     cfg, table = res["cfg"], res["table"]
+    flash_designs(f"train {arch}", cfg)
     assert res["names"] == names, res["names"]
     assert set(res["variants"]) == set(range(len(names))), res["variants"]
     assert all(np.isfinite(res["losses"])), res["losses"]
@@ -1204,6 +1287,7 @@ def train_rung_walk(res, device, steps=8, per_step=None, skip=1,
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         per = {k: n / steps for k, n in read_launches().items() if n}
         int8_designs(f"train rung {cfg.name} {name}{tag}")
+        flash_designs(f"train rung {cfg.name} {name}{tag}", cfg)
         want = {k: n for k, n in per_step(cfg, table.variants[i].knobs
                                           ).items() if n}
         kept = times[skip:]
@@ -1811,9 +1895,51 @@ class AdmissionTrace:
         return 1e3 * float(np.mean(full)), len(full), tails
 
 
-def profile_summary(prof, wall, top=10):
+class DecodeTrace:
+    """Times every decode step of an engine run (``ServeEngine._decode``,
+    the card synchronised before and after, so its device work is inside)
+    and profiles the first step in which every slot decodes under
+    ``torch.profiler`` (the card's activity only): wall, device-busy time
+    and the part of it spent in ``paged_attention``'s kernels. The
+    profiled step stays out of ``mean_ms``."""
+
+    def __init__(self, eng):
+        self.eng, self.steps, self.profile = eng, [], None
+
+    def __enter__(self):
+        import torch
+        orig = self.eng._decode
+
+        def traced(rows_active):
+            profiling = self.profile is None and bool(rows_active.all())
+            prof = (torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA])
+                if profiling else contextlib.nullcontext())
+            torch.cuda.synchronize()
+            with prof:
+                t0 = time.perf_counter()
+                out = orig(rows_active)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            if profiling:
+                self.profile = profile_summary(prof, wall, match="paged")
+            else:
+                self.steps.append(wall)
+            return out
+        self.eng._decode = traced
+        return self
+
+    def __exit__(self, *exc):
+        del self.eng._decode
+
+    def mean_ms(self):
+        return 1e3 * sum(self.steps) / max(len(self.steps), 1)
+
+
+def profile_summary(prof, wall, top=10, match=None):
     """Wall ms, device-busy ms and the ``top`` kernels by device time (ms,
-    calls) of one profiled region."""
+    calls) of one profiled region; with ``match``, also the device ms of
+    the kernels whose name holds it (``match_ms``)."""
     import torch
 
     def dev_us(e):
@@ -1822,11 +1948,15 @@ def profile_summary(prof, wall, top=10):
     kern = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and dev_us(e) > 0]
-    return dict(wall_ms=1e3 * wall,
-                busy_ms=sum(dev_us(e) for e in kern) / 1e3,
-                kernels=[(round(dev_us(e) / 1e3, 3), e.count, e.key[:80])
-                         for e in sorted(kern, key=dev_us,
-                                         reverse=True)[:top]])
+    out = dict(wall_ms=1e3 * wall,
+               busy_ms=sum(dev_us(e) for e in kern) / 1e3,
+               kernels=[(round(dev_us(e) / 1e3, 3), e.count, e.key[:80])
+                        for e in sorted(kern, key=dev_us,
+                                        reverse=True)[:top]])
+    if match:
+        out["match_ms"] = sum(dev_us(e) for e in kern
+                              if match in e.key) / 1e3
+    return out
 
 
 # ring cell traffic: prompts of 16000, 12000, 9000 and 8194 tokens (tails of
@@ -1903,14 +2033,17 @@ def ring_cell(device, rungs=("precise", "int8+kvq8")):
             attn_mod.mesh_fallbacks = 0
             t0 = time.perf_counter()
             deep = (max(RING_PROMPTS) - RING_CHUNK) // RING_CHUNK * RING_CHUNK
-            with AdmissionTrace(RING_PROMPTS, profile_at=deep) as tr:
+            with AdmissionTrace(RING_PROMPTS, profile_at=deep) as tr, \
+                    DecodeTrace(eng) as dec:
                 eng.run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = read_launches()
             int8_designs(f"ring cell {name} {path}")
             assert all(r.done and len(r.out) == 16 for r in reqs)
-            res[path] = dict(trace=tr, launches=launches, wall=wall,
+            assert dec.profile is not None and dec.steps, path
+            res[path] = dict(trace=tr, decode=dec, launches=launches,
+                             wall=wall,
                              streams=[r.out for r in reqs],
                              hops=(ra.hops_run, ra.hops_skipped),
                              steps=ra.steps_run,
@@ -1961,6 +2094,17 @@ def ring_cell(device, rungs=("precise", "int8+kvq8")):
               f"streams identical {same}/4 (fp32 SIMT hop: "
               f"{was['same']}/4)")
         for path in ("ring", "single"):
+            dec = res[path]["decode"]
+            pr = dec.profile
+            print(f"ring cell {name} {path}: decode step {dec.mean_ms():.3f} "
+                  f"ms (mean of {len(dec.steps)}, the card synchronised "
+                  f"around each); profiled step, all 4 slots decoding: wall "
+                  f"{pr['wall_ms']:.3f} ms, device busy {pr['busy_ms']:.3f} "
+                  f"ms, paged_attention {pr['match_ms']:.3f} ms "
+                  f"({pr['match_ms'] / pr['busy_ms']:.3f} of busy)")
+            for ms, n, key in pr["kernels"][:5]:
+                print(f"  {ms:9.3f} ms {n:6d} calls  {key}")
+        for path in ("ring", "single"):
             pr = res[path]["trace"].profile
             print(f"ring cell {name} {path}: profiled chunk at "
                   f"{res[path]['trace'].profile_at} ({RING_CHUNK} tokens): "
@@ -1970,7 +2114,9 @@ def ring_cell(device, rungs=("precise", "int8+kvq8")):
             for ms, n, key in pr["kernels"]:
                 print(f"  {ms:9.3f} ms {n:6d} calls  {key}")
         assert max(diffs) <= RING_LOGIT_TOL, diffs
-        report[name] = dict(ring_ms=r_ms, single_ms=s_ms, hops_run=run,
+        report[name] = dict(ring_ms=r_ms, single_ms=s_ms,
+                            decode_ms={p: res[p]["decode"].mean_ms()
+                                       for p in res}, hops_run=run,
                             hops_skipped=skipped, steps=ring["steps"],
                             logit_diff=max(diffs), same=same,
                             wall=ring["wall"])
@@ -2113,6 +2259,10 @@ def main():
                       "train-attn": attn_train_launches[name],
                       "serve-ring": ring_launches[name]}
                for name in kernels}
+    ring_row = next(r for r in pa_rows if r["name"] == "ring-decode")
+    paged_ring = {"ring_decode_ms": ring_row["ms"],
+                  "ring_decode_plain_ms": ring_row["plain_ms"],
+                  "ring_decode_bound_ms": ring_row["bound_ms"]}
     line = []
     for name, r in kernels.items():
         line.append(dict(name=name, route="cuda", source=src_of[name][0],
@@ -2125,7 +2275,11 @@ def main():
                          **({k: r[k] for k in ("design", "library_layout")}
                             if name == "int8_matmul" else {}),
                          **({k: r[k] for k in ("design", "step_ms")}
-                            if name == "ring_hop" else {})))
+                            if name == "ring_hop" else {}),
+                         **(paged_ring if name == "paged_attention"
+                            else {}),
+                         **({"design": r["design"]}
+                            if name == "flash_attention" else {})))
     print(json.dumps({"kernels": line}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

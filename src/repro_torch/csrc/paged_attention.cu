@@ -1,27 +1,57 @@
 // Fused paged-attention decode for Hopper (sm_90a): one query token per
-// batch slot attends over its block table's K/V pages in place.
+// batch slot attends over its block table's K/V pages in place, with a
+// slot's pages split over the card (flash-decoding).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/paged_attention.py
 // (paged_attention_impl / _kernel) and computes what _kernel computes: a
 // page is skipped when its physical id is 0, when it starts past the query
 // position, or (window > 0) when it lies wholly below the window band;
 // entries are masked by the page's ppos row (-1 empty, future, out of
-// window) after the optional softcap; the softmax is online in fp32, int8
-// K/V are dequantised by kv_scale in the kernel, and a slot whose pages were
-// all skipped writes zeros (acc / max(l, 1e-30)).
+// window) after the optional softcap to -1e30; the softmax is online in
+// fp32, int8 K/V are dequantised by kv_scale, a slot with no running page
+// writes zeros and one whose running pages hold no valid entry the mean of
+// V over their entries (acc / max(l, 1e-30), m starting at -1e30).
 //
-// Bound on the H100: decode attention reads every live page's K and V once
-// and does ~4 flops per byte, so it is bound by bytes (device memory at
-// 3.35 TB/s). Design: one 128-thread block per (slot b, KV head g); the
-// Pallas sequential page axis becomes a loop inside the block. Each block
-// loads its own block-table row and position, stages the page's K and V
-// slice for head g in shared memory as fp32 (dequantising int8 there), so
-// each byte is read from device memory once per (slot, head), computes the
-// R x P scores with one warp per score and shuffle reductions, and folds the
-// page into the online softmax with the accumulator in registers: thread t
-// owns dims t and t + 128 of every one of the R rows. Pages stream without
-// double buffering; cp.async / TMA staging and splitting long tables across
-// blocks are later work.
+// Bound on the H100: decode attention reads every running page's K and V
+// once and does ~1 flop per byte, so it is bound by bytes at 3.35 TB/s: at
+// the ring cell's decode (4 slots of 8194-16000 tokens, 2,828 running
+// pages of 16 x 8 heads x 128, bf16) 185.5 MB, 0.055 ms. The TPU walked a
+// slot's pages in sequence; a block per (slot, KV head) gives the H100 32
+// to 64 blocks for 132 SMs, each walking up to a thousand pages in series.
+//
+// Design. Each block-table row is cut into fixed ranges of `pps` pages
+// (page_splits in kernels/paged_attention.py, from shapes only: the host
+// never reads a position). Kernel 1, paged_split_kernel, runs one block
+// per (range, KV head x group of <= 4 query heads, slot); a range that
+// starts past the slot's position or lies wholly below the window exits
+// at once, and a range that runs writes its partial (m, l, acc) to fp32
+// scratch. The block's 4 warps take the range's pages in turn (page
+// m0 + w, m0 + w + 4, ...), each warp on its own with no block barrier
+// until the end: lane i holds the block-table id of the warp's page i (32
+// at a time), and the warp stages each running page's K and V slice for
+// the head (P rows of hd elements at stride G * hd) and its ppos row in
+// shared memory with 16-byte cp.async copies, two pages in flight, so the
+// next page loads while this one computes. Int8 and bf16 are widened in
+// registers after the load. Scores: 32 / lk keys at a time, lk lanes a key,
+// each lane holding its 16-byte slices of the block's rows of Q in
+// registers, reduced across the lk lanes by shuffles, all rows at once.
+// Softmax: a lane a key, the page's max and sum of all rows by warp
+// shuffles, one exponential a lane, key and row. P.V: each lane owns 4
+// consecutive dims of every row (twice at hd > 128). The warps' states
+// merge in shared memory at the end of the range, in warp order. Kernel 2,
+// paged_merge_kernel, one block per (KV head, slot) and a warp per query
+// row, merges the running ranges in range order: m = max m_s, l = sum
+// l_s exp(m_s - m), acc likewise, then acc / max(l, 1e-30). No atomics:
+// the result does not change from run to run. A range with only masked
+// entries carries m = -1e30, l = its count and acc = its sum of V, which
+// weighs 0 beside a range with a valid entry and counts fully when no
+// range has one; a range with no running page carries l = 0, so the two
+// cases above come out as in the sequential walk.
+//
+// Shared memory: 4 warps x 2 stages of a page (2 P rb + ppos) and the
+// page's probabilities; at hd 256 in fp32, or pages above ~100 fp32 rows
+// of 128, the wrapper runs 2 or 1 warps a block, and refuses a page two of
+// which do not fit in 227 KB for one warp.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -29,189 +59,565 @@
 
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int R_MAX = 16;              // query heads per KV head
-constexpr int D_PER = 2;               // head dim <= THREADS * D_PER = 256
+constexpr int RT = 4;           // query rows (heads of a GQA group) a block
+static_assert(RT == 4, "the softmax reads a key's rows as one float4");
 constexpr float NEG_INF = -1e30f;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
-__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
-__device__ __forceinline__ float to_f(int8_t v) { return (float)v; }
-
-__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src));
 }
-__device__ __forceinline__ void store_out(__half* p, float v) {
-  *p = __float2half(v);
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_wait(int pending) {
+  if (pending >= 1)
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-template <typename TQ, typename TKV>
-__global__ void __launch_bounds__(THREADS) paged_attention_kernel(
-    const TQ* __restrict__ q, const TKV* __restrict__ kp,
-    const TKV* __restrict__ vp, const int* __restrict__ ppos,
-    const int* __restrict__ block, const int* __restrict__ position,
-    TQ* __restrict__ out, int G, int R, int hd, int P, int M, int window,
-    float kv_scale, float cap, float scale) {
-  extern __shared__ float smem[];
-  float* q_s = smem;                    // R * hd
-  float* k_s = q_s + R * hd;            // P * hd
-  float* v_s = k_s + P * hd;            // P * hd
-  float* s_s = v_s + P * hd;            // R * P
-  int* pp_s = (int*)(s_s + R * P);      // P
-  const int b = blockIdx.x, g = blockIdx.y;
-  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
-  const int pos = position[b];
-  const TQ* qb = q + (size_t)(b * G + g) * R * hd;
-  for (int i = t; i < R * hd; i += THREADS) q_s[i] = to_f(qb[i]);
+// q and the output: dtype code 0 fp32, 1 bf16, 2 fp16
+__device__ __forceinline__ float load_q(const void* p, size_t i, int code) {
+  if (code == 1) return __bfloat162float(((const __nv_bfloat16*)p)[i]);
+  if (code == 2) return __half2float(((const __half*)p)[i]);
+  return ((const float*)p)[i];
+}
+__device__ __forceinline__ void store_o(void* p, size_t i, int code,
+                                        float v) {
+  if (code == 1)
+    ((__nv_bfloat16*)p)[i] = __float2bfloat16(v);
+  else if (code == 2)
+    ((__half*)p)[i] = __float2half(v);
+  else
+    ((float*)p)[i] = v;
+}
 
-  float m_r[R_MAX], l_r[R_MAX], acc[R_MAX][D_PER];
+// 4 consecutive elements of type T from shared memory, widened
+__device__ __forceinline__ void load4(const float* p, float (&f)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&f)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
+}
+__device__ __forceinline__ void load4(const __half* p, float (&f)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
+  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
+  f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
+}
+__device__ __forceinline__ void load4(const int8_t* p, float (&f)[4]) {
+  const char4 c = *reinterpret_cast<const char4*>(p);
+  f[0] = c.x; f[1] = c.y; f[2] = c.z; f[3] = c.w;
+}
+
+// the 16 bytes at p (shared memory), widened: 4, 8 or 16 elements
+__device__ __forceinline__ void widen16(const unsigned char* p,
+                                        const float*, float (&f)[4]) {
+  load4(reinterpret_cast<const float*>(p), f);
+}
+__device__ __forceinline__ void widen16(const unsigned char* p,
+                                        const __nv_bfloat16*, float (&f)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-  for (int r = 0; r < R_MAX; ++r) {
+  for (int i = 0; i < 4; ++i) {
+    const float2 t =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+__device__ __forceinline__ void widen16(const unsigned char* p,
+                                        const __half*, float (&f)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+__device__ __forceinline__ void widen16(const unsigned char* p,
+                                        const int8_t*, float (&f)[16]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    f[i] = (float)(int8_t)((w[i / 4] >> (8 * (i % 4))) & 0xffu);
+}
+
+template <typename T>
+__device__ __forceinline__ T zero_of() {
+  T z;
+  unsigned char* bytes = reinterpret_cast<unsigned char*>(&z);
+#pragma unroll
+  for (int i = 0; i < (int)sizeof(T); ++i) bytes[i] = 0;
+  return z;
+}
+
+__device__ __forceinline__ bool page_runs(int m, int pid, int P, int pos,
+                                          int window) {
+  bool run = pid != 0 && m * P <= pos;
+  if (window) run = run && (m + 1) * P - 1 > pos - window;
+  return run;
+}
+
+// Range s of a row (pages s*pps .. min((s+1)*pps, M) - 1) holds a page that
+// can run: it starts at or before the position and, with a window, its
+// last page reaches into the window band. Kernel 1 exits and kernel 2
+// skips the range otherwise (mirrored by split_live in the wrapper).
+__device__ __forceinline__ bool split_live(int s, int pps, int M, int P,
+                                           int pos, int window) {
+  const int m0 = s * pps, m1 = min(m0 + pps, M);
+  bool live = m0 < m1 && m0 * P <= pos;
+  if (window) live = live && m1 * P - 1 > pos - window;
+  return live;
+}
+
+struct Args {
+  const void* q;
+  const void* kp;
+  const void* vp;
+  const int* ppos;
+  const int* block;
+  const int* position;
+  float* part;          // (B, G, NS, R, hd + 2): m, l, acc
+  void* out;
+  int G, R, hd, P, M, pps, ns, window, nw, vec16, q_code;
+  float kv_scale, cap, scale;
+};
+
+// Shared memory a warp stages one page in: K and V rows of `rb` bytes
+// (hd elements padded to 16 bytes), the ppos row, padded to 16 bytes.
+__host__ __device__ __forceinline__ int row_bytes(int hd, int esize) {
+  return (hd * esize + 15) / 16 * 16;
+}
+__host__ __device__ __forceinline__ int stage_bytes(int P, int rb) {
+  return 2 * P * rb + (4 * P + 15) / 16 * 16;
+}
+constexpr int STAGES = 2;
+
+// TKV: K/V element type; HK: groups of 128 dims (hd <= 128 * HK)
+template <typename TKV, int HK>
+__global__ void __launch_bounds__(128) paged_split_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int ES = sizeof(TKV);
+  constexpr int EPC = 16 / ES;              // elements a 16-byte chunk
+  constexpr int JC = ES == 4 ? 2 : 1;       // chunks a lane at most
+  const int s = blockIdx.x, b = blockIdx.z;
+  const int n_rg = (a.R + RT - 1) / RT;
+  const int g = blockIdx.y / n_rg, r0 = (blockIdx.y % n_rg) * RT;
+  const int RB = min(RT, a.R - r0);         // rows of this block
+  const int pos = a.position[b];
+  const int P = a.P, hd = a.hd;
+  if (!split_live(s, a.pps, a.M, P, pos, a.window)) return;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rb = row_bytes(hd, ES), sb = stage_bytes(P, rb);
+  const int nc = rb / 16;                   // chunks a row
+  // lanes a key in the score step: the power of two >= nc, at most 32
+  int lk = 1;
+  while (lk < nc && lk < 32) lk <<= 1;
+  const int kpi = 32 / lk, sub = lane % lk;
+  const int cpl = (nc + lk - 1) / lk;       // chunks a lane (1 or 2)
+
+  unsigned char* wbase = smem + (size_t)warp * (STAGES * sb + 16 * P);
+  float* ew = reinterpret_cast<float*>(wbase + STAGES * sb);  // [P][RT]
+
+  // this lane's slice of the rows of Q (the dims of its chunks), fp32
+  float qr[RT][JC * EPC];
+  const size_t qb = ((size_t)b * a.G + g) * a.R * hd;
+#pragma unroll
+  for (int r = 0; r < RT; ++r)
+#pragma unroll
+    for (int j = 0; j < JC; ++j)
+#pragma unroll
+      for (int e = 0; e < EPC; ++e) {
+        const int d = (sub + lk * j) * EPC + e;
+        qr[r][j * EPC + e] = (r < RB && j < cpl && d < hd)
+                                 ? load_q(a.q, qb + (size_t)(r0 + r) * hd + d,
+                                          a.q_code)
+                                 : 0.f;
+      }
+
+  float m_r[RT], l_r[RT], acc[RT][HK][4];
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
     m_r[r] = NEG_INF;
     l_r[r] = 0.f;
 #pragma unroll
-    for (int e = 0; e < D_PER; ++e) acc[r][e] = 0.f;
+    for (int k = 0; k < HK; ++k)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[r][k][i] = 0.f;
   }
 
-  for (int m = 0; m < M; ++m) {
-    const int pid = block[b * M + m];
-    bool run = pid != 0 && m * P <= pos;
-    if (window) run = run && (m + 1) * P - 1 > pos - window;
-    if (!run) continue;                 // uniform across the block
-    __syncthreads();                    // previous page's readers are done
-    const size_t base = (size_t)pid * P * G * hd + (size_t)g * hd;
-    for (int i = t; i < P * hd; i += THREADS) {
-      const int p = i / hd, d = i - p * hd;
-      const size_t off = base + (size_t)p * G * hd + d;
-      float kv = to_f(kp[off]), vv = to_f(vp[off]);
-      if (kv_scale != 0.f) {
-        kv *= kv_scale;
-        vv *= kv_scale;
+  const int m_end = min((s + 1) * a.pps, a.M);
+  const int* brow = a.block + (size_t)b * a.M;
+  const TKV* kp = (const TKV*)a.kp;
+  const TKV* vp = (const TKV*)a.vp;
+  const size_t row_stride = (size_t)a.G * hd;   // elements between rows
+  // the warp's pages of the range: the k-th is m_first + nw * k; lane i
+  // holds the block-table id of page 32 * chunk + i, read 32 at a time
+  const int m_first = s * a.pps + warp;
+  const int n_mine = m_first < m_end ? (m_end - m_first + a.nw - 1) / a.nw
+                                     : 0;
+  int ids = 0, chunk = -1;
+  // the warp's next running page at or after its k-th; -1 when none is left
+  auto next_run = [&](int k, int& pid) {
+    for (; k < n_mine; ++k) {
+      const int m = m_first + a.nw * k;
+      if (m * P > pos) break;
+      if ((k >> 5) != chunk) {
+        chunk = k >> 5;
+        const int kk = 32 * chunk + lane;
+        ids = kk < n_mine ? brow[m_first + a.nw * kk] : 0;
       }
-      k_s[i] = kv;
-      v_s[i] = vv;
+      pid = __shfl_sync(0xffffffffu, ids, k & 31);
+      if (page_runs(m, pid, P, pos, a.window)) return k;
     }
-    for (int i = t; i < P; i += THREADS) pp_s[i] = ppos[(size_t)pid * P + i];
-    __syncthreads();
-    for (int idx = warp; idx < R * P; idx += THREADS / 32) {
-      const int r = idx / P, p = idx - r * P;
-      float sum = 0.f;
-      for (int d = lane; d < hd; d += 32) sum += q_s[r * hd + d] * k_s[p * hd + d];
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      if (lane == 0) {
-        float s = sum * scale;
-        if (cap != 0.f) s = cap * tanhf(s / cap);
-        const int kvp = pp_s[p];
-        bool valid = kvp >= 0 && kvp <= pos;
-        if (window) valid = valid && kvp > pos - window;
-        s_s[r * P + p] = valid ? s : NEG_INF;
+    return -1;
+  };
+  // lanes' (row, chunk) pairs of a page copy: fixed when nc divides 32
+  const bool even = 32 % nc == 0;
+  const int c_lane = even ? lane % nc : 0, p_lane = even ? lane / nc : 0;
+  const int p_step = even ? 32 / nc : 0;
+  auto issue = [&](int st, int pid) {
+    unsigned char* kd = wbase + st * sb;
+    unsigned char* vd = kd + P * rb;
+    int* pd = reinterpret_cast<int*>(vd + P * rb);
+    const size_t base = (size_t)pid * P * row_stride + (size_t)g * hd;
+    if (a.vec16 && even) {
+      for (int p = p_lane; p < P; p += p_step) {
+        const size_t off = base + (size_t)p * row_stride + c_lane * EPC;
+        cp_async16(smem_u32(kd + p * rb + c_lane * 16), kp + off);
+        cp_async16(smem_u32(vd + p * rb + c_lane * 16), vp + off);
+      }
+    } else if (a.vec16) {
+      for (int i = lane; i < P * nc; i += 32) {
+        const int p = i / nc, c = i - p * nc;
+        const size_t off = base + (size_t)p * row_stride + c * EPC;
+        cp_async16(smem_u32(kd + p * rb + c * 16), kp + off);
+        cp_async16(smem_u32(vd + p * rb + c * 16), vp + off);
+      }
+    } else {          // rows not 16-byte aligned: plain copies, zero pad
+      const int ne = rb / ES;
+      for (int i = lane; i < P * ne; i += 32) {
+        const int p = i / ne, e = i - p * ne;
+        const size_t off = base + (size_t)p * row_stride + e;
+        TKV kz = zero_of<TKV>(), vz = zero_of<TKV>();
+        if (e < hd) {
+          kz = kp[off];
+          vz = vp[off];
+        }
+        reinterpret_cast<TKV*>(kd + p * rb)[e] = kz;
+        reinterpret_cast<TKV*>(vd + p * rb)[e] = vz;
       }
     }
-    __syncthreads();
+    for (int i = lane; i < P; i += 32)
+      cp_async4(smem_u32(pd + i), a.ppos + (size_t)pid * P + i);
+  };
+
+  const float sc = a.scale * (a.kv_scale != 0.f ? a.kv_scale : 1.f);
+  int pid = 0;
+  int k_next = next_run(0, pid);
+  int issued = 0;
+  for (int st = 0; st < STAGES; ++st) {
+    if (k_next >= 0) {
+      issue(st, pid);
+      ++issued;
+      k_next = next_run(k_next + 1, pid);
+    }
+    cp_commit();
+  }
+  for (int done = 0; done < issued; ++done) {
+    cp_wait(STAGES - 1);
+    __syncwarp();
+    const int st = done % STAGES;
+    const unsigned char* kd = wbase + st * sb;
+    const unsigned char* vd = kd + P * rb;
+    const int* pd = reinterpret_cast<const int*>(vd + P * rb);
+
+    // scores: kpi keys at a time, lk lanes a key
+#pragma unroll 2
+    for (int p0 = 0; p0 < P; p0 += kpi) {
+      const int p = p0 + lane / lk;
+      float part[RT];
 #pragma unroll
-    for (int r = 0; r < R_MAX; ++r) {
-      if (r < R) {
-        const float* sr = s_s + r * P;
-        float mc = NEG_INF;
-        for (int p = 0; p < P; ++p) mc = fmaxf(mc, sr[p]);
-        const float mn = fmaxf(m_r[r], mc);
-        const float alpha = expf(m_r[r] - mn);
-        float lsum = 0.f, a[D_PER];
+      for (int r = 0; r < RT; ++r) part[r] = 0.f;
+      if (p < P) {
 #pragma unroll
-        for (int e = 0; e < D_PER; ++e) a[e] = 0.f;
-        for (int p = 0; p < P; ++p) {
-          const float pe = expf(sr[p] - mn);
-          lsum += pe;
+        for (int j = 0; j < JC; ++j) {
+          const int c = sub + lk * j;
+          if (j < cpl && c < nc) {
+            float kf[EPC];
+            widen16(kd + p * rb + c * 16, (const TKV*)nullptr, kf);
 #pragma unroll
-          for (int e = 0; e < D_PER; ++e) {
-            const int d = t + e * THREADS;
-            if (d < hd) a[e] += pe * v_s[p * hd + d];
+            for (int e = 0; e < EPC; ++e)
+#pragma unroll
+              for (int r = 0; r < RT; ++r)
+                part[r] = fmaf(qr[r][j * EPC + e], kf[e], part[r]);
           }
         }
-        l_r[r] = l_r[r] * alpha + lsum;
-        m_r[r] = mn;
+      }
 #pragma unroll
-        for (int e = 0; e < D_PER; ++e) acc[r][e] = acc[r][e] * alpha + a[e];
+      for (int o = 16; o > 0; o >>= 1)
+        if (o < lk)
+#pragma unroll
+          for (int r = 0; r < RT; ++r)
+            part[r] += __shfl_xor_sync(0xffffffffu, part[r], o);
+      if (sub == 0 && p < P) {
+        const int kvp = pd[p];
+        bool valid = kvp >= 0 && kvp <= pos;
+        if (a.window) valid = valid && kvp > pos - a.window;
+#pragma unroll
+        for (int r = 0; r < RT; ++r) {
+          float x = part[r] * sc;
+          if (a.cap != 0.f) x = a.cap * tanhf(x / a.cap);
+          ew[p * RT + r] = r >= RB ? 0.f : valid ? x : NEG_INF;
+        }
       }
     }
-  }
-  TQ* ob = out + (size_t)(b * G + g) * R * hd;
+    __syncwarp();
+
+    // online softmax: a lane a key, all rows at once (rows past RB hold
+    // scores of 0 and are never written out)
+    float mx[RT], sum[RT];
 #pragma unroll
-  for (int r = 0; r < R_MAX; ++r) {
-    if (r < R) {
-      const float l = fmaxf(l_r[r], 1e-30f);
+    for (int r = 0; r < RT; ++r) {
+      mx[r] = NEG_INF;
+      sum[r] = 0.f;
+    }
+    for (int p = lane; p < P; p += 32) {
+      const float4 x = *reinterpret_cast<const float4*>(ew + p * RT);
+      mx[0] = fmaxf(mx[0], x.x);
+      mx[1] = fmaxf(mx[1], x.y);
+      mx[2] = fmaxf(mx[2], x.z);
+      mx[3] = fmaxf(mx[3], x.w);
+    }
 #pragma unroll
-      for (int e = 0; e < D_PER; ++e) {
-        const int d = t + e * THREADS;
-        if (d < hd) store_out(ob + r * hd + d, acc[r][e] / l);
+    for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+      for (int r = 0; r < RT; ++r)
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], o));
+    float alpha[RT];
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+      mx[r] = fmaxf(m_r[r], mx[r]);
+      alpha[r] = __expf(m_r[r] - mx[r]);
+      m_r[r] = mx[r];
+    }
+    for (int p = lane; p < P; p += 32) {
+      float4 x = *reinterpret_cast<const float4*>(ew + p * RT);
+      x.x = __expf(x.x - mx[0]);
+      x.y = __expf(x.y - mx[1]);
+      x.z = __expf(x.z - mx[2]);
+      x.w = __expf(x.w - mx[3]);
+      sum[0] += x.x;
+      sum[1] += x.y;
+      sum[2] += x.z;
+      sum[3] += x.w;
+      *reinterpret_cast<float4*>(ew + p * RT) = x;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+      for (int r = 0; r < RT; ++r)
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], o);
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+      l_r[r] = l_r[r] * alpha[r] + sum[r];
+#pragma unroll
+      for (int k = 0; k < HK; ++k)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[r][k][i] *= alpha[r];
+    }
+    __syncwarp();
+
+    // P.V: the lane's 4 dims (per 128) of every row
+#pragma unroll
+    for (int k = 0; k < HK; ++k) {
+      const int d0 = 4 * lane + 128 * k;
+      if (d0 < hd) {
+#pragma unroll 4
+        for (int p = 0; p < P; ++p) {
+          const float4 e4 = *reinterpret_cast<const float4*>(ew + p * RT);
+          const float ev[4] = {e4.x, e4.y, e4.z, e4.w};
+          float vf[4];
+          load4(reinterpret_cast<const TKV*>(vd + p * rb) + d0, vf);
+#pragma unroll
+          for (int r = 0; r < RT; ++r)
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              acc[r][k][i] = fmaf(ev[r], vf[i], acc[r][k][i]);
+        }
       }
+    }
+    __syncwarp();               // the stage and ew are free again
+    if (k_next >= 0) {
+      issue(st, pid);
+      ++issued;
+      k_next = next_run(k_next + 1, pid);
+    }
+    cp_commit();
+  }
+
+  // merge the warps' states in shared memory (warp order), write the range
+  __syncthreads();
+  float* ws = reinterpret_cast<float*>(smem);   // [nw][RT][2 + 128 HK]
+  constexpr int WLD = 2 + 128 * HK;
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    float* w = ws + (warp * RT + r) * WLD;
+    if (lane == 0) {
+      w[0] = m_r[r];
+      w[1] = l_r[r];
+    }
+#pragma unroll
+    for (int k = 0; k < HK; ++k)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) w[2 + 128 * k + 4 * lane + i] = acc[r][k][i];
+  }
+  __syncthreads();
+  const float vs = a.kv_scale != 0.f ? a.kv_scale : 1.f;
+  float* dst = a.part + (((size_t)b * a.G + g) * a.ns + s) * a.R * (hd + 2);
+  for (int i = threadIdx.x; i < RB * (hd + 2); i += blockDim.x) {
+    const int r = i / (hd + 2), c = i - r * (hd + 2);
+    float mx = NEG_INF;
+    for (int w = 0; w < a.nw; ++w) mx = fmaxf(mx, ws[(w * RT + r) * WLD]);
+    float v = c == 0 ? mx : 0.f;
+    if (c > 0)
+      for (int w = 0; w < a.nw; ++w) {
+        const float* wr = ws + (w * RT + r) * WLD;
+        v += __expf(wr[0] - mx) * wr[c];
+      }
+    dst[(r0 + r) * (hd + 2) + c] = c >= 2 ? v * vs : v;
+  }
+}
+
+// One block per (KV head, slot), a warp per query row: merges the running
+// ranges in range order and writes the output in q's dtype. The running
+// ranges are consecutive (split_live is a band), s_lo .. s_hi.
+__global__ void __launch_bounds__(128) paged_merge_kernel(Args a) {
+  const int g = blockIdx.x, b = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int pos = a.position[b];
+  const int hd = a.hd, ld = hd + 2;
+  const float* src = a.part + ((size_t)b * a.G + g) * a.ns * a.R * ld;
+  int s_lo = a.ns, s_hi = -1;
+  for (int s = 0; s < a.ns; ++s)
+    if (split_live(s, a.pps, a.M, a.P, pos, a.window)) {
+      s_lo = min(s_lo, s);
+      s_hi = s;
+    }
+  for (int r = warp; r < a.R; r += blockDim.x / 32) {
+    float mx = NEG_INF;
+    for (int s = s_lo + lane; s <= s_hi; s += 32)
+      mx = fmaxf(mx, src[((size_t)s * a.R + r) * ld]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    float l = 0.f, acc[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[j] = 0.f;
+#pragma unroll 4
+    for (int s = s_lo; s <= s_hi; ++s) {
+      const float* ps = src + ((size_t)s * a.R + r) * ld;
+      const float w = __expf(ps[0] - mx);
+      l = fmaf(w, ps[1], l);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int d = lane + 32 * j;
+        if (d < hd) acc[j] = fmaf(w, ps[2 + d], acc[j]);
+      }
+    }
+    const float den = fmaxf(l, 1e-30f);
+    const size_t ob = (((size_t)b * a.G + g) * a.R + r) * hd;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int d = lane + 32 * j;
+      if (d < hd) store_o(a.out, ob + d, a.q_code, acc[j] / den);
     }
   }
 }
 
-size_t smem_bytes(int R, int hd, int P) {
-  return sizeof(float) * ((size_t)R * hd + 2 * (size_t)P * hd + (size_t)R * P)
-         + sizeof(int) * (size_t)P;
+size_t split_smem(const Args& a, int esize, int hk) {
+  const size_t stages = (size_t)a.nw *
+      (STAGES * stage_bytes(a.P, row_bytes(a.hd, esize)) + 16 * a.P);
+  const size_t merge = (size_t)a.nw * RT * (2 + 128 * hk) * sizeof(float);
+  return stages > merge ? stages : merge;
 }
 
-template <typename TQ, typename TKV>
-int launch(const void* q, const void* kp, const void* vp, const int* ppos,
-           const int* block, const int* position, void* out, int B, int G,
-           int R, int hd, int P, int M, int window, float kv_scale, float cap,
-           float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(R, hd, P);
-  auto kernel = paged_attention_kernel<TQ, TKV>;
-  if (smem > 48 * 1024) {
+template <typename TKV, int HK>
+int launch(const Args& a, int B, cudaStream_t stream) {
+  const size_t smem = split_smem(a, sizeof(TKV), HK);
+  auto kernel = paged_split_kernel<TKV, HK>;
+  static size_t granted = 48 * 1024;   // dynamic shared memory allowed
+  if (smem > granted) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
+    granted = smem;
   }
-  kernel<<<dim3(B, G), THREADS, smem, stream>>>(
-      (const TQ*)q, (const TKV*)kp, (const TKV*)vp, ppos, block, position,
-      (TQ*)out, G, R, hd, P, M, window, kv_scale, cap, scale);
+  const int n_rg = (a.R + RT - 1) / RT;
+  kernel<<<dim3(a.ns, a.G * n_rg, B), 32 * a.nw, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <typename TQ>
-int launch_kv(int kv_dtype, const void* q, const void* kp, const void* vp,
-              const int* ppos, const int* block, const int* position,
-              void* out, int B, int G, int R, int hd, int P, int M,
-              int window, float kv_scale, float cap, float scale,
-              cudaStream_t s) {
-  switch (kv_dtype) {
-    case 0: return launch<TQ, float>(q, kp, vp, ppos, block, position, out, B, G, R, hd, P, M, window, kv_scale, cap, scale, s);
-    case 1: return launch<TQ, __nv_bfloat16>(q, kp, vp, ppos, block, position, out, B, G, R, hd, P, M, window, kv_scale, cap, scale, s);
-    case 2: return launch<TQ, __half>(q, kp, vp, ppos, block, position, out, B, G, R, hd, P, M, window, kv_scale, cap, scale, s);
-    case 3: return launch<TQ, int8_t>(q, kp, vp, ppos, block, position, out, B, G, R, hd, P, M, window, kv_scale, cap, scale, s);
-  }
-  return (int)cudaErrorInvalidValue;
+template <typename TKV>
+int launch_hd(const Args& a, int B, cudaStream_t s) {
+  return a.hd <= 128 ? launch<TKV, 1>(a, B, s) : launch<TKV, 2>(a, B, s);
 }
 
 }  // namespace
 
 // dtype codes: 0 = fp32, 1 = bf16, 2 = fp16, 3 = int8 (K/V only).
-// Returns the launch's cudaGetLastError().
-extern "C" int paged_attention(const void* q, const void* kp, const void* vp,
-                               const void* ppos, const void* block,
-                               const void* position, void* out, int B, int G,
-                               int R, int hd, int P, int M, int window,
-                               float kv_scale, float cap, float scale,
-                               int q_dtype, int kv_dtype, void* stream) {
-  if (R < 1 || R > R_MAX || hd < 1 || hd > THREADS * D_PER)
+// part: fp32 scratch of B * G * ns * R * (hd + 2). nw: warps a block of
+// kernel 1 (1, 2 or 4); vec16: K/V rows and pointers are 16-byte aligned.
+// Each returns the launch's cudaGetLastError().
+extern "C" int paged_attention_split(
+    const void* q, const void* kp, const void* vp, const void* ppos,
+    const void* block, const void* position, void* part, int B, int G,
+    int R, int hd, int P, int M, int pps, int ns, int window, int nw,
+    int vec16, float kv_scale, float cap, float scale, int q_dtype,
+    int kv_dtype, void* stream) {
+  if (R < 1 || R > 16 || hd < 1 || hd > 256 || P < 1 || pps < 1 ||
+      ns < 1 || (nw != 1 && nw != 2 && nw != 4) || q_dtype < 0 || q_dtype > 2)
     return (int)cudaErrorInvalidValue;
-  const int* pp = (const int*)ppos;
-  const int* bl = (const int*)block;
-  const int* po = (const int*)position;
+  Args a{q, kp, vp, (const int*)ppos, (const int*)block,
+         (const int*)position, (float*)part, nullptr, G, R, hd, P, M, pps,
+         ns, window, nw, vec16, q_dtype, kv_scale, cap, scale};
   cudaStream_t s = (cudaStream_t)stream;
-  switch (q_dtype) {
-    case 0: return launch_kv<float>(kv_dtype, q, kp, vp, pp, bl, po, out, B, G, R, hd, P, M, window, kv_scale, cap, scale, s);
-    case 1: return launch_kv<__nv_bfloat16>(kv_dtype, q, kp, vp, pp, bl, po, out, B, G, R, hd, P, M, window, kv_scale, cap, scale, s);
-    case 2: return launch_kv<__half>(kv_dtype, q, kp, vp, pp, bl, po, out, B, G, R, hd, P, M, window, kv_scale, cap, scale, s);
+  switch (kv_dtype) {
+    case 0: return launch_hd<float>(a, B, s);
+    case 1: return launch_hd<__nv_bfloat16>(a, B, s);
+    case 2: return launch_hd<__half>(a, B, s);
+    case 3: return launch_hd<int8_t>(a, B, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int paged_attention_merge(const void* position, const void* part,
+                                     void* out, int B, int G, int R, int hd,
+                                     int P, int M, int pps, int ns,
+                                     int window, int q_dtype, void* stream) {
+  if (R < 1 || hd < 1 || hd > 256 || q_dtype < 0 || q_dtype > 2)
+    return (int)cudaErrorInvalidValue;
+  Args a{nullptr, nullptr, nullptr, nullptr, nullptr, (const int*)position,
+         (float*)part, out, G, R, hd, P, M, pps, ns, window, 4, 0, q_dtype,
+         0.f, 0.f, 0.f};
+  paged_merge_kernel<<<dim3(G, B), 128, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
 }

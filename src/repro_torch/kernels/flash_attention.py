@@ -32,6 +32,10 @@ or a stride > 1 here, to reproduce the Pallas function: the model calls
 the kernel at (128, 128) and stride 1, where causal rows are never fully
 masked and the grid changes no result.
 
+The kernel has two designs (``select_flash_design``): "tiled" for fp32 at hd
+64 or 128 (the training path: 8 x 8 register tiles, K/V streamed through
+``cp.async`` stages, 64-row query tiles over 128-key tiles whose visits
+``tile_walk`` mirrors) and "simple" for bf16 and other head sizes.
 ``flash_attention`` runs the plain version for a CPU tensor and launches the
 kernel for a CUDA tensor, raising on anything else; it never falls back.
 ``FlashAttention`` wraps it for autograd. The Pallas call has no JVP rule,
@@ -48,14 +52,26 @@ import torch
 from repro_torch.kernels import _build
 
 launches = 0          # kernel launches since the last reset (plain runs: 0)
+design_launches = {"tiled": 0, "simple": 0}   # the same, by design
 
 NEG_INF = -1e30
 ROW_BLOCK = 1024      # query rows per block of the plain version / backward
+TILE_Q, TILE_K = 64, 128   # the tiled design's query rows and keys a tile
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DESIGNS = {"simple": 0, "tiled": 1}
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 \
-    + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]
+    + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 _HD_MAX = 256
+
+
+def select_flash_design(dtype, hd: int) -> str:
+    """The kernel design for inputs of ``dtype`` and head size ``hd``:
+    "tiled" for fp32 at hd 64 or 128 (a thread owns 4 output dims of every
+    64), "simple" otherwise."""
+    if dtype == torch.float32 and hd in (64, 128):
+        return "tiled"
+    return "simple"
 
 
 def _clip_blocks(Sq, Skv, bq, bk):
@@ -78,6 +94,42 @@ def block_runs(qpos, kpos, *, causal, window, kv_keep_stride, bq, bk):
         run &= near | (torch.remainder(i - (j * bk) // bq,
                                        kv_keep_stride) == 0)
     return run
+
+
+def tile_walk(Sq, Skv, *, causal, window, kv_keep_stride, bq, bk):
+    """The key tiles (of TILE_K keys) the tiled design visits for each
+    query tile (of TILE_Q rows), in order: a list per query tile. The
+    kernel's rule, on the caller's (bq, bk) grid clipped to the shapes:
+    causal keys stop at the running blocks' reach of the tile's last row,
+    a window starts the walk at the first tile that can hold a running
+    block's key, and a tile is visited when it keeps an entry
+    (``block_runs & entry_mask``) or a row that has kept none yet has an
+    entry of a running block in it (that entry weighs exp(-1e30 - m) = 1
+    while the row's max m is still -1e30)."""
+    bq, bk = _clip_blocks(Sq, Skv, bq, bk)
+    n_kpad = -(-Skv // bk) * bk
+    walks = []
+    for q0 in range(0, Sq, TILE_Q):
+        rows = torch.arange(q0, min(q0 + TILE_Q, Sq))
+        kend = n_kpad
+        if causal:
+            i_last = (min(q0 + TILE_Q, Sq) - 1) // bq
+            kend = min(kend, -(-((i_last + 1) * bq) // bk) * bk)
+        t0 = max(0, (q0 // bq) * bq - window - bk) // TILE_K if window else 0
+        seen = torch.zeros(rows.shape[0], dtype=torch.bool)
+        walk = []
+        for t in range(t0, -(-kend // TILE_K)):
+            keys = torch.arange(t * TILE_K, (t + 1) * TILE_K)
+            inc = block_runs(rows, keys, causal=causal, window=window,
+                             kv_keep_stride=kv_keep_stride, bq=bq, bk=bk) \
+                & (keys < n_kpad)[None]
+            keep = inc & entry_mask(rows, keys, causal=causal, window=window,
+                                    n_kv=Skv)
+            if keep.any() or (inc.any(1) & ~seen).any():
+                walk.append(t)
+                seen |= keep.any(1)
+        walks.append(walk)
+    return walks
 
 
 def entry_mask(qpos, kpos, *, causal, window, n_kv):
@@ -210,15 +262,18 @@ def _launch(q, k, v, causal, window, cap, stride, bq, bk):
     if out.numel() == 0:
         return out
     bq, bk = _clip_blocks(Sq, Skv, bq, bk)
+    design = select_flash_design(q.dtype, hd)
     lib = _build.load("flash_attention", _ARGTYPES)
     rc = lib.flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                              out.data_ptr(), B, H, KVH, Sq, Skv, hd, bq, bk,
                              int(causal), int(window), int(stride),
                              float(cap), float(hd ** -0.5), _CODES[q.dtype],
+                             _DESIGNS[design],
                              torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         raise RuntimeError(f"flash_attention: launch failed, cudaError {rc}")
     launches += 1
+    design_launches[design] += 1
     return out
 
 

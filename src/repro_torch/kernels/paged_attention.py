@@ -1,19 +1,24 @@
-"""Fused paged-attention decode: the CUDA kernel ``csrc/paged_attention.cu``,
-its plain PyTorch version, and the kernel's cost model.
+"""Fused paged-attention decode: the CUDA kernels ``csrc/paged_attention.cu``,
+their plain PyTorch version, the page split they run on, and the cost model.
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/paged_attention.py``
 (``paged_attention_impl`` / ``_kernel``). One query token per slot attends
 over its block table's pages in place: no (B, max_len) gather buffer exists.
-On the H100 it is bound by bytes (each live page's K and V are read once per
-step at ~4 flops per byte); the kernel runs one block per (slot, KV head),
-walks the slot's pages in a loop, stages each page's K/V slice for its head
-in shared memory (dequantising int8 there) and keeps the online-softmax
-accumulator in registers. It skips what the Pallas kernel skips: unmapped
-pages (id 0), pages past the query position, and pages wholly below the
-window band.
+On the H100 it is bound by bytes (each running page's K and V are read once
+per step at ~1 flop per byte). The TPU kernel walks a slot's pages in
+sequence; here each block-table row is cut into ranges of ``page_splits``
+pages (flash-decoding): kernel 1 runs a block per (range, KV head, slot),
+its warps staging pages with ``cp.async`` two in flight and folding them
+into an online softmax, and writes each running range's partial (m, l, acc)
+to fp32 scratch; kernel 2 merges a (slot, head)'s ranges in range order. It
+skips what the Pallas kernel skips: unmapped pages (id 0), pages past the
+query position, and pages wholly below the window band; a whole range that
+holds none that can run exits at once.
 
 ``paged_attention`` runs the plain version for a CPU tensor and launches the
-kernel for a CUDA tensor, raising on anything else; it never falls back.
+kernels for a CUDA tensor, raising on anything else; it never falls back,
+and it never reads the card from the host (no sync: the split comes from
+shapes only).
 """
 from __future__ import annotations
 
@@ -24,13 +29,62 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-launches = 0          # kernel launches since the last reset (plain runs: 0)
+launches = 0          # wrapper calls that ran the kernels (plain runs: 0)
+merge_launches = 0    # launches of the merge pass, one a wrapper call
+
+# the split aims at this many blocks an SM before empty ranges exit: at the
+# ring cell's decode (4 slots x 8 heads x M 1024) the running ranges then
+# fit the card in one wave, at the serve cell's (8 x 8 x M 64) a warp takes
+# 2 of the longest slot's pages (8 blocks an SM: 0.128 / 0.021 ms; 4:
+# 0.110 / 0.023; 2: 0.173 / 0.029; H100, chip_smoke.py's ring-decode and
+# bf16 cases)
+SPLIT_BLOCKS_PER_SM = 4
+MIN_SPLIT_PAGES = 4   # a page for each of a block's 4 warps at least
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
           torch.int8: 3}
-_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-             + [ctypes.c_float] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+_SPLIT_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 11
+               + [ctypes.c_float] * 3 + [ctypes.c_int] * 2
+               + [ctypes.c_void_p])
+_MERGE_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 _R_MAX, _HD_MAX, _SMEM_MAX = 16, 256, 227 * 1024
+_STAGES, _RT = 2, 4   # pages in flight a warp; query rows a block
+_N_SM = {}            # device index -> streaming multiprocessors
+
+
+def page_splits(B: int, G: int, M: int, n_sm: int) -> int:
+    """Pages per range of a block-table row: enough ranges that the
+    B * G * ranges blocks of kernel 1 come to about SPLIT_BLOCKS_PER_SM an
+    SM, and no fewer than MIN_SPLIT_PAGES pages a range. Shapes only, as
+    Python ints (a tensor would make the host wait for the card)."""
+    for name, v in (("B", B), ("G", G), ("M", M), ("n_sm", n_sm)):
+        if type(v) is not int:
+            raise TypeError(f"page_splits: {name} must be an int, got "
+                            f"{type(v).__name__}")
+    if min(B, G, n_sm) < 1 or M < 0:
+        raise ValueError(f"page_splits: B={B} G={G} n_sm={n_sm} must be "
+                         f">= 1 and M={M} >= 0")
+    ranges = -(-SPLIT_BLOCKS_PER_SM * n_sm // (B * G))
+    return max(MIN_SPLIT_PAGES, -(-M // ranges))
+
+
+def _smem_bytes(nw: int, P: int, hd: int, esize: int) -> int:
+    """Kernel 1's shared memory (``split_smem`` in the source): per warp two
+    stages of a page's K and V rows (hd elements padded to 16 bytes) and
+    ppos row, and the page's R x P probabilities; the warps' states, merged
+    at the end, reuse it."""
+    rb = -(-hd * esize // 16) * 16
+    stage = 2 * P * rb + -(-4 * P // 16) * 16
+    stages = nw * (_STAGES * stage + 16 * P)
+    merge = nw * _RT * (2 + 128 * (1 if hd <= 128 else 2)) * 4
+    return max(stages, merge)
+
+
+def _warps(P: int, hd: int, esize: int) -> int:
+    """Warps a block of kernel 1: 4, or fewer where their stages would not
+    fit in shared memory (0: none fits)."""
+    return next((nw for nw in (4, 2, 1)
+                 if _smem_bytes(nw, P, hd, esize) <= _SMEM_MAX), 0)
 
 
 def paged_attention_plain(q, kp, vp, ppos, block, position, *,
@@ -91,12 +145,8 @@ def paged_attention(q, kp, vp, ppos, block, position, *, window: int = 0,
     return _launch(q, kp, vp, ppos, block, position, window, kv_scale, cap)
 
 
-def _smem_bytes(R: int, hd: int, P: int) -> int:
-    return 4 * (R * hd + 2 * P * hd + R * P) + 4 * P
-
-
 def _launch(q, kp, vp, ppos, block, position, window, kv_scale, cap):
-    global launches
+    global launches, merge_launches
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(
@@ -118,24 +168,45 @@ def _launch(q, kp, vp, ppos, block, position, window, kv_scale, cap):
                 f"paged_attention: {name} must be a contiguous {dts} "
                 f"{shape} on {dev}, got {t.dtype} {tuple(t.shape)} on "
                 f"{t.device} (contiguous={t.is_contiguous()})")
-    if not (1 <= R <= _R_MAX and 1 <= hd <= _HD_MAX and P >= 1
-            and _smem_bytes(R, hd, P) <= _SMEM_MAX):
+    esize = kp.element_size()
+    nw = _warps(P, hd, esize)
+    if not (1 <= R <= _R_MAX and 1 <= hd <= _HD_MAX and P >= 1 and nw):
         raise ValueError(
             f"paged_attention: unsupported shape R={R} hd={hd} P={P} "
-            f"(R <= {_R_MAX}, hd <= {_HD_MAX}, staging <= {_SMEM_MAX} B)")
+            f"(R <= {_R_MAX}, hd <= {_HD_MAX}, a warp's two staged pages "
+            f"<= {_SMEM_MAX} B)")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    lib = _build.load("paged_attention", _ARGTYPES)
-    rc = lib.paged_attention(
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _N_SM:
+        _N_SM[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    pps = page_splits(B, G, M, _N_SM[idx])
+    ns = max(1, -(-M // pps))
+    part = torch.empty(B * G * ns * R * (hd + 2), dtype=torch.float32,
+                       device=dev)
+    vec16 = int((hd * esize) % 16 == 0 and kp.data_ptr() % 16 == 0
+                and vp.data_ptr() % 16 == 0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _build.load("paged_attention", _SPLIT_ARGS, "paged_attention_split")
+    rc = lib.paged_attention_split(
         q.data_ptr(), kp.data_ptr(), vp.data_ptr(), ppos.data_ptr(),
-        block.data_ptr(), position.data_ptr(), out.data_ptr(),
-        B, G, R, hd, P, M, int(window), float(kv_scale), float(cap),
-        float(hd ** -0.5), _CODES[q.dtype], _CODES[kp.dtype],
-        torch.cuda.current_stream(dev).cuda_stream)
+        block.data_ptr(), position.data_ptr(), part.data_ptr(),
+        B, G, R, hd, P, M, pps, ns, int(window), nw, vec16,
+        float(kv_scale), float(cap), float(hd ** -0.5), _CODES[q.dtype],
+        _CODES[kp.dtype], stream)
     if rc:
         raise RuntimeError(f"paged_attention: launch failed, cudaError {rc}")
     launches += 1
+    lib = _build.load("paged_attention", _MERGE_ARGS, "paged_attention_merge")
+    rc = lib.paged_attention_merge(
+        position.data_ptr(), part.data_ptr(), out.data_ptr(), B, G, R, hd,
+        P, M, pps, ns, int(window), _CODES[q.dtype], stream)
+    if rc:
+        raise RuntimeError(
+            f"paged_attention: merge launch failed, cudaError {rc}")
+    merge_launches += 1
     return out
 
 
