@@ -831,6 +831,11 @@ def check_paged(device, cases, iters=20):
                   kv_scale=KV_SCALE if c["int8"] else 0.0)
         out = mod.paged_attention(q, kp, vp, ppos, block, pos, **kw)
         ref = mod.paged_attention_plain(q, kp, vp, ppos, block, pos, **kw)
+        # pages a range (a block's 4 warps take them in turn) and rows of a
+        # page a warp stages at a time
+        n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+        pps = mod.page_splits(q.shape[0], G, M, n_sm)
+        pt = mod.tile_rows(P, hd, kp.element_size())
         tol = FP32_ATOL if c["dtype"] == torch.float32 else BF16_ATOL
         err = max_err(out, ref)
         assert err <= tol, (c["name"], err, tol)
@@ -854,18 +859,21 @@ def check_paged(device, cases, iters=20):
                                           else "operations")
         rows.append(dict(name=c["name"], max_abs_err=err, tol=tol, ms=kern,
                          plain_ms=plain, library_ms=None, bound_ms=bound,
-                         bound_by=by, live_pages=live))
+                         bound_by=by, live_pages=live, pages_a_range=pps,
+                         tile_rows=pt))
         print(f"paged_attention {c['name']} B={len(lengths)} M={M}: "
               f"max_abs_err={err:.3g} (tol {tol:.3g}) ms={kern:.4f} "
               f"plain_ms={plain:.4f} library_ms=null bound_ms={bound:.5f} "
-              f"({by}, {live} live pages), host syncs {syncs}")
+              f"({by}, {live} live pages), host syncs {syncs}, "
+              f"{pps} pages a range, tiles of {pt} of {P} rows")
     return rows
 
 
 def phi4_paged_cases(dtype_main):
     """The serve cell's decode (8 ragged slots, M 64) and the ring cell's
     ("ring-decode": its 4 slots at the prompts' lengths, M 1024 of a
-    16384-token max_len)."""
+    16384-token max_len; also in fp32, held to FP32_ATOL, where each warp
+    folds ~15 pages through its two stages)."""
     import torch
     lengths = [0, 15, 16, 17, 100, 255, 400, 1000]     # 8 slots, ragged
     base = dict(G=8, R=3, hd=128, P=16, M=64, lengths=lengths)
@@ -879,9 +887,15 @@ def phi4_paged_cases(dtype_main):
              cap=50.0, window=128),
         dict(ring, name="ring-decode", dtype=dtype_main, int8=False),
         dict(ring, name="ring-decode-int8", dtype=dtype_main, int8=True),
+        dict(ring, name="ring-decode-fp32", dtype=torch.float32, int8=False),
+        # ranges of 16 pages: 4 a warp, in fp32
+        dict(base, name="fp32-4-pages-a-warp", M=256,
+             lengths=[4000, 3000, 2100, 2049], dtype=torch.float32,
+             int8=False),
         # the smoke serving width; a GQA group of 8 (two blocks of 4 query
-        # heads); rows of 24 bytes (no 16-byte copies); hd 256 in fp32 (two
-        # warps a block); each with the two inactive rows
+        # heads); rows of 24 bytes (no 16-byte copies); hd 256 in fp32
+        # (pages in tiles of 8 rows), and pages of 100 rows (tiles of 13, the
+        # last of 9); each with the two inactive rows
         dict(name="smoke+blind", G=2, R=2, hd=16, P=4, M=12,
              lengths=[0, 5, 9, 30], dtype=torch.float32, int8=False,
              blind=True),
@@ -895,6 +909,9 @@ def phi4_paged_cases(dtype_main):
         dict(name="hd256-fp32+blind", G=2, R=3, hd=256, P=16, M=12,
              lengths=[15, 70, 160], dtype=torch.float32, int8=False,
              blind=True),
+        dict(name="hd256-fp32-P100+blind", G=2, R=3, hd=256, P=100, M=8,
+             lengths=[150, 420, 790], dtype=torch.float32, int8=False,
+             window=500, cap=30.0, blind=True),
     ]
 
 

@@ -30,8 +30,12 @@
 // until the end: lane i holds the block-table id of the warp's page i (32
 // at a time), and the warp stages each running page's K and V slice for
 // the head (P rows of hd elements at stride G * hd) and its ppos row in
-// shared memory with 16-byte cp.async copies, two pages in flight, so the
-// next page loads while this one computes. Int8 and bf16 are widened in
+// shared memory with 16-byte cp.async copies, in two stages, so the next
+// stage loads while this one computes. A stage holds a tile of `pt` rows
+// of a page: the whole page wherever the 4 warps' two stages fit in
+// shared memory (every shape of the serving paths), else the page in
+// equal tiles that fit (tile_rows: fp32 hd 256 pages of 16 rows take
+// tiles of 8), so every page size runs. Int8 and bf16 are widened in
 // registers after the load. Scores: 32 / lk keys at a time, lk lanes a key,
 // each lane holding its 16-byte slices of the block's rows of Q in
 // registers, reduced across the lk lanes by shuffles, all rows at once.
@@ -48,10 +52,8 @@
 // range has one; a range with no running page carries l = 0, so the two
 // cases above come out as in the sequential walk.
 //
-// Shared memory: 4 warps x 2 stages of a page (2 P rb + ppos) and the
-// page's probabilities; at hd 256 in fp32, or pages above ~100 fp32 rows
-// of 128, the wrapper runs 2 or 1 warps a block, and refuses a page two of
-// which do not fit in 227 KB for one warp.
+// Shared memory: 4 warps x 2 stages of a tile (2 pt rb + its ppos) and the
+// tile's probabilities (pt x 4 floats), at most 227 KB.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -178,7 +180,7 @@ __device__ __forceinline__ bool page_runs(int m, int pid, int P, int pos,
 // Range s of a row (pages s*pps .. min((s+1)*pps, M) - 1) holds a page that
 // can run: it starts at or before the position and, with a window, its
 // last page reaches into the window band. Kernel 1 exits and kernel 2
-// skips the range otherwise (mirrored by split_live in the wrapper).
+// skips the range otherwise.
 __device__ __forceinline__ bool split_live(int s, int pps, int M, int P,
                                            int pos, int window) {
   const int m0 = s * pps, m1 = min(m0 + pps, M);
@@ -196,19 +198,23 @@ struct Args {
   const int* position;
   float* part;          // (B, G, NS, R, hd + 2): m, l, acc
   void* out;
-  int G, R, hd, P, M, pps, ns, window, nw, vec16, q_code;
+  int G, R, hd, P, M, pps, ns, window, pt, vec16, q_code;
   float kv_scale, cap, scale;
 };
 
-// Shared memory a warp stages one page in: K and V rows of `rb` bytes
-// (hd elements padded to 16 bytes), the ppos row, padded to 16 bytes.
+// Shared memory a warp stages a tile of `pt` rows in: K and V rows of `rb`
+// bytes (hd elements padded to 16 bytes), the ppos entries, padded to 16
+// bytes.
 __host__ __device__ __forceinline__ int row_bytes(int hd, int esize) {
   return (hd * esize + 15) / 16 * 16;
 }
 __host__ __device__ __forceinline__ int stage_bytes(int P, int rb) {
   return 2 * P * rb + (4 * P + 15) / 16 * 16;
 }
-constexpr int STAGES = 2;
+constexpr int STAGES = 2;       // tiles in flight a warp
+static_assert(STAGES == 2, "a warp keeps its two stages' row counts");
+constexpr int NW = 4;           // warps a block of kernel 1
+constexpr int SMEM_MAX = 227 * 1024;
 
 // TKV: K/V element type; HK: groups of 128 dims (hd <= 128 * HK)
 template <typename TKV, int HK>
@@ -226,7 +232,8 @@ __global__ void __launch_bounds__(128) paged_split_kernel(Args a) {
   if (!split_live(s, a.pps, a.M, P, pos, a.window)) return;
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int rb = row_bytes(hd, ES), sb = stage_bytes(P, rb);
+  const int pt = a.pt;                      // rows of a page a stage holds
+  const int rb = row_bytes(hd, ES), sb = stage_bytes(pt, rb);
   const int nc = rb / 16;                   // chunks a row
   // lanes a key in the score step: the power of two >= nc, at most 32
   int lk = 1;
@@ -234,8 +241,8 @@ __global__ void __launch_bounds__(128) paged_split_kernel(Args a) {
   const int kpi = 32 / lk, sub = lane % lk;
   const int cpl = (nc + lk - 1) / lk;       // chunks a lane (1 or 2)
 
-  unsigned char* wbase = smem + (size_t)warp * (STAGES * sb + 16 * P);
-  float* ew = reinterpret_cast<float*>(wbase + STAGES * sb);  // [P][RT]
+  unsigned char* wbase = smem + (size_t)warp * (STAGES * sb + 16 * pt);
+  float* ew = reinterpret_cast<float*>(wbase + STAGES * sb);  // [pt][RT]
 
   // this lane's slice of the rows of Q (the dims of its chunks), fp32
   float qr[RT][JC * EPC];
@@ -269,21 +276,20 @@ __global__ void __launch_bounds__(128) paged_split_kernel(Args a) {
   const TKV* kp = (const TKV*)a.kp;
   const TKV* vp = (const TKV*)a.vp;
   const size_t row_stride = (size_t)a.G * hd;   // elements between rows
-  // the warp's pages of the range: the k-th is m_first + nw * k; lane i
+  // the warp's pages of the range: the k-th is m_first + NW * k; lane i
   // holds the block-table id of page 32 * chunk + i, read 32 at a time
   const int m_first = s * a.pps + warp;
-  const int n_mine = m_first < m_end ? (m_end - m_first + a.nw - 1) / a.nw
-                                     : 0;
+  const int n_mine = m_first < m_end ? (m_end - m_first + NW - 1) / NW : 0;
   int ids = 0, chunk = -1;
   // the warp's next running page at or after its k-th; -1 when none is left
   auto next_run = [&](int k, int& pid) {
     for (; k < n_mine; ++k) {
-      const int m = m_first + a.nw * k;
+      const int m = m_first + NW * k;
       if (m * P > pos) break;
       if ((k >> 5) != chunk) {
         chunk = k >> 5;
         const int kk = 32 * chunk + lane;
-        ids = kk < n_mine ? brow[m_first + a.nw * kk] : 0;
+        ids = kk < n_mine ? brow[m_first + NW * kk] : 0;
       }
       pid = __shfl_sync(0xffffffffu, ids, k & 31);
       if (page_runs(m, pid, P, pos, a.window)) return k;
@@ -294,19 +300,21 @@ __global__ void __launch_bounds__(128) paged_split_kernel(Args a) {
   const bool even = 32 % nc == 0;
   const int c_lane = even ? lane % nc : 0, p_lane = even ? lane / nc : 0;
   const int p_step = even ? 32 / nc : 0;
-  auto issue = [&](int st, int pid) {
+  // stage rows row0 .. row0 + n - 1 of page pid
+  auto issue = [&](int st, int pid, int row0, int n) {
     unsigned char* kd = wbase + st * sb;
-    unsigned char* vd = kd + P * rb;
-    int* pd = reinterpret_cast<int*>(vd + P * rb);
-    const size_t base = (size_t)pid * P * row_stride + (size_t)g * hd;
+    unsigned char* vd = kd + pt * rb;
+    int* pd = reinterpret_cast<int*>(vd + pt * rb);
+    const size_t base =
+        ((size_t)pid * P + row0) * row_stride + (size_t)g * hd;
     if (a.vec16 && even) {
-      for (int p = p_lane; p < P; p += p_step) {
+      for (int p = p_lane; p < n; p += p_step) {
         const size_t off = base + (size_t)p * row_stride + c_lane * EPC;
         cp_async16(smem_u32(kd + p * rb + c_lane * 16), kp + off);
         cp_async16(smem_u32(vd + p * rb + c_lane * 16), vp + off);
       }
     } else if (a.vec16) {
-      for (int i = lane; i < P * nc; i += 32) {
+      for (int i = lane; i < n * nc; i += 32) {
         const int p = i / nc, c = i - p * nc;
         const size_t off = base + (size_t)p * row_stride + c * EPC;
         cp_async16(smem_u32(kd + p * rb + c * 16), kp + off);
@@ -314,7 +322,7 @@ __global__ void __launch_bounds__(128) paged_split_kernel(Args a) {
       }
     } else {          // rows not 16-byte aligned: plain copies, zero pad
       const int ne = rb / ES;
-      for (int i = lane; i < P * ne; i += 32) {
+      for (int i = lane; i < n * ne; i += 32) {
         const int p = i / ne, e = i - p * ne;
         const size_t off = base + (size_t)p * row_stride + e;
         TKV kz = zero_of<TKV>(), vz = zero_of<TKV>();
@@ -326,38 +334,46 @@ __global__ void __launch_bounds__(128) paged_split_kernel(Args a) {
         reinterpret_cast<TKV*>(vd + p * rb)[e] = vz;
       }
     }
-    for (int i = lane; i < P; i += 32)
-      cp_async4(smem_u32(pd + i), a.ppos + (size_t)pid * P + i);
+    for (int i = lane; i < n; i += 32)
+      cp_async4(smem_u32(pd + i), a.ppos + (size_t)pid * P + row0 + i);
   };
 
   const float sc = a.scale * (a.kv_scale != 0.f ? a.kv_scale : 1.f);
-  int pid = 0;
+  const int n_tiles = (P + pt - 1) / pt;    // stages a page takes
+  int pid = 0, t_next = 0, rows0 = 0, rows1 = 0, issued = 0;
   int k_next = next_run(0, pid);
-  int issued = 0;
-  for (int st = 0; st < STAGES; ++st) {
-    if (k_next >= 0) {
-      issue(st, pid);
-      ++issued;
+  // stage the warp's next (page, tile) and move past it
+  auto issue_next = [&](int st) {
+    const int row0 = t_next * pt, n = min(pt, P - row0);
+    issue(st, pid, row0, n);
+    if (st) rows1 = n; else rows0 = n;
+    ++issued;
+    if (++t_next == n_tiles) {
+      t_next = 0;
       k_next = next_run(k_next + 1, pid);
     }
+  };
+  for (int st = 0; st < STAGES; ++st) {
+    if (k_next >= 0) issue_next(st);
     cp_commit();
   }
   for (int done = 0; done < issued; ++done) {
     cp_wait(STAGES - 1);
     __syncwarp();
     const int st = done % STAGES;
+    const int np = st ? rows1 : rows0;      // rows of this tile
     const unsigned char* kd = wbase + st * sb;
-    const unsigned char* vd = kd + P * rb;
-    const int* pd = reinterpret_cast<const int*>(vd + P * rb);
+    const unsigned char* vd = kd + pt * rb;
+    const int* pd = reinterpret_cast<const int*>(vd + pt * rb);
 
     // scores: kpi keys at a time, lk lanes a key
 #pragma unroll 2
-    for (int p0 = 0; p0 < P; p0 += kpi) {
+    for (int p0 = 0; p0 < np; p0 += kpi) {
       const int p = p0 + lane / lk;
       float part[RT];
 #pragma unroll
       for (int r = 0; r < RT; ++r) part[r] = 0.f;
-      if (p < P) {
+      if (p < np) {
 #pragma unroll
         for (int j = 0; j < JC; ++j) {
           const int c = sub + lk * j;
@@ -378,7 +394,7 @@ __global__ void __launch_bounds__(128) paged_split_kernel(Args a) {
 #pragma unroll
           for (int r = 0; r < RT; ++r)
             part[r] += __shfl_xor_sync(0xffffffffu, part[r], o);
-      if (sub == 0 && p < P) {
+      if (sub == 0 && p < np) {
         const int kvp = pd[p];
         bool valid = kvp >= 0 && kvp <= pos;
         if (a.window) valid = valid && kvp > pos - a.window;
@@ -400,7 +416,7 @@ __global__ void __launch_bounds__(128) paged_split_kernel(Args a) {
       mx[r] = NEG_INF;
       sum[r] = 0.f;
     }
-    for (int p = lane; p < P; p += 32) {
+    for (int p = lane; p < np; p += 32) {
       const float4 x = *reinterpret_cast<const float4*>(ew + p * RT);
       mx[0] = fmaxf(mx[0], x.x);
       mx[1] = fmaxf(mx[1], x.y);
@@ -419,7 +435,7 @@ __global__ void __launch_bounds__(128) paged_split_kernel(Args a) {
       alpha[r] = __expf(m_r[r] - mx[r]);
       m_r[r] = mx[r];
     }
-    for (int p = lane; p < P; p += 32) {
+    for (int p = lane; p < np; p += 32) {
       float4 x = *reinterpret_cast<const float4*>(ew + p * RT);
       x.x = __expf(x.x - mx[0]);
       x.y = __expf(x.y - mx[1]);
@@ -452,7 +468,7 @@ __global__ void __launch_bounds__(128) paged_split_kernel(Args a) {
       const int d0 = 4 * lane + 128 * k;
       if (d0 < hd) {
 #pragma unroll 4
-        for (int p = 0; p < P; ++p) {
+        for (int p = 0; p < np; ++p) {
           const float4 e4 = *reinterpret_cast<const float4*>(ew + p * RT);
           const float ev[4] = {e4.x, e4.y, e4.z, e4.w};
           float vf[4];
@@ -466,17 +482,13 @@ __global__ void __launch_bounds__(128) paged_split_kernel(Args a) {
       }
     }
     __syncwarp();               // the stage and ew are free again
-    if (k_next >= 0) {
-      issue(st, pid);
-      ++issued;
-      k_next = next_run(k_next + 1, pid);
-    }
+    if (k_next >= 0) issue_next(st);
     cp_commit();
   }
 
   // merge the warps' states in shared memory (warp order), write the range
   __syncthreads();
-  float* ws = reinterpret_cast<float*>(smem);   // [nw][RT][2 + 128 HK]
+  float* ws = reinterpret_cast<float*>(smem);   // [NW][RT][2 + 128 HK]
   constexpr int WLD = 2 + 128 * HK;
 #pragma unroll
   for (int r = 0; r < RT; ++r) {
@@ -496,10 +508,10 @@ __global__ void __launch_bounds__(128) paged_split_kernel(Args a) {
   for (int i = threadIdx.x; i < RB * (hd + 2); i += blockDim.x) {
     const int r = i / (hd + 2), c = i - r * (hd + 2);
     float mx = NEG_INF;
-    for (int w = 0; w < a.nw; ++w) mx = fmaxf(mx, ws[(w * RT + r) * WLD]);
+    for (int w = 0; w < NW; ++w) mx = fmaxf(mx, ws[(w * RT + r) * WLD]);
     float v = c == 0 ? mx : 0.f;
     if (c > 0)
-      for (int w = 0; w < a.nw; ++w) {
+      for (int w = 0; w < NW; ++w) {
         const float* wr = ws + (w * RT + r) * WLD;
         v += __expf(wr[0] - mx) * wr[c];
       }
@@ -553,16 +565,30 @@ __global__ void __launch_bounds__(128) paged_merge_kernel(Args a) {
   }
 }
 
-size_t split_smem(const Args& a, int esize, int hk) {
-  const size_t stages = (size_t)a.nw *
-      (STAGES * stage_bytes(a.P, row_bytes(a.hd, esize)) + 16 * a.P);
-  const size_t merge = (size_t)a.nw * RT * (2 + 128 * hk) * sizeof(float);
+// kernel 1's shared memory at tiles of pt rows: the warps' stages, which
+// the warps' states reuse when they merge
+size_t split_smem(int pt, int hd, int esize) {
+  const size_t stages =
+      (size_t)NW * (STAGES * stage_bytes(pt, row_bytes(hd, esize)) + 16 * pt);
+  const size_t merge =
+      (size_t)NW * RT * (2 + 128 * (hd <= 128 ? 1 : 2)) * sizeof(float);
   return stages > merge ? stages : merge;
 }
 
+// rows of a page a stage holds: the whole page where it fits, else the
+// fewest equal tiles that do (one row always fits at hd <= 256)
+int tile_rows(int P, int hd, int esize) {
+  const int per_row = NW * (STAGES * (2 * row_bytes(hd, esize) + 4) + 16);
+  int fit = SMEM_MAX / per_row < P ? SMEM_MAX / per_row : P;
+  while (fit > 1 && split_smem(fit, hd, esize) > (size_t)SMEM_MAX) --fit;
+  const int tiles = (P + fit - 1) / fit;
+  return (P + tiles - 1) / tiles;
+}
+
 template <typename TKV, int HK>
-int launch(const Args& a, int B, cudaStream_t stream) {
-  const size_t smem = split_smem(a, sizeof(TKV), HK);
+int launch(Args a, int B, cudaStream_t stream) {
+  a.pt = tile_rows(a.P, a.hd, sizeof(TKV));
+  const size_t smem = split_smem(a.pt, a.hd, sizeof(TKV));
   auto kernel = paged_split_kernel<TKV, HK>;
   static size_t granted = 48 * 1024;   // dynamic shared memory allowed
   if (smem > granted) {
@@ -572,7 +598,7 @@ int launch(const Args& a, int B, cudaStream_t stream) {
     granted = smem;
   }
   const int n_rg = (a.R + RT - 1) / RT;
-  kernel<<<dim3(a.ns, a.G * n_rg, B), 32 * a.nw, smem, stream>>>(a);
+  kernel<<<dim3(a.ns, a.G * n_rg, B), 32 * NW, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -584,21 +610,21 @@ int launch_hd(const Args& a, int B, cudaStream_t s) {
 }  // namespace
 
 // dtype codes: 0 = fp32, 1 = bf16, 2 = fp16, 3 = int8 (K/V only).
-// part: fp32 scratch of B * G * ns * R * (hd + 2). nw: warps a block of
-// kernel 1 (1, 2 or 4); vec16: K/V rows and pointers are 16-byte aligned.
-// Each returns the launch's cudaGetLastError().
+// part: fp32 scratch of B * G * ns * R * (hd + 2); vec16: K/V rows and
+// pointers are 16-byte aligned. Each returns the launch's
+// cudaGetLastError().
 extern "C" int paged_attention_split(
     const void* q, const void* kp, const void* vp, const void* ppos,
     const void* block, const void* position, void* part, int B, int G,
-    int R, int hd, int P, int M, int pps, int ns, int window, int nw,
-    int vec16, float kv_scale, float cap, float scale, int q_dtype,
-    int kv_dtype, void* stream) {
+    int R, int hd, int P, int M, int pps, int ns, int window, int vec16,
+    float kv_scale, float cap, float scale, int q_dtype, int kv_dtype,
+    void* stream) {
   if (R < 1 || R > 16 || hd < 1 || hd > 256 || P < 1 || pps < 1 ||
-      ns < 1 || (nw != 1 && nw != 2 && nw != 4) || q_dtype < 0 || q_dtype > 2)
+      ns < 1 || q_dtype < 0 || q_dtype > 2)
     return (int)cudaErrorInvalidValue;
   Args a{q, kp, vp, (const int*)ppos, (const int*)block,
          (const int*)position, (float*)part, nullptr, G, R, hd, P, M, pps,
-         ns, window, nw, vec16, q_dtype, kv_scale, cap, scale};
+         ns, window, 0, vec16, q_dtype, kv_scale, cap, scale};
   cudaStream_t s = (cudaStream_t)stream;
   switch (kv_dtype) {
     case 0: return launch_hd<float>(a, B, s);
@@ -616,8 +642,16 @@ extern "C" int paged_attention_merge(const void* position, const void* part,
   if (R < 1 || hd < 1 || hd > 256 || q_dtype < 0 || q_dtype > 2)
     return (int)cudaErrorInvalidValue;
   Args a{nullptr, nullptr, nullptr, nullptr, nullptr, (const int*)position,
-         (float*)part, out, G, R, hd, P, M, pps, ns, window, 4, 0, q_dtype,
+         (float*)part, out, G, R, hd, P, M, pps, ns, window, 0, 0, q_dtype,
          0.f, 0.f, 0.f};
   paged_merge_kernel<<<dim3(G, B), 128, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// rows of a page kernel 1 stages at a time for K/V elements of `esize`
+// bytes (P where the page fits), or 0 for a shape it does not take
+extern "C" int paged_attention_tile_rows(int P, int hd, int esize) {
+  if (P < 1 || hd < 1 || hd > 256 || (esize != 1 && esize != 2 && esize != 4))
+    return 0;
+  return tile_rows(P, hd, esize);
 }

@@ -8,12 +8,13 @@ On the H100 it is bound by bytes (each running page's K and V are read once
 per step at ~1 flop per byte). The TPU kernel walks a slot's pages in
 sequence; here each block-table row is cut into ranges of ``page_splits``
 pages (flash-decoding): kernel 1 runs a block per (range, KV head, slot),
-its warps staging pages with ``cp.async`` two in flight and folding them
-into an online softmax, and writes each running range's partial (m, l, acc)
-to fp32 scratch; kernel 2 merges a (slot, head)'s ranges in range order. It
-skips what the Pallas kernel skips: unmapped pages (id 0), pages past the
-query position, and pages wholly below the window band; a whole range that
-holds none that can run exits at once.
+its 4 warps staging pages (or equal tiles of a page too large for shared
+memory, ``tile_rows``) with ``cp.async``, two stages in flight, folding
+them into an online softmax, and writes each running range's partial
+(m, l, acc) to fp32 scratch; kernel 2 merges a (slot, head)'s ranges in
+range order. It skips what the Pallas kernel skips: unmapped pages (id 0),
+pages past the query position, and pages wholly below the window band; a
+whole range that holds none that can run exits at once.
 
 ``paged_attention`` runs the plain version for a CPU tensor and launches the
 kernels for a CUDA tensor, raising on anything else; it never falls back,
@@ -43,12 +44,11 @@ MIN_SPLIT_PAGES = 4   # a page for each of a block's 4 warps at least
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
           torch.int8: 3}
-_SPLIT_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 11
+_SPLIT_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
                + [ctypes.c_float] * 3 + [ctypes.c_int] * 2
                + [ctypes.c_void_p])
 _MERGE_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
-_R_MAX, _HD_MAX, _SMEM_MAX = 16, 256, 227 * 1024
-_STAGES, _RT = 2, 4   # pages in flight a warp; query rows a block
+_R_MAX, _HD_MAX = 16, 256
 _N_SM = {}            # device index -> streaming multiprocessors
 
 
@@ -68,23 +68,14 @@ def page_splits(B: int, G: int, M: int, n_sm: int) -> int:
     return max(MIN_SPLIT_PAGES, -(-M // ranges))
 
 
-def _smem_bytes(nw: int, P: int, hd: int, esize: int) -> int:
-    """Kernel 1's shared memory (``split_smem`` in the source): per warp two
-    stages of a page's K and V rows (hd elements padded to 16 bytes) and
-    ppos row, and the page's R x P probabilities; the warps' states, merged
-    at the end, reuse it."""
-    rb = -(-hd * esize // 16) * 16
-    stage = 2 * P * rb + -(-4 * P // 16) * 16
-    stages = nw * (_STAGES * stage + 16 * P)
-    merge = nw * _RT * (2 + 128 * (1 if hd <= 128 else 2)) * 4
-    return max(stages, merge)
-
-
-def _warps(P: int, hd: int, esize: int) -> int:
-    """Warps a block of kernel 1: 4, or fewer where their stages would not
-    fit in shared memory (0: none fits)."""
-    return next((nw for nw in (4, 2, 1)
-                 if _smem_bytes(nw, P, hd, esize) <= _SMEM_MAX), 0)
+def tile_rows(P: int, hd: int, esize: int) -> int:
+    """Rows of a page kernel 1 stages at a time for K/V elements of
+    ``esize`` bytes: P where the 4 warps' two stages of a page fit in shared
+    memory, else the fewest equal tiles that do; 0 for a shape the kernel
+    does not take. The rule is the kernel source's (needs the card)."""
+    lib = _build.load("paged_attention", [ctypes.c_int] * 3,
+                      "paged_attention_tile_rows")
+    return lib.paged_attention_tile_rows(P, hd, esize)
 
 
 def paged_attention_plain(q, kp, vp, ppos, block, position, *,
@@ -168,13 +159,10 @@ def _launch(q, kp, vp, ppos, block, position, window, kv_scale, cap):
                 f"paged_attention: {name} must be a contiguous {dts} "
                 f"{shape} on {dev}, got {t.dtype} {tuple(t.shape)} on "
                 f"{t.device} (contiguous={t.is_contiguous()})")
-    esize = kp.element_size()
-    nw = _warps(P, hd, esize)
-    if not (1 <= R <= _R_MAX and 1 <= hd <= _HD_MAX and P >= 1 and nw):
+    if not (1 <= R <= _R_MAX and 1 <= hd <= _HD_MAX and P >= 1):
         raise ValueError(
             f"paged_attention: unsupported shape R={R} hd={hd} P={P} "
-            f"(R <= {_R_MAX}, hd <= {_HD_MAX}, a warp's two staged pages "
-            f"<= {_SMEM_MAX} B)")
+            f"(R <= {_R_MAX}, hd <= {_HD_MAX})")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -186,14 +174,15 @@ def _launch(q, kp, vp, ppos, block, position, window, kv_scale, cap):
     ns = max(1, -(-M // pps))
     part = torch.empty(B * G * ns * R * (hd + 2), dtype=torch.float32,
                        device=dev)
-    vec16 = int((hd * esize) % 16 == 0 and kp.data_ptr() % 16 == 0
+    vec16 = int((hd * kp.element_size()) % 16 == 0
+                and kp.data_ptr() % 16 == 0
                 and vp.data_ptr() % 16 == 0)
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = _build.load("paged_attention", _SPLIT_ARGS, "paged_attention_split")
     rc = lib.paged_attention_split(
         q.data_ptr(), kp.data_ptr(), vp.data_ptr(), ppos.data_ptr(),
         block.data_ptr(), position.data_ptr(), part.data_ptr(),
-        B, G, R, hd, P, M, pps, ns, int(window), nw, vec16,
+        B, G, R, hd, P, M, pps, ns, int(window), vec16,
         float(kv_scale), float(cap), float(hd ** -0.5), _CODES[q.dtype],
         _CODES[kp.dtype], stream)
     if rc:

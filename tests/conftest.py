@@ -23,3 +23,8 @@ def run_py(code: str, *, devices: int = 1, timeout: int = 420) -> str:
 @pytest.fixture(scope="session")
 def subproc():
     return run_py
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (skips where there is none)")

@@ -2,18 +2,21 @@
 
 The CUDA kernel cuts each block-table row into ranges of ``page_splits``
 pages; a block's warps fold the range's running pages into their own online
-softmax (page m0 + w, m0 + w + 4, ...), merge their states in warp order,
-and a second kernel merges the ranges of a (slot, KV head) in range order.
-Here that walk is emulated in plain PyTorch, in fp32 as the kernel computes
-it, and held to ``paged_attention_plain`` and to the Pallas kernel in
-interpret mode on the same numpy inputs (2e-5: fp32 sums in another order),
-inactive rows included."""
-import jax.numpy as jnp
+softmax (page m0 + w, m0 + w + 4, ...), a page at a time or, where a page
+is too large for shared memory, a tile of its rows at a time, merge their
+states in warp order, and a second kernel merges the ranges of a (slot, KV
+head) in range order. Here that walk is emulated in plain PyTorch, in fp32
+as the kernel computes it, and held to ``paged_attention_plain`` and to the
+Pallas kernel in interpret mode on the same numpy inputs (2e-5: fp32 sums
+in another order), inactive rows included. The emulation does not model
+the copies in flight (they change no sum). The shared-memory plan that
+picks the tile rows is the CUDA source's, checked on the card (``-m
+cuda``, where the JAX package is not installed: it is imported inside the
+test that needs it)."""
 import numpy as np
 import pytest
 import torch
 
-from repro.kernels import paged_attention as jax_pa
 from repro_torch.kernels import paged_attention as t_pa
 from repro_torch.models import attention as t_attn
 
@@ -117,9 +120,10 @@ def _merge(states):
 
 
 def _emulate(q, kp, vp, ppos, block, position, *, window, kv_scale, cap,
-             pps):
-    """The kernels' walk in plain PyTorch. Returns the output and the
-    partial (m, l, acc) of every (slot, head, range)."""
+             pps, tile=0):
+    """The kernels' walk in plain PyTorch, folding each page in tiles of
+    ``tile`` rows (0: whole pages). Returns the output and the partial
+    (m, l, acc) of every (slot, head, range)."""
     B, G, R, hd = q.shape
     P = ppos.shape[1]
     M = block.shape[1]
@@ -151,7 +155,10 @@ def _emulate(q, kp, vp, ppos, block, position, *, window, kv_scale, cap,
                         if window:
                             valid &= kv > pos - window
                         x = torch.where(valid[None], x, NEG_INF)
-                        st = _fold(st, x, vp[pid, :, g].float())
+                        v = vp[pid, :, g].float()
+                        for t0 in range(0, P, tile or P):
+                            t1 = t0 + (tile or P)
+                            st = _fold(st, x[:, t0:t1], v[t0:t1])
                     warps.append(st)
                 m_, l_, acc_ = _merge(warps)
                 partials[b, g, s] = (m_, l_, acc_ * (kv_scale or 1.0))
@@ -188,6 +195,8 @@ def test_split_walk_matches_plain_and_pallas(name, n_sm):
     assert len(_ranges(M, pps)) >= 2          # the split really splits
     got, partials = _emulate(*t, pps=pps, **kw)
     plain = t_pa.paged_attention_plain(*t, **kw)
+    import jax.numpy as jnp
+    from repro.kernels import paged_attention as jax_pa
     want = jax_pa.paged_attention(*map(jnp.asarray, arrs), interpret=True,
                                   **kw)
     np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=ATOL, rtol=0)
@@ -215,14 +224,51 @@ def test_split_walk_matches_plain_and_pallas(name, n_sm):
     assert float(got[nb + 1].abs().max()) > 0
 
 
+@pytest.mark.parametrize("n_sm", [H100_SMS, 8])
+@pytest.mark.parametrize("name", list(CASES))
+def test_split_walk_in_page_tiles_matches_plain(name, n_sm):
+    """Pages folded a tile of rows at a time, as the kernel stages a page
+    too large for shared memory (about a third of a page a tile, the last
+    one shorter), give the same output: a tile whose entries are all masked
+    carries m = -1e30 beside a valid one of its page, as a page does beside
+    a valid page, and the inactive rows keep their zeros and mean of V."""
+    lengths, P, M, G, R, hd, window, cap, quantized = CASES[name]
+    arrs = _inputs(lengths, P=P, M=M, G=G, R=R, hd=hd, quantized=quantized,
+                   blind=BLIND)
+    t = [torch.from_numpy(a) for a in arrs]
+    kw = dict(window=window, kv_scale=t_attn.KV_SCALE if quantized else 0.0,
+              cap=cap)
+    pps = t_pa.page_splits(len(lengths) + len(BLIND), G, M, n_sm)
+    tile = -(-P // 3)
+    assert tile < P                            # the pages really are cut
+    got, _ = _emulate(*t, pps=pps, tile=tile, **kw)
+    whole, _ = _emulate(*t, pps=pps, **kw)
+    plain = t_pa.paged_attention_plain(*t, **kw)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(got.numpy(), whole.numpy(), atol=ATOL, rtol=0)
+    assert float(got[len(lengths)].abs().max()) == 0
+
+
+@pytest.mark.cuda
 def test_smem_plan_fits_every_paged_shape_of_the_paths():
-    """Kernel 1 runs 4 warps at every K/V dtype of the serving paths
-    (phi4-mini hd 128 and the smoke hd 16, pages of 4 and 16), and fewer
-    only where two fp32 pages a warp would not fit."""
+    """Kernel 1 stages whole pages at every K/V dtype of the serving paths
+    (phi4-mini hd 128 and the smoke hd 16, pages of 4 and 16) and at bf16
+    hd 256, and equal tiles of a page where its two stages a warp would not
+    fit, so every page size runs: those the earlier kernel (a block per
+    slot and head, its page staged in fp32) took at its limits, and larger.
+    The plan is the CUDA source's, so this runs on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the shared-memory plan is in the "
+                    "CUDA source, built with nvcc")
     for esize in (4, 2, 1):
         for hd, P in ((128, 16), (16, 4), (16, 16)):
-            assert t_pa._warps(P, hd, esize) == 4, (esize, hd, P)
-    assert t_pa._warps(16, 256, 2) == 4
-    assert t_pa._warps(16, 256, 4) == 2
-    assert t_pa._warps(64, 128, 4) == 1
-    assert t_pa._warps(64, 256, 4) == 0
+            assert t_pa.tile_rows(P, hd, esize) == P, (esize, hd, P)
+    assert t_pa.tile_rows(16, 256, 2) == 16
+    assert t_pa.tile_rows(16, 256, 4) == 8
+    assert t_pa.tile_rows(64, 128, 4) == 22     # tiles of 22, 22 and 20
+    for P, hd in ((112, 256), (205, 128), (391, 69), (4096, 256)):
+        for esize in (4, 2, 1):
+            pt = t_pa.tile_rows(P, hd, esize)
+            tiles = -(-P // pt)
+            assert 1 <= pt <= P and -(-P // tiles) == pt, (P, hd, esize, pt)
+    assert t_pa.tile_rows(16, 257, 4) == 0
