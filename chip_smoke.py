@@ -20,9 +20,12 @@ Phases, each reported on its own line:
              fp32 hd-128 case), fp32 and bf16, with
              its time beside the plain version's, a library call's where one
              computes the same function, and its bound. Then the training
-             path's gradients: ``SSDScan`` (kernel forward, VJP of the
-             chunked twin) against autograd through ``ssd_chunked_ref`` on
-             the CPU, the backward's time at the training shape,
+             path's gradients: ``ssd_scan``'s backward kernels against
+             the closed form in plain PyTorch (a small and the training
+             shape, fp32 and bf16, bit-equal from run to run), ``SSDScan``
+             (forward and backward kernels) against autograd through
+             ``ssd_chunked_ref`` on the CPU, the backward's time at the
+             training shape,
              ``FlashAttention`` against the plain version's VJP on the CPU,
              one layer's attention core at phi4-mini's training cell timed
              through the kernel and through ``_causal_chunked`` at stride
@@ -435,9 +438,83 @@ def check_ssd(device, shapes, iters=10, dtypes=None):
     return rows
 
 
+def ssd_bwd_bound_ms(B, S, H, P, N, Q, esize):
+    """The backward's bound. Bytes: x and gy read and dx written in x's
+    dtype, dt read and ddt written in fp32, b and c read and db and dc
+    written once. Operations, per (batch, head, chunk): 2·Q·N·P each for
+    the chunk state (recomputed), the state cotangent, S_inᵀ·gy (dC and the
+    decay's state term), dS_outᵀ·u (dB) and dS_out·B (dx), and P·Q(Q+1)
+    each for the lower triangles of (G∘L)ᵀ·gy and gy·uᵀ; per (batch,
+    chunk) N·Q(Q+1) each for G and the head-summed dG times B and C; fp32
+    on the CUDA cores."""
+    nbytes = 3 * B * S * H * P * esize + 8 * B * S * H + 8 * H \
+        + 4 * B * S * N * esize
+    nc = S // Q
+    ops = float(3 * N * Q * (Q + 1)) * B * nc \
+        + float(10 * Q * N * P + 2 * P * Q * (Q + 1)) * B * H * nc
+    t_bytes, t_ops = nbytes / HBM_BW, ops / FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def check_ssd_backward(device, shapes, iters=5):
+    """``ssd_scan_backward`` (the backward kernels) against
+    ``ssd_scan_backward_plain`` (the closed form in plain PyTorch) on the
+    card, on the same inputs and cotangent, fp32 and bf16. Both sum in fp32
+    but in other orders, and the gradients of dt and a sum decays over
+    every token and chunk pair, with cancellation (~1e-5 of their largest
+    entry on the CPU's emulation of the kernels, ~3e-4 under a decay
+    stronger than the model's): each gradient within 1e-3 of its largest
+    entry; in bf16 dx, db and dc are rounded to bf16 after, so they are
+    held to one bf16 step (2^-7 relative) of their largest entry."""
+    import torch
+    from repro_torch.kernels import ssd_scan as mod
+    rows = []
+    for B, S, H, P, N, Q in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, dt, a, b, c = ssd_case(B, S, H, P, N, dtype, device, seed=4)
+            gy = torch.randn(x.shape, device=device,
+                             generator=torch.Generator(device).manual_seed(5)
+                             ).to(dtype)
+            got = mod.ssd_scan_backward(x, dt, a, b, c, gy, chunk=Q)
+            want = mod.ssd_scan_backward_plain(x, dt, a, b, c, gy, chunk=Q)
+            again = mod.ssd_scan_backward(x, dt, a, b, c, gy, chunk=Q)
+            torch.cuda.synchronize()
+            rel, errs = {}, {}
+            for name, g, w, g2 in zip(("x", "dt", "a", "b", "c"), got, want,
+                                      again):
+                assert g.dtype == w.dtype and g.shape == w.shape, name
+                assert torch.isfinite(g).all(), name
+                # no float atomics: a second run gives the same bits
+                assert torch.equal(g, g2), name
+                errs[name] = max_err(g, w)
+                rel[name] = errs[name] / float(w.float().abs().max())
+                tol = 2 ** -7 if dtype == torch.bfloat16 and name in "xbc" \
+                    else 1e-3
+                assert rel[name] <= tol, (B, S, H, P, N, Q, dtype, name,
+                                          rel[name], tol)
+            kern = timed(lambda: mod.ssd_scan_backward(x, dt, a, b, c, gy,
+                                                       chunk=Q),
+                         device, iters, warmup=1)
+            plain = timed(lambda: mod.ssd_scan_backward_plain(
+                x, dt, a, b, c, gy, chunk=Q), device, iters, warmup=1)
+            bound, by = ssd_bwd_bound_ms(B, S, H, P, N, Q, x.element_size())
+            name = "fp32" if dtype == torch.float32 else "bf16"
+            rows.append(dict(shape=(B, S, H, P, N, Q), dtype=name,
+                             max_abs_err=max(errs.values()), rel=rel,
+                             ms=kern, plain_ms=plain, library_ms=None,
+                             bound_ms=bound, bound_by=by))
+            print(f"ssd_scan_backward {name} B={B} S={S} H={H} P={P} N={N} "
+                  f"Q={Q}: max_abs_err / max|plain| "
+                  + " ".join(f"{k}={v:.3g}" for k, v in rel.items())
+                  + f" ms={kern:.4f} plain_ms={plain:.4f} library_ms=null "
+                  f"bound_ms={bound:.5f} ({by})")
+    return rows
+
+
 def check_ssd_grads(device, shape=(2, 256, 4, 64, 128, 128)):
-    """``SSDScan`` on the card (kernel forward, ``ssd_scan_backward``)
-    against autograd through the ``ssd_chunked_ref`` twin on the CPU, fp32.
+    """``SSDScan`` on the card (forward and backward kernels) against
+    autograd through the ``ssd_chunked_ref`` twin on the CPU, fp32.
     The decays are exps of differences of fp32 cumulative sums that reach
     ~10^2 over a chunk of 128 here, and the two devices sum them in other
     orders: y agrees to ~1e-5 of its largest entry (measured 1e-5), so y is
@@ -455,8 +532,10 @@ def check_ssd_grads(device, shape=(2, 256, 4, 64, 128, 128)):
     want = ref.ssd_chunked_ref(*cpu, chunk=Q)
     want_g = torch.autograd.grad(want, cpu, gy)
     dev = [t.to(device).requires_grad_(True) for t in ins]
+    before = mod.backward_launches
     got = mod.SSDScan.apply(*dev, Q)
     got_g = torch.autograd.grad(got, dev, gy.to(device))
+    assert mod.backward_launches == before + mod.BWD_PASSES
     rel = {"y": max_err(got.detach().cpu(), want.detach())
            / float(want.detach().abs().max())}
     for name, g, w in zip(("x", "dt", "a", "b", "c"), got_g, want_g):
@@ -469,8 +548,8 @@ def check_ssd_grads(device, shape=(2, 256, 4, 64, 128, 128)):
 
 
 def time_ssd_backward(device, shape=(4, 1024, 48, 64, 128, 128), iters=5):
-    """Milliseconds of one ``ssd_scan_backward`` (the VJP through the
-    chunked twin) at the training shape, fp32, and its peak extra memory."""
+    """Milliseconds of one ``ssd_scan_backward`` (the backward kernels) at
+    the training shape, fp32, and its peak extra memory."""
     import torch
     from repro_torch.kernels import ssd_scan as mod
     B, S, H, P, N, Q = shape
@@ -959,7 +1038,7 @@ def check_parity(device):
 
 
 COUNTERS = ("flash_attention", "int8_matmul", "paged_attention",
-            "quantize_rows", "ring_hop", "ssd_scan")
+            "quantize_rows", "ring_hop", "ssd_scan", "ssd_scan_backward")
 
 
 def _kernel_mods():
@@ -973,12 +1052,14 @@ def _kernel_mods():
 
 def reset_launches():
     """Zero every kernel's launch count (and the ring's hop and step counts,
-    ``paged_attention``'s merge launches, and ``flash_attention``'s,
-    ``int8_matmul``'s and ``ring_hop``'s counts per design)."""
+    ``paged_attention``'s merge launches, ``ssd_scan``'s backward launches,
+    and ``flash_attention``'s, ``int8_matmul``'s and ``ring_hop``'s counts
+    per design)."""
     from repro_torch.kernels import flash_attention, int8_matmul, \
-        paged_attention, ring_attention
+        paged_attention, ring_attention, ssd_scan
     for mod in _kernel_mods().values():
         mod.launches = 0
+    ssd_scan.backward_launches = 0
     paged_attention.merge_launches = 0
     ring_attention.hops_run = ring_attention.hops_skipped = 0
     ring_attention.steps_run = 0
@@ -989,9 +1070,11 @@ def reset_launches():
 
 def read_launches():
     """Launch counts since the last reset; ``paged_attention`` counts its
-    wrapper's calls, each of which also launched the merge pass once."""
-    from repro_torch.kernels import paged_attention
+    wrapper's calls, each of which also launched the merge pass once, and
+    ``ssd_scan_backward`` the launches of ``ssd_scan``'s backward passes."""
+    from repro_torch.kernels import paged_attention, ssd_scan
     out = {name: mod.launches for name, mod in _kernel_mods().items()}
+    out["ssd_scan_backward"] = ssd_scan.backward_launches
     assert paged_attention.merge_launches == out["paged_attention"], \
         (paged_attention.merge_launches, out)
     return out
@@ -1031,13 +1114,17 @@ def drop_int8_weights():
 
 def mamba_launches(cfg, knobs):
     """Kernel launches of one mamba2 training step without remat: every
-    layer's ``ssd_scan`` once; on the int8 rungs each of its three int8
-    projections once forward and once backward (the exact int32 sums the
-    scales' gradients need), and ``quantize_rows`` forward for its input
-    and weight and backward for both."""
+    layer's ``ssd_scan`` forward once (``FWD_PASSES`` launches) and its
+    backward once (``BWD_PASSES``); on the int8 rungs each of its three
+    int8 projections once forward and once backward (the exact int32 sums
+    the scales' gradients need), and ``quantize_rows`` forward for its
+    input and weight and backward for both."""
+    from repro_torch.kernels import ssd_scan
     L = cfg.n_layers
     int8 = knobs.matmul_precision == "int8"
-    return {"ssd_scan": L, "flash_attention": 0, "paged_attention": 0,
+    return {"ssd_scan": ssd_scan.FWD_PASSES * L,
+            "ssd_scan_backward": ssd_scan.BWD_PASSES * L,
+            "flash_attention": 0, "paged_attention": 0,
             "ring_hop": 0, "int8_matmul": 6 * L if int8 else 0,
             "quantize_rows": 12 * L if int8 else 0}
 
@@ -1052,8 +1139,8 @@ def attn_launches(cfg, knobs):
     both in the backward."""
     L = cfg.n_layers
     int8 = knobs.matmul_precision == "int8"
-    return {"ssd_scan": 0, "paged_attention": 0, "ring_hop": 0,
-            "flash_attention": 2 * L if knobs.kv_keep_stride <= 1 else 0,
+    return {"ssd_scan": 0, "ssd_scan_backward": 0, "paged_attention": 0,
+            "ring_hop": 0, "flash_attention": 2 * L if knobs.kv_keep_stride <= 1 else 0,
             "int8_matmul": 9 * L if int8 else 0,
             "quantize_rows": 18 * L if int8 else 0}
 
@@ -1139,7 +1226,8 @@ def serve_full(device, arch="phi4-mini-3.8b", requests=12, slots=8):
     assert {0, len(names) - 1} <= visited, (eng.swaps, names)
     assert launches["int8_matmul"] > 0 and launches["paged_attention"] > 0 \
         and launches["flash_attention"] == launches["ssd_scan"] \
-        == launches["ring_hop"] == 0, launches
+        == launches["ssd_scan_backward"] == launches["ring_hop"] == 0, \
+        launches
     print(f"serve {arch}: {res['tokens']} tokens, "
           f"tok_s={res['tok_s']:.2f} p50_ms={1e3 * res['p50_s']:.3f} "
           f"p99_ms={1e3 * res['p99_s']:.3f} swaps={eng.swaps} "
@@ -2186,6 +2274,8 @@ def main():
     # the token-drop rungs' batch rows: int8+drop12% keeps 3, int8+drop50% 2
     check_ssd(device, [(3,) + ssd_full[1:], (2,) + ssd_full[1:]],
               dtypes=(torch.float32,))
+    ssd_bwd_rows = check_ssd_backward(device, [(2, 64, 8, 16, 16, 16),
+                                               ssd_full])
     check_ssd_grads(device)
     ssd_bwd_ms = time_ssd_backward(device, ssd_full)
     check_int8_grads(device)
@@ -2207,7 +2297,10 @@ def main():
                                 if r["name"] == "cell-bf16"),
                "ssd_scan": next(r for r in ssd_rows
                                 if r["shape"] == ssd_full
-                                and r["dtype"] == "fp32")}
+                                and r["dtype"] == "fp32"),
+               "ssd_scan_backward": next(r for r in ssd_bwd_rows
+                                         if r["shape"] == ssd_full
+                                         and r["dtype"] == "fp32")}
     phase_done("kernels")
     check_parity(device)
     check_ring_parity(device)
@@ -2270,7 +2363,11 @@ def main():
               "ring_hop": ("src/repro_torch/csrc/ring_hop.cu",
                            "src/repro/kernels/ring_attention.py:113"),
               "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
-                           "src/repro/kernels/ssd_scan.py:62")}
+                           "src/repro/kernels/ssd_scan.py:62"),
+              # no Pallas call: the JAX package takes jax.grad of the
+              # chunked twin on its CPU path (the Pallas call has no VJP)
+              "ssd_scan_backward": ("src/repro_torch/csrc/ssd_scan.cu",
+                                    "src/repro/kernels/ref.py:99")}
     by_path = {name: {"serve": serve_launches[name],
                       "train": train_launches[name],
                       "train-attn": attn_train_launches[name],
