@@ -64,6 +64,20 @@ Phases, each reported on its own line:
              target tight enough that the Pliant runtime swaps variants,
              launch counters zeroed just before and read just after; then a
              ``request_variant`` walk timing decode steps per rung.
+   megastep  the same weights under the megastep (K 8; each megastep K
+             replays of one CUDA graph of the decode step): ``sample_token``
+             at temperature 0.7 on the card against the CPU on (8, 200064)
+             logits, the same tokens; on every rung the per-step and the
+             megastep engine serve the same 8 prompts of 128 tokens with
+             equal greedy streams, then a profiled window of each (wall and
+             device busy a token, busy share), one replayed body's time,
+             graphs captured and their seconds, dispatches a token; host
+             syncs in one replay, in the body run eagerly and in a steady
+             round (0 each); a swap precise -> int8+kvq8 with a megastep
+             in flight, streams equal to the per-step engine's under the
+             same swap; K 1 against K 8 at temperature 0.7; and the serve
+             run again under ``--megastep 8``, its launches counted as each
+             graph's capture times its replays.
 5. profile   ``torch.profiler`` over decode steps of a full batch per rung.
 6. train     the training slice at full width: ``repro_torch.launch.train``
              on mamba2-780m (48 layers, fp32 params, batch 4 x 1024 tokens,
@@ -1201,7 +1215,13 @@ def check_train_parity(device, arch="mamba2-780m-smoke", steps=3,
 
 # ------------------------------------------------------------- full width --
 
-def serve_full(device, arch="phi4-mini-3.8b", requests=12, slots=8):
+def serve_full(device, arch="phi4-mini-3.8b", requests=12, slots=8,
+               megastep=0):
+    """The serving slice at full width through ``launch/serve.py``; with
+    ``megastep`` K under ``--megastep K``. Returns ``serve.main``'s result and
+    the launches: the wrappers' counts, and under a megastep also the
+    replayed ones (each graph's launches at its capture times its
+    replays; the wrappers count the capture only)."""
     from repro_torch.launch import serve
     argv = ["--arch", arch, "--paged", "--dtype", "bf16",
             "--device", str(device), "--slots", str(slots),
@@ -1210,11 +1230,15 @@ def serve_full(device, arch="phi4-mini-3.8b", requests=12, slots=8):
             "--prompt-len", "64", "--prompt-len-max", "400",
             "--max-new", "16", "--qos-target", "0.001",
             "--decision-interval", "0", "--min-samples", "4"]
+    tag = f"serve {arch}"
+    if megastep:
+        argv += ["--megastep", str(megastep)]
+        tag += f" --megastep {megastep}"
     drop_int8_weights()
     reset_launches()
     res = serve.main(argv)
     launches = read_launches()
-    int8_designs(f"serve {arch}")
+    int8_designs(tag)
     eng, reqs = res["engine"], res["requests"]
     vocab = eng.cfg.vocab_size
     assert all(r.done and len(r.out) == r.max_new for r in reqs), \
@@ -1228,11 +1252,28 @@ def serve_full(device, arch="phi4-mini-3.8b", requests=12, slots=8):
         and launches["flash_attention"] == launches["ssd_scan"] \
         == launches["ssd_scan_backward"] == launches["ring_hop"] == 0, \
         launches
-    print(f"serve {arch}: {res['tokens']} tokens, "
+    print(f"{tag}: {res['tokens']} tokens, "
           f"tok_s={res['tok_s']:.2f} p50_ms={1e3 * res['p50_s']:.3f} "
           f"p99_ms={1e3 * res['p99_s']:.3f} swaps={eng.swaps} "
           f"launches={launches}")
-    return res, launches
+    if not megastep:
+        return res, launches
+    # the card's launches: the wrappers' eager ones (admission, warm-ups),
+    # and each graph's launches at its capture times its replays in place
+    # of the capture itself
+    replayed = eng.replayed_launches()
+    on_card = dict(launches)
+    for k, n in replayed.items():
+        captured = sum(g["launches"][k] for g in eng.graph_log)
+        assert n > 0 and captured > 0, (k, replayed, eng.graph_log)
+        on_card[k] += n - captured
+    print(f"{tag}: graphs {len(eng.graph_log)} (variants "
+          f"{[g['variant'] for g in eng.graph_log]}), capture "
+          f"{sum(g['capture_s'] for g in eng.graph_log):.3f} s, replays "
+          f"{sum(g['replays'] for g in eng.graph_log)}, launches replayed "
+          f"(captured x replays) {replayed}, launches on the card "
+          f"{on_card}")
+    return res, on_card
 
 
 def rung_walk(res, device, batch=8, prompt_len=128, max_new=16):
@@ -1321,6 +1362,241 @@ def profile_rungs(res, device, batch=8, prompt_len=128, steps=8):
         print(f"profile {name}: paged_attention's kernels "
               f"{paged / 1e3 / steps:.3f} ms/step "
               f"({paged / 1e3 / steps / busy:.3f} of busy)")
+
+
+# ------------------------------------------------------------- megastep --
+
+MEGA_K = 8                    # the megastep phase's K
+
+
+def mega_engine(src, device, rung, k=MEGA_K, **kw):
+    """An engine on the full-width weights of the serve run's engine ``src``
+    (8 slots, max_len 1024, page 16, chunk 128, all 8 admissions in one
+    step) on rung ``rung``: megastep K ``k``, per-step for 0."""
+    from repro_torch.serve.engine import ServeEngine
+    eng = ServeEngine(src.cfg, batch_slots=8, max_len=1024,
+                      params=src.params, table=src.table, prefill_chunk=128,
+                      page_size=16, cache_dtype=src.cache_dtype,
+                      device=device, max_admission_chunks=8, megastep_k=k,
+                      **kw)
+    eng.request_variant(rung)
+    return eng
+
+
+def mega_prompts(vocab, n=8, length=128, seed=4):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [list(map(int, rng.integers(1, vocab, length))) for _ in range(n)]
+
+
+def serve_streams(eng, prompts, max_new, swap=None, clear_at=0):
+    """Serve ``prompts`` to the end; ``swap`` = (tokens, rung): ask for
+    ``rung`` once every request holds ``tokens`` tokens, counting those of
+    a megastep in flight (the swap lands it first), and nothing is
+    admitting; asserted, so the swap lands at the same token on every
+    engine. ``clear_at`` > 0: empty the int8 weight cache after that step,
+    as a swap of another engine on the same weights does (a megastep
+    engine must recapture). Returns the streams."""
+    from repro_torch.serve.engine import Request
+    reqs = [Request(i, prompt=list(p), max_new=max_new)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    steps = 0
+    while not eng.idle:
+        eng.step()
+        steps += 1
+        if steps == clear_at:
+            drop_int8_weights()
+        flying = eng._inflight["k"] if eng._inflight else 0
+        if swap and all(r.out for r in reqs) \
+                and min(len(r.out) for r in reqs) + flying >= swap[0]:
+            assert not eng._admissions and not eng._await_admit
+            assert bool(eng.megastep_k) == bool(flying)
+            eng.request_variant(swap[1])
+            assert [len(r.out) for r in reqs] == [swap[0]] * len(reqs), \
+                [len(r.out) for r in reqs]
+            swap = None
+    assert all(r.done and len(r.out) == max_new for r in reqs)
+    return [r.out for r in reqs]
+
+
+def decode_window(eng, rounds):
+    """``rounds`` engine steps of a full batch under ``torch.profiler`` (the
+    card's activity only): wall and device-busy ms a token of a row (a
+    decode step's worth), stream syncs, and tokens emitted."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(e):
+        return (getattr(e, "self_device_time_total", None)
+                or getattr(e, "self_cuda_time_total", 0))
+    tokens0 = sum(len(r.out) for r in eng.slots if r is not None)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    steps = (sum(len(r.out) for r in eng.slots if r is not None)
+             - tokens0) / eng.batch_slots
+    assert steps > 0 and all(r is not None for r in eng.slots), steps
+    busy = sum(dev_us(e) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return dict(wall_ms=1e3 * wall / steps, busy_ms=busy / steps,
+                share=busy / (1e3 * wall), steps=steps)
+
+
+def check_sampling(device, vocab=200064, B=8):
+    """``lm.sample_token`` at temperature 0.7 on the card and on the CPU on
+    the same (B, vocab) fp32 logits and (seed, uid, draw): the same tokens
+    (threefry is integer arithmetic and ``xla_log`` fp32 / fp64 IEEE ops,
+    so both devices compute the same Gumbels); greedy too. Also the
+    sampler's time on the card a call."""
+    import numpy as np
+    import torch
+    from repro_torch.models import lm
+    rng = np.random.default_rng(9)
+    logits = torch.from_numpy(
+        (rng.standard_normal((B, vocab)) * 3).astype(np.float32))
+    uids = torch.from_numpy(rng.integers(0, 2 ** 31 - 1, B).astype(np.int32))
+    draws = torch.tensor([0, 1, 2, 7, 15, 2 ** 16, 99_999, 3][:B],
+                         dtype=torch.int32)
+    on_card = [t.to(device) for t in (logits, uids, draws)]
+    for temperature in (0.7, 0.0):
+        got = lm.sample_token(*on_card, temperature=temperature, seed=11)
+        want = lm.sample_token(logits, uids, draws, temperature=temperature,
+                               seed=11)
+        assert got.cpu().tolist() == want.tolist(), (temperature, got, want)
+    ms = timed(lambda: lm.sample_token(*on_card, temperature=0.7, seed=11),
+               device)
+    print(f"megastep sampling: sample_token on {device} == cpu at "
+          f"temperature 0.7 and greedy ({B} x {vocab}); threefry draw "
+          f"{ms:.3f} ms a call")
+
+
+def check_megastep_syncs(eng):
+    """Host waits for the stream (``host_syncs``) in one replay of the
+    engine's captured body, in the body run eagerly on rows that are all
+    dead, and in one steady megastep round: 0 each."""
+    import torch
+    g = eng._graph
+    step = eng._megastep_fn(1)
+    dead = [torch.zeros_like(t) for t in eng._state]
+    eng._col.zero_()
+    syncs = dict(replay=host_syncs(lambda: g.graph.replay()),
+                 eager_body=host_syncs(
+                     lambda: step(eng.params, *dead, eng.caches)),
+                 round=host_syncs(eng.step))
+    print(f"megastep host syncs: {syncs}")
+    assert syncs == dict(replay=0, eager_body=0, round=0), syncs
+    return syncs
+
+
+def megastep_rungs(res, device, max_new=33, rounds=3):
+    """On every rung: the per-step engine and the megastep engine (K 8, a
+    replayed CUDA graph) serve the same 8 prompts of 128 tokens; their
+    greedy streams must be equal token for token, the int8 weight cache
+    emptied after the megastep engine's third round with a megastep in
+    flight (on the int8 rungs its graph is recaptured: two captures; the
+    precise graph holds no int8 weight, the cache is empty, one capture).
+    Then a full batch of
+    each, profiled over a window of decode (wall and device busy a token,
+    busy share), the graphs captured and their seconds, dispatches a
+    token. Returns the rows."""
+    import numpy as np
+    src = res["engine"]
+    prompts = mega_prompts(src.cfg.vocab_size)
+    rows = {}
+    for rung, name in enumerate(res["names"]):
+        drop_int8_weights()
+        per = mega_engine(src, device, rung, k=0)
+        a = serve_streams(per, prompts, max_new)
+        mega = mega_engine(src, device, rung)
+        b = serve_streams(mega, prompts, max_new, clear_at=3)
+        assert a == b, (name, [sum(x != y for x, y in zip(p, q))
+                               for p, q in zip(a, b)])
+        int8 = mega.active_knobs.matmul_precision == "int8"
+        assert len(mega.graph_log) == 1 + int8, mega.graph_log
+        full = [w for w in mega.step_latencies[1:]]
+        step_ms = 1e3 * float(np.median(per.step_latencies))
+        tok_ms = 1e3 * float(np.median(full)) / MEGA_K
+        # profiled windows of a full batch, past admission and capture
+        win = {}
+        for kind, k in (("per-step", 0), ("megastep", MEGA_K)):
+            eng = mega_engine(src, device, rung, k=k)
+            from repro_torch.serve.engine import Request
+            for i, p in enumerate(prompts):
+                eng.submit(Request(i, prompt=list(p), max_new=8 * MEGA_K))
+            while not (all(s is not None for s in eng.slots)
+                       and (not k or eng._inflight is not None)):
+                eng.step()
+            eng.step()
+            win[kind] = decode_window(eng, rounds * (MEGA_K if not k else 1))
+            if k:
+                # a megastep's device work alone: K replays back to back
+                # (the token column reset first, as a dispatch does)
+                g = eng._graph
+
+                def flight():
+                    eng._col.zero_()
+                    for _ in range(MEGA_K):
+                        g.graph.replay()
+                win["graph_ms"] = timed(flight, device) / MEGA_K
+                if rung == 0:
+                    check_megastep_syncs(eng)
+        cap = mega.graph_log
+        rows[name] = dict(
+            per_step_ms=step_ms, mega_tok_ms=tok_ms, win=win,
+            graphs=len(cap), capture_s=sum(g["capture_s"] for g in cap),
+            dispatches_a_token=mega.row_dispatches / mega.row_tokens,
+            tokens=sum(map(len, b)))
+        print(f"megastep {name}: streams equal ({rows[name]['tokens']} "
+              f"tokens); median per-step {step_ms:.3f} ms a token, megastep "
+              f"{tok_ms:.3f} ms a token (flight wall / {MEGA_K}); window "
+              f"per-step wall {win['per-step']['wall_ms']:.3f} / busy "
+              f"{win['per-step']['busy_ms']:.3f} ms ({win['per-step']['share']:.3f}), "
+              f"megastep wall {win['megastep']['wall_ms']:.3f} / busy "
+              f"{win['megastep']['busy_ms']:.3f} ms ({win['megastep']['share']:.3f}), "
+              f"replayed alone {win['graph_ms']:.3f} ms a token; "
+              f"graphs {len(cap)}, capture {rows[name]['capture_s']:.3f} s, "
+              f"dispatches/token {rows[name]['dispatches_a_token']:.3f}")
+    return rows
+
+
+def megastep_swap(res, device, max_new=20, at=9):
+    """A swap across ``kv_quant`` (and off the bf16 matmuls: precise ->
+    int8+kvq8) asked for with a megastep in flight, when every request
+    holds ``at`` tokens: the megastep engine's streams equal the per-step
+    engine's under the same swap."""
+    src = res["engine"]
+    prompts = mega_prompts(src.cfg.vocab_size, seed=5)
+    last = len(res["names"]) - 1
+    drop_int8_weights()
+    a = serve_streams(mega_engine(src, device, 0, k=0), prompts, max_new,
+                      swap=(at, last))
+    mega = mega_engine(src, device, 0)
+    b = serve_streams(mega, prompts, max_new, swap=(at, last))
+    assert a == b, [sum(x != y for x, y in zip(p, q)) for p, q in zip(a, b)]
+    assert mega.active_variant == last and \
+        {g["variant"] for g in mega.graph_log} == {0, last}, mega.graph_log
+    print(f"megastep swap precise -> {res['names'][last]} at token {at} "
+          f"with a megastep in flight: streams equal "
+          f"({sum(map(len, b))} tokens), graphs {len(mega.graph_log)}")
+
+
+def megastep_temperature(res, device, max_new=17):
+    """Temperature 0.7 on the full-width engine: K 1 and K 8 give the same
+    streams (the (seed, uid, draw) key does not see K)."""
+    src = res["engine"]
+    prompts = mega_prompts(src.cfg.vocab_size, seed=6)
+    outs = [serve_streams(mega_engine(src, device, 0, k=k, temperature=0.7,
+                                      seed=11), prompts, max_new)
+            for k in (1, MEGA_K)]
+    assert outs[0] == outs[1]
+    print(f"megastep temperature 0.7: K 1 == K {MEGA_K} streams "
+          f"({sum(map(len, outs[0]))} tokens)")
 
 
 def train_full(device, arch, steps, batch, seq, names, per_step,
@@ -2311,6 +2587,23 @@ def main():
     res, serve_launches = serve_full(device)
     rung_walk(res, device)
     phase_done("serve")
+    check_sampling(device)
+    megastep_rungs(res, device)
+    megastep_swap(res, device)
+    megastep_temperature(res, device)
+    drop_int8_weights()
+    mres, mega_launches = serve_full(device, megastep=MEGA_K)
+    print(f"serve under --megastep {MEGA_K}: tok_s {mres['tok_s']:.2f} "
+          f"(per-step {res['tok_s']:.2f}), p50 {1e3 * mres['p50_s']:.3f} ms "
+          f"(per-step {1e3 * res['p50_s']:.3f}), p99 "
+          f"{1e3 * mres['p99_s']:.3f} ms (per-step "
+          f"{1e3 * res['p99_s']:.3f}), rungs visited "
+          f"{sorted({0} | {v for _, v in mres['engine'].swaps})} (per-step "
+          f"{sorted({0} | {v for _, v in res['engine'].swaps})})")
+    del mres
+    drop_int8_weights()
+    torch.cuda.empty_cache()
+    phase_done("megastep")
     profile_rungs(res, device)
     phase_done("profile")
     del res
@@ -2369,6 +2662,7 @@ def main():
               "ssd_scan_backward": ("src/repro_torch/csrc/ssd_scan.cu",
                                     "src/repro/kernels/ref.py:99")}
     by_path = {name: {"serve": serve_launches[name],
+                      "serve-megastep": mega_launches[name],
                       "train": train_launches[name],
                       "train-attn": attn_train_launches[name],
                       "serve-ring": ring_launches[name]}

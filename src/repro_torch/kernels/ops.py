@@ -67,6 +67,12 @@ class _QuantizedMatmul(torch.autograd.Function):
 # dead storage's identity (the key's hash) from passing to a new one while
 # the entry exists.
 _weight_cache: dict = {}
+# quantisations made by ``cached_weight`` (a capture asserts it made none),
+# and a count of the times a cached int8 weight was dropped: a CUDA graph
+# holds the addresses of the entries it read, so a change of the count
+# retires it
+weight_cache_misses = 0
+weight_cache_drops = 0
 
 
 def quantize_weight(w):
@@ -79,14 +85,20 @@ def quantize_weight(w):
 
 def cached_weight(w):
     """``quantize_weight(w)``, made once for as long as ``w`` is unchanged."""
+    global weight_cache_misses, weight_cache_drops
     key = (StorageWeakRef(w.untyped_storage()), w.storage_offset(),
            tuple(w.shape), w.stride(), w.dtype)
     hit = _weight_cache.get(key)
     if hit is not None and hit[0] == w._version:
         return hit[1], hit[2]
     if hit is None:     # a new weight: drop the entries of dead ones
-        for k in [k for k in _weight_cache if k[0].expired()]:
+        dead = [k for k in _weight_cache if k[0].expired()]
+        for k in dead:
             del _weight_cache[k]
+        weight_cache_drops += len(dead)
+    else:
+        weight_cache_drops += 1
+    weight_cache_misses += 1
     w_t, w_s = quantize_weight(w)
     _weight_cache[key] = (w._version, w_t, w_s)
     return w_t, w_s
@@ -94,6 +106,8 @@ def cached_weight(w):
 
 def clear_weight_cache():
     """Drop every cached int8 weight (a swap away from the int8 rungs)."""
+    global weight_cache_drops
+    weight_cache_drops += len(_weight_cache)
     _weight_cache.clear()
 
 

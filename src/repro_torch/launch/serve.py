@@ -10,6 +10,9 @@ precise-first.
       --page-size 16 --prefill-chunk 128 --prompt-len 64 \
       --prompt-len-max 400 --max-new 16 --qos-target 0.001
 
+``--megastep K`` decodes up to K tokens a dispatch (on the card, K replays
+of one CUDA graph of the decode step; ``--sync-timing`` drains each
+megastep before the next dispatch, so token stamps time the compute).
 ``--qos-target 0`` disables control (pin a variant with ``--variant``);
 ``--device cpu`` runs the kernels' plain versions on the CPU. ``--mesh DxM``
 serves under a (data=D, model=M) mesh whose positions are all the one
@@ -93,7 +96,18 @@ def main(argv=None):
                    help="physical pages (0 = auto-size)")
     p.add_argument("--shared-prefix", type=int, default=0,
                    help="first N prompt tokens identical across requests")
-    p.add_argument("--eos-id", type=int, default=-1)
+    p.add_argument("--megastep", type=int, default=0,
+                   help="fuse up to K decode steps per dispatch (on-device "
+                        "sampling + EOS/budget stop masking, async double-"
+                        "buffered host loop; K replays of a CUDA graph on "
+                        "the card); 0 = one dispatch per token")
+    p.add_argument("--eos-id", type=int, default=-1,
+                   help="stop-token id; a request emitting it finishes "
+                        "early (-1 = generate max-new tokens)")
+    p.add_argument("--sync-timing", action="store_true",
+                   help="drain every megastep before dispatching the next: "
+                        "no pipeline overlap, but per-token stamps measure "
+                        "compute instead of dispatch enqueue")
     p.add_argument("--max-admission-chunks", type=int, default=4)
     p.add_argument("--qos-guard", type=float, default=0.25)
     p.add_argument("--admission-timeout", type=float, default=0.0)
@@ -136,9 +150,12 @@ def main(argv=None):
                       max_admission_chunks=args.max_admission_chunks,
                       qos_guard=args.qos_guard,
                       admission_timeout_s=args.admission_timeout,
-                      eos_id=args.eos_id, device=args.device, mesh=mesh)
+                      eos_id=args.eos_id, megastep_k=args.megastep,
+                      sync_timing=args.sync_timing, device=args.device,
+                      mesh=mesh)
     print(f"dispatch: {eng.explain_dispatch()}")
     print(f"dispatch: {eng.explain_prefill_dispatch()}")
+    print(f"dispatch: {eng.explain_megastep()}")
     if args.variant is not None:
         eng.set_variant(names.index(args.variant))
 
@@ -215,6 +232,16 @@ def main(argv=None):
           f"replenish_evictions={s['replenish_evictions']} "
           f"chunks/step max={max(chunks, default=0)} "
           f"budget_cap={args.max_admission_chunks}")
+    if args.megastep:
+        d_t = eng.row_dispatches / max(eng.row_tokens, 1)
+        print(f"megastep: k={args.megastep} "
+              f"decode_dispatches={eng.decode_dispatches} "
+              f"dispatches/token={d_t:.2f} "
+              f"drain_block_s={eng.drain_block_s:.3f}")
+        if eng.graph_log:
+            print(f"megastep graphs: captured={len(eng.graph_log)} "
+                  f"capture_s={sum(g['capture_s'] for g in eng.graph_log):.3f}"
+                  f" replays={sum(g['replays'] for g in eng.graph_log)}")
     if args.qos_target > 0:
         acts = [h["action"] for h in runtime.history if h["action"] != "hold"]
         print(f"qos: target={1e3 * args.qos_target:.1f}ms "

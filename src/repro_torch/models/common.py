@@ -140,12 +140,21 @@ def rope_freqs(head_dim: int, theta: float):
     return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
 
 
+# (head_dim, theta, device) -> the fp32 frequencies, copied to the device
+# once: a decode step captured in a CUDA graph copies nothing from the host
+_FREQS: dict = {}
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     """x: (..., S, H, hd); positions: broadcastable to (..., S). Half-split
     rotation; angles, sin and cos in fp32, the multiply in x's dtype."""
     hd = x.shape[-1]
-    freqs = torch.as_tensor(rope_freqs(hd, theta), dtype=torch.float32,
-                            device=x.device)
+    key = (hd, theta, x.device)
+    freqs = _FREQS.get(key)
+    if freqs is None:
+        freqs = torch.as_tensor(rope_freqs(hd, theta), dtype=torch.float32,
+                                device=x.device)
+        _FREQS[key] = freqs
     ang = positions[..., :, None, None].float() * freqs   # (..., S, 1, hd/2)
     sin = torch.sin(ang).to(x.dtype)
     cos = torch.cos(ang).to(x.dtype)

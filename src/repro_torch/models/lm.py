@@ -5,6 +5,13 @@ Counterpart of the JAX package's ``models/lm.py``; a Python loop over the
 layers takes the place of ``lax.scan`` over layer groups, and
 ``torch.utils.checkpoint`` the place of ``jax.checkpoint``.
 
+On the serving path ``sample_token`` and ``decode_megastep`` are the
+twins of the JAX package's on-device sampler and K-step megastep: the
+sampler keys its temperature draws by threefry (``models/threefry.py``),
+and the megastep's K steps are a Python loop over one body that updates
+its carry and the caches in place (the engine replays that body as a CUDA
+graph on the card).
+
 Parameters are a ``ParamTree`` with ``embed``, ``final_norm`` (and
 ``unembed`` when untied) and ``layers``: one block per layer in
 ``cfg.kinds()`` order. Caches keep the JAX layout: one ``PagedKVCache`` per
@@ -22,6 +29,7 @@ from repro_torch.approx.knobs import PRECISE, ApproxKnobs, keep_groups
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.blocks import block_decode, block_forward, block_specs
+from repro_torch.models import threefry
 from repro_torch.models.common import (ParamSpec, ParamTree, init_params,
                                        resolve_device, rms_norm, softcap)
 
@@ -180,3 +188,66 @@ def decode_step(params, tokens, position, caches, cfg: ModelConfig,
                             active=active)
     h = rms_norm(h, params.final_norm, cfg.norm_eps)
     return logits_fn(params, h[:, 0], cfg), caches
+
+
+def sample_token(logits, uids, draws, *, temperature: float = 0.0,
+                 seed: int = 0):
+    """On-device sampler under the ``(seed, uid, draw_index)`` contract.
+
+    logits: (B, V) fp32; uids/draws: (B,) int. Greedy argmax when
+    ``temperature <= 0``; otherwise the Gumbel-max categorical draw of
+    ``logits / temperature`` keyed by ``fold_in(fold_in(PRNGKey(seed),
+    uid), draw)``, the JAX package's bits. The key depends only on the
+    request and how many tokens it has emitted, not on the batch slot, the
+    megastep width or the dispatch grouping; it is made from the device
+    tensors with no generator state, so the sampler can be captured in a
+    graph. Returns (B,) int32."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    base = threefry.prng_key(seed, logits.device)
+    keys = threefry.fold_in(threefry.fold_in(base, uids), draws)
+    return threefry.categorical(keys, logits / temperature).to(torch.int32)
+
+
+def decode_megastep(params, cur, pos, alive, uids, draws, budget, caches,
+                    cfg: ModelConfig, knobs: ApproxKnobs = PRECISE, *,
+                    k: int, temperature: float = 0.0, seed: int = 0,
+                    eos_id: int = -1):
+    """K fused decode steps with on-device sampling and stop masking; the
+    host learns K tokens a row from one transfer.
+
+    cur: (B,) int32 current tokens (the token whose KV is written at
+    ``pos``); pos: (B,) int32 absolute positions; alive: (B,) bool live
+    rows (also ``decode_step``'s cache-write ``active``); uids/draws: (B,)
+    int32 sampler-stream coordinates; budget: (B,) int32 tokens each row
+    may still emit.
+
+    Each step a live row writes KV at ``pos``, samples the next token and
+    advances; a dead row is frozen (its carry untouched, its output the -1
+    sentinel; vocab ids are >= 0). Rows die on EOS (``eos_id >= 0``) or
+    when their budget runs out, so an EOS mid-megastep stops that row's
+    cache writes at once. A fully live row writes KV at positions up to
+    ``pos + k - 1``; the host maps those pages before the call
+    (``PagePool.ensure_decode_range``).
+
+    The carry (cur, pos, alive, draws, budget) and the caches are updated
+    in place. Returns ``(toks (B, K) int32, cur, pos, alive, draws,
+    budget, caches)``."""
+    toks = []
+    for _ in range(k):
+        logits, caches = decode_step(params, cur.long()[:, None], pos, caches,
+                                     cfg, knobs, active=alive)
+        tok = sample_token(logits, uids, draws, temperature=temperature,
+                           seed=seed)
+        out = torch.where(alive, tok, -1)
+        step1 = alive.to(torch.int32)
+        cur.copy_(torch.where(alive, tok, cur))
+        draws.add_(step1)
+        budget.sub_(step1)
+        pos.add_(step1)
+        live = alive & (budget > 0)
+        if eos_id >= 0:
+            live &= out != eos_id
+        alive.copy_(live)
+        toks.append(out)
+    return torch.stack(toks, dim=1), cur, pos, alive, draws, budget, caches

@@ -26,6 +26,21 @@ The engine runs on ``device`` (CUDA unless the caller asks for the CPU);
 on the card decode attention and the int8 matmuls are the hand-written
 kernels, on the CPU their plain versions. Caches update in place.
 
+With ``megastep_k`` > 0 the engine decodes in megasteps, the twin of the
+JAX package's megastep pipeline: one dispatch fuses up to K decode steps
+with on-device sampling (greedy, or threefry keyed by (seed, uid, draw))
+and EOS/budget stop masking, the carry (cur, pos, alive, uids, draws,
+budget) chains on the device between dispatches in static tensors, and
+the host loop is double-buffered: dispatch N+1 is issued before megastep N
+is drained. On the card a megastep of K is K back-to-back replays of one
+CUDA graph of the decode step per variant, each writing its token into
+column j of a (B, megastep_k) buffer, and the tokens reach the host
+through a pinned buffer and an event; on the CPU the same step runs K
+times eagerly. Graphs hold raw addresses, so a variant swap (the only place the caches
+are rebuilt) flushes the pipeline and drops every graph, and a graph whose
+cached int8 weights were dropped is recaptured before it could replay over
+freed memory.
+
 With a ``mesh`` (``launch.mesh.Mesh``, every position on ``device``),
 admission chunks run their attention as a sequence ring when
 ``dist.sharding.prefill_plan`` finds a layout for the chunk length
@@ -39,7 +54,7 @@ from __future__ import annotations
 import collections
 import time
 from dataclasses import dataclass, field
-from typing import Deque, Dict, List, Optional, Tuple
+from typing import Deque, Dict, List, NamedTuple, Optional, Set, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +66,7 @@ from repro_torch.core.controller import headroom_burst
 from repro_torch.core.runtime import PliantRuntime
 from repro_torch.core.variants import VariantTable
 from repro_torch.dist.sharding import prefill_plan
+from repro_torch.kernels import int8_matmul, paged_attention, quantize_rows
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import lm
@@ -58,6 +74,16 @@ from repro_torch.models.common import resolve_device
 from repro_torch.serve import pages as pages_mod
 from repro_torch.serve import prefill as prefill_mod
 from repro_torch.serve import slots as slots_mod
+from repro_torch.train import step as step_mod
+
+# the kernels a decode step can launch: a graph's capture counts their
+# launches once, and each replay launches them again
+_DECODE_KERNELS = {"paged_attention": paged_attention,
+                   "int8_matmul": int8_matmul, "quantize_rows": quantize_rows}
+
+
+def _decode_launches() -> Dict[str, int]:
+    return {name: mod.launches for name, mod in _DECODE_KERNELS.items()}
 
 
 @dataclass
@@ -100,6 +126,26 @@ class _Admission:
     started: bool = False        # first chunk issued (queue-wait ends then)
 
 
+class _Carry(NamedTuple):
+    """The megastep's device carry, in ``make_paged_megastep``'s argument
+    order: (B,) int32 but ``alive`` (bool)."""
+    cur: torch.Tensor
+    pos: torch.Tensor
+    alive: torch.Tensor
+    uids: torch.Tensor
+    draws: torch.Tensor
+    budget: torch.Tensor
+
+
+@dataclass
+class _MegastepGraph:
+    """One variant's captured megastep body (one decode step, its token
+    written into column ``_col`` of the token buffer)."""
+    graph: object                 # torch.cuda.CUDAGraph
+    drops: int                    # ops.weight_cache_drops at capture
+    stats: dict                   # variant, capture_s, launches, replays
+
+
 @dataclass
 class ServeEngine:
     cfg: ModelConfig
@@ -123,7 +169,19 @@ class ServeEngine:
     admission_timeout_s: float = 0.0   # 0 = wait forever
     backoff_base: int = 1              # steps before retrying a pool-blocked
     backoff_cap: int = 8               # request; doubles per failure, capped
-    eos_id: int = -1                   # stop-token id (-1 = none)
+    eos_id: int = -1                   # stop-token id (-1 = none): a row
+                                       # emitting it finishes early, on the
+                                       # device mid-megastep or on the host
+                                       # in the per-step path
+    megastep_k: int = 0                # > 0: fuse up to K decode steps per
+                                       # dispatch (on-device sampling, EOS/
+                                       # budget stop masking, async double-
+                                       # buffered host loop; a replayed CUDA
+                                       # graph on the card). 0 = per-step
+    sync_timing: bool = False          # drain each megastep before
+                                       # dispatching the next: no pipeline
+                                       # overlap, but per-token stamps
+                                       # measure compute, not enqueue
     device: object = "cuda"
     mesh: object = None                # launch.mesh.Mesh: ring admission
 
@@ -162,6 +220,29 @@ class ServeEngine:
                              and set(self.cfg.pattern) <= {LOCAL_ATTN}
                              else 0)
         self.cur_tokens = np.zeros(self.batch_slots, np.int32)
+        # ---- megastep pipeline state (megastep_k > 0) ----
+        self._megasteps: Dict[Tuple[int, int], object] = {}  # (variant, k)
+        self._graph: Optional[_MegastepGraph] = None  # the active
+                                       # variant's, on the card
+        self.graph_log: List[dict] = []   # every capture's stats
+        self._inflight: Optional[dict] = None  # dispatched, undrained
+        self._carry: Optional[_Carry] = None   # the device carry while it
+                                       # holds the rows; None = cold-start
+                                       # from the host mirrors
+        self._inject_slots: Set[int] = set()   # slots (re)activated since
+                                       # the last dispatch: their carry rows
+                                       # merge from the host
+        self._uids = np.zeros(self.batch_slots, np.int32)  # sampler stream
+        self._pos_ub = np.zeros(self.batch_slots, np.int32)  # exclusive ub
+                                       # on positions in-flight megasteps
+                                       # may write (page pre-map horizon)
+        self.decode_dispatches = 0     # decode steps / megasteps dispatched
+        self.row_dispatches = 0        # a row drained with n >= 1 tokens
+        self.row_tokens = 0            # adds (1, n): dispatches/token is
+                                       # 1.0 per-step, ~1/K under megasteps
+        self.drain_block_s = 0.0       # wall spent blocked at drain points
+        if self.megastep_k:
+            self._init_megastep_buffers()
         self.step_latencies: List[float] = []
         self.swaps: List[Tuple[int, int]] = []   # (step index, variant index)
         self.step_admission_chunks: List[Tuple[int, int]] = []  # (used, budget)
@@ -201,14 +282,38 @@ class ServeEngine:
         return self._prefill_plan is not None
 
     def explain_dispatch(self) -> str:
-        """One-line decode dispatch description (startup banner)."""
+        """One-line decode dispatch description (startup banner);
+        ``megastep_k`` > 0 notes that the decode step runs inside a fused
+        K-token megastep (the attention dispatch is the same each step)."""
         where = (f"{self.device}, single device (decode is not sharded "
                  "over the mesh)" if self.mesh is not None
                  else f"{self.device}")
+        mega = ""
+        if self.megastep_k > 0:
+            mega = (f", inside a fused {self.megastep_k}-token megastep "
+                    + ("replayed as a CUDA graph" if self.device.type ==
+                       "cuda" else "run eagerly"))
         if self.device.type == "cuda":
             return ("paged decode: fused CUDA paged_attention kernel, "
-                    f"int8_matmul on int8 rungs, {where}")
-        return f"paged decode: plain PyTorch versions of the kernels, {where}"
+                    f"int8_matmul on int8 rungs, {where}{mega}")
+        return ("paged decode: plain PyTorch versions of the kernels, "
+                f"{where}{mega}")
+
+    def explain_megastep(self) -> str:
+        """One-line megastep/pipeline description (startup banner)."""
+        if self.megastep_k <= 0:
+            return "megastep: off (one decode dispatch per token)"
+        samp = ("greedy argmax" if self.temperature <= 0.0 else
+                "temperature categorical, (seed,uid,draw) threefry fold-in "
+                f"seed={self.seed}")
+        how = ("one CUDA graph of the decode step per variant, replayed K "
+               "times" if self.device.type == "cuda" else
+               "the decode step run K times eagerly")
+        return (f"megastep: up to {self.megastep_k} tokens fused per "
+                f"dispatch ({how}), on-device {samp} + EOS/budget stop "
+                "masking, caches updated in place, "
+                + ("sync-timing drain (no overlap)" if self.sync_timing
+                   else "async double-buffered host pipeline"))
 
     def explain_prefill_dispatch(self) -> str:
         """One-line chunked-prefill dispatch description (startup banner)."""
@@ -231,6 +336,11 @@ class ServeEngine:
         dropping the cached int8 weights when it leaves the int8 matmuls."""
         if idx == self._active:
             return
+        # the graphs hold the addresses of the caches and of the cached
+        # int8 weights that a swap may free: land the in-flight megastep
+        # first, then drop them all (the next dispatch recaptures)
+        self._drain_pipeline()
+        self._graph = None
         old, new = self.active_knobs, self._variant_knobs[idx]
         if old.kv_quant != new.kv_quant:
             self.caches = slots_mod.convert_caches(
@@ -280,6 +390,16 @@ class ServeEngine:
             self.cfg, self.batch_slots, sp.n_pages, sp.page_size,
             sp.max_pages, dtype=self.cache_dtype, quantized=quantized,
             device=self.device)
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device. On the card the copy goes
+        through pinned memory without blocking the host (a pageable copy
+        would wait for the stream, stalling the megastep pipeline); the
+        pinned block is not reused before the copy has run."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     def _rng_for(self, req: Request) -> np.random.Generator:
         g = self._rngs.get(req.uid)
@@ -340,10 +460,10 @@ class ServeEngine:
     def _push_blocks(self) -> None:
         """Mirror the host block tables into the device caches and scrub
         freed pages' stale positions before they can be reused."""
-        bt = torch.tensor(self.pool.blocks, device=self.device)
+        bt = self._to_device(self.pool.blocks)
         scrub = self.pool.drain_scrub()
-        pids = (torch.tensor(scrub, dtype=torch.long, device=self.device)
-                if scrub else None)
+        pids = (self._to_device(np.asarray(scrub, np.int64)) if scrub
+                else None)
         for c in self.caches:
             if pids is not None:
                 c.ppos[:, pids] = -1
@@ -497,7 +617,9 @@ class ServeEngine:
             req = adm.req
             t0 = time.perf_counter()
             logits = adm.logits.cpu().numpy()        # <- the drain
-            adm.compute_s += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            adm.compute_s += dt
+            self.drain_block_s += dt
             del self._await_admit[slot]
             tok = int(self._sample_rows(logits, [req])[0])
             now = time.perf_counter()
@@ -514,7 +636,11 @@ class ServeEngine:
                 continue
             self.positions[slot] = len(req.prompt)
             self.cur_tokens[slot] = tok
+            self._uids[slot] = req.uid
+            self._pos_ub[slot] = len(req.prompt)
             self.slots[slot] = req
+            if self.megastep_k:
+                self._inject_slots.add(slot)
         if freed:
             self._push_blocks()
 
@@ -534,13 +660,291 @@ class ServeEngine:
             return torch.argmax(logits, dim=-1).to(torch.int32)
         return logits
 
+    # ------------------------------------------------------------ megastep --
+
+    def _megastep_budget(self) -> int:
+        """Decode tokens the next megastep may fuse: K as a Pliant-visible
+        knob, bounded by the same guard band as ``_chunk_budget`` but
+        pulling the other way: a large K amortises dispatch (throughput), a
+        small K keeps admission interleaving fine-grained and lets a variant
+        swap or reclaim take effect within one token instead of K. With
+        admission work pending the megastep shrinks to 1 unless the monitor
+        shows measured headroom; with nothing to interleave, full K. Queued
+        work that cannot start (every slot taken, nothing in flight) is not
+        admission work."""
+        cap = max(1, self.megastep_k)
+        admitting = bool(self._admissions or self._await_admit)
+        can_start = bool(self.pending) and any(
+            self.slots[i] is None and i not in self._admissions
+            and i not in self._await_admit
+            for i in range(self.batch_slots))
+        if not (admitting or can_start):
+            return cap
+        if headroom_burst(self.runtime, self.qos_guard):
+            return cap
+        return 1
+
+    def _init_megastep_buffers(self) -> None:
+        """The static tensors the megastep reads and writes: the carry, and
+        on the card the (B, megastep_k) token buffer with its column
+        counter, two pinned host buffers and their events (megastep N's
+        tokens are copied into buffer N % 2 and drained before N + 2)."""
+        B, dev = self.batch_slots, self.device
+
+        def zeros(dtype):
+            return torch.zeros(B, dtype=dtype, device=dev)
+        self._state = _Carry(zeros(torch.int32), zeros(torch.int32),
+                             zeros(torch.bool), zeros(torch.int32),
+                             zeros(torch.int32), zeros(torch.int32))
+        if dev.type == "cuda":
+            self._toks = torch.zeros((B, self.megastep_k), dtype=torch.int32,
+                                     device=dev)
+            self._col = torch.zeros(1, dtype=torch.int64, device=dev)
+            self._host_toks = [torch.zeros((B, self.megastep_k),
+                                           dtype=torch.int32,
+                                           pin_memory=True)
+                               for _ in range(2)]
+            self._events = [torch.cuda.Event() for _ in range(2)]
+
+    def _megastep_fn(self, k: int):
+        """The K-step megastep of the ACTIVE variant, made once per
+        (variant, K)."""
+        key = (self._active, k)
+        fn = self._megasteps.get(key)
+        if fn is None:
+            fn = step_mod.make_paged_megastep(
+                self.cfg, self.active_knobs, k=k,
+                temperature=self.temperature, seed=self.seed,
+                eos_id=self.eos_id)
+            self._megasteps[key] = fn
+        return fn
+
+    def _megastep_graph(self) -> _MegastepGraph:
+        """The active variant's graph, captured at first use and again when
+        a cached int8 weight was dropped since the capture (by a swap of
+        any engine sharing the weights): the graph holds its address."""
+        if self._graph is None or \
+                self._graph.drops != kops.weight_cache_drops:
+            self._graph = self._capture_megastep()
+        return self._graph
+
+    def _capture_megastep(self) -> _MegastepGraph:
+        """Capture one megastep body (``make_paged_megastep(k=1)`` on the
+        static carry, its token written into column ``_col``). A warm-up
+        on a side stream first runs the body with every row dead (their
+        cache writes land on the never-read null page): it builds and
+        loads the kernels, quantises the int8 weights into the weight
+        cache and grants the kernels' shared memory, so nothing is
+        allocated for a weight or set up during the capture. A capture
+        that fails raises; nothing falls back."""
+        dev = self.device
+        step = self._megastep_fn(1)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            step(self.params, *(torch.zeros_like(t) for t in self._state),
+                 self.caches)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        misses, before = kops.weight_cache_misses, _decode_launches()
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            toks = step(self.params, *self._state, self.caches)[0]
+            self._toks.index_copy_(1, self._col, toks)
+            self._col.add_(1)
+        if kops.weight_cache_misses != misses:
+            raise RuntimeError(
+                "megastep capture quantised an int8 weight: the warm-up "
+                "left the weight cache incomplete")
+        after = _decode_launches()
+        stats = dict(variant=self._active,
+                     capture_s=time.perf_counter() - t0, replays=0,
+                     launches={n: after[n] - before[n] for n in after})
+        self.graph_log.append(stats)
+        return _MegastepGraph(graph, kops.weight_cache_drops, stats)
+
+    def replayed_launches(self) -> Dict[str, int]:
+        """Kernel launches of the replayed megasteps: each graph's launches
+        counted at its capture times its replays (the wrappers' counters
+        see only the capture)."""
+        out = dict.fromkeys(_DECODE_KERNELS, 0)
+        for g in self.graph_log:
+            for name, n in g["launches"].items():
+                out[name] += n * g["replays"]
+        return out
+
+    def _merge_carry(self, alive_host: np.ndarray) -> None:
+        """Write the host mirrors into the static carry: every row on a cold
+        start, else the slots (re)activated since the last dispatch (rows
+        die on the device, so only activations need merging)."""
+        cold = self._carry is None
+        rows = range(self.batch_slots) if cold else self._inject_slots
+        if not rows:
+            return
+        h = np.zeros((7, self.batch_slots), np.int32)
+        for i in rows:
+            h[:3, i] = (1, self.cur_tokens[i], self.positions[i])
+            h[4, i] = self._uids[i]
+            if alive_host[i]:
+                req = self.slots[i]
+                h[3, i] = 1
+                h[5:, i] = (len(req.out), req.max_new - len(req.out))
+        d = self._to_device(h)
+        m = d[0].bool()
+        for t, v in zip(self._state, d[1:]):
+            t.copy_(torch.where(m, v.to(t.dtype), t))
+        self._carry = self._state
+
+    def _launch_megastep(self, k: int):
+        """Run K decode steps on the carry. CPU: the K-step megastep, its
+        (B, K) tokens. Card: K replays of the variant's graph, then an
+        asynchronous copy of the token buffer into pinned host buffer
+        N % 2 and an event; returns (host buffer, event, graph), the graph
+        kept alive until the drain."""
+        if self.device.type != "cuda":
+            return self._megastep_fn(k)(self.params, *self._state,
+                                        self.caches)[0]
+        g = self._megastep_graph()
+        self._col.zero_()
+        for _ in range(k):
+            g.graph.replay()
+        g.stats["replays"] += k
+        n = self.decode_dispatches % 2
+        self._host_toks[n].copy_(self._toks, non_blocking=True)
+        self._events[n].record()
+        return self._host_toks[n], self._events[n], g
+
+    def _dispatch_megastep(self) -> Optional[dict]:
+        """Dispatch ONE fused K-step decode over the live slots without
+        waiting for it: pre-map every page the cursors can reach, merge
+        newly activated slots into the device carry, and return the flight
+        record the drain consumes (None when no slot is decoding)."""
+        rows = [i for i in range(self.batch_slots)
+                if self.slots[i] is not None]
+        if not rows:
+            # nothing alive: the device carry is stale; the next activation
+            # cold-starts from the host mirrors
+            self._carry = None
+            return None
+        k = self._megastep_budget()
+        # never run past the longest remaining budget
+        k = max(1, min(k, max(self.slots[i].max_new - len(self.slots[i].out)
+                              for i in rows)))
+        dirty = False
+        for i in rows:
+            req = self.slots[i]
+            # exclusive bound on the positions this row can ever write
+            # (decode writes KV at S .. S+max_new-2): _pos_ub ratchets by k a
+            # dispatch, the host's mirror of the device cursor, conservative
+            # while an earlier megastep is in flight
+            cap = len(req.prompt) + req.max_new - 1
+            ub = min(int(self._pos_ub[i]) + k, cap)
+            dirty |= self.pool.ensure_decode_range(
+                i, int(self.positions[i]), ub)
+            self._pos_ub[i] = ub
+        if dirty:
+            self._push_blocks()
+        t0 = time.perf_counter()
+        self._merge_carry(np.array([s is not None for s in self.slots]))
+        toks = self._launch_megastep(k)
+        self._inject_slots.clear()
+        self.decode_dispatches += 1
+        return dict(toks=toks, rows=[(i, self.slots[i]) for i in rows],
+                    k=k, t0=t0)
+
+    def _drain_megastep(self, flight: dict) -> None:
+        """THE decode drain point: one transfer surfaces up to K tokens a
+        row and the stop flags (the -1 sentinel). Per-token times
+        interpolate across the megastep wall, as the QoS monitor attributes
+        it (``LatencyMonitor.record_megastep``). Finished rows free their
+        slot and pages here."""
+        t0 = time.perf_counter()
+        if self.device.type == "cuda":
+            host, event, _ = flight["toks"]
+            event.synchronize()
+            toks = host[:, :flight["k"]].numpy()
+        else:
+            toks = flight["toks"].numpy()
+        now = time.perf_counter()
+        self.drain_block_s += now - t0
+        wall = now - flight["t0"]
+        self.step_latencies.append(wall)
+        freed = False
+        emitted: List[int] = []
+        for i, req in flight["rows"]:
+            if req.done:
+                continue   # died in an earlier flight; this row is all -1
+            n = 0
+            for t in toks[i]:
+                if t < 0:
+                    break  # the row died in the megastep: EOS or budget
+                n += 1
+                req.out.append(int(t))
+                self.cur_tokens[i] = int(t)
+                self.positions[i] += 1
+            if n:
+                emitted.append(n)
+                self.row_dispatches += 1
+                self.row_tokens += n
+                for j in range(n):
+                    req.token_times.append(
+                        flight["t0"] + wall * (j + 1) / n)
+            if len(req.out) >= req.max_new or (
+                    self.eos_id >= 0 and req.out
+                    and req.out[-1] == self.eos_id):
+                req.done = True
+                self.slots[i] = None        # slot freed: continuous batch
+                self._rngs.pop(req.uid, None)
+                freed |= self._free_slot(i)
+            elif self._window_free:
+                freed |= self.pool.release_window_pages(
+                    i, int(self.positions[i]) - self._window_free)
+        if freed:
+            self._push_blocks()
+        if self.runtime is not None and emitted:
+            self.runtime.monitor.record_megastep(wall, emitted)
+
+    def _drain_pipeline(self) -> None:
+        """Flush the double buffer before state surgery (a variant swap):
+        drain the in-flight megastep so its tokens land, and invalidate the
+        device carry; the next dispatch cold-starts from the host
+        mirrors."""
+        if self._inflight is not None:
+            self._drain_megastep(self._inflight)
+            self._inflight = None
+        self._carry = None
+
+    def _megastep_round(self) -> None:
+        """One engine step in megastep mode, the async double-buffered host
+        pipeline: advance admissions, dispatch megastep N+1, THEN drain
+        megastep N (the card works on N+1 while the host handles N's
+        tokens), drain completed admissions, tick control.
+        ``sync_timing`` drains each dispatch in its own round instead."""
+        prev, self._inflight = self._inflight, None
+        self._advance_admissions()
+        flight = self._dispatch_megastep()
+        if prev is not None:
+            self._drain_megastep(prev)    # dispatch order == drain order
+        if flight is not None and self.sync_timing:
+            self._drain_megastep(flight)
+            flight = None
+        self._inflight = flight
+        self._drain_admissions()
+        self.pool.replenish()
+        self._control_tick()
+
     def step(self) -> None:
-        """One engine step: the admission phase (open admissions on every
-        free slot, advance them under the QoS chunk budget), one decode for
-        every live slot (admitting slots ride along inactive), then the
-        single drain point and the Pliant control tick."""
+        """One engine step. Megastep (``megastep_k`` > 0): one round of the
+        async double-buffered pipeline (``_megastep_round``). Per-step: the
+        admission phase (open admissions on every free slot, advance them
+        under the QoS chunk budget), one decode for every live slot
+        (admitting slots ride along inactive), then the single drain point
+        and the Pliant control tick."""
         self.step_count += 1
         self._expire_pending()
+        if self.megastep_k > 0:
+            self._megastep_round()
+            return
         self._advance_admissions()
         # the decode row set is FIXED here: slots activated at this step's
         # admission drain join the next step's decode
@@ -557,8 +961,11 @@ class ServeEngine:
             self._push_blocks()
         t0 = time.perf_counter()
         out = self._decode(np.array([s is not None for s in self.slots]))
+        self.decode_dispatches += 1
         self._drain_admissions()
+        tb = time.perf_counter()
         out = out.cpu().numpy()
+        self.drain_block_s += time.perf_counter() - tb
         dt = time.perf_counter() - t0
         self.step_latencies.append(dt)
         now = time.perf_counter()
@@ -575,6 +982,8 @@ class ServeEngine:
             req.out.append(nxt)
             req.token_times.append(now)
             self.cur_tokens[i] = nxt
+            self.row_dispatches += 1
+            self.row_tokens += 1
             if len(req.out) >= req.max_new or (
                     self.eos_id >= 0 and nxt == self.eos_id):
                 req.done = True
@@ -610,7 +1019,7 @@ class ServeEngine:
         """Nothing to do: empty queue, no in-flight admissions, no active
         slots."""
         return (not self.pending and not self._admissions
-                and not self._await_admit
+                and not self._await_admit and self._inflight is None
                 and all(s is None for s in self.slots))
 
     def run(self, max_steps: int = 0) -> None:

@@ -1,6 +1,7 @@
 """The train step factory, parameterised by ``ApproxKnobs``. Counterpart of
 the JAX package's ``train/step.py`` (``make_train_step``) on one device: no
-mesh and no gradient-sync region.
+mesh and no gradient-sync region; and the serving engine's K-step
+megastep (``make_paged_megastep``).
 
 ``make_train_step(cfg, knobs, ...)`` returns one plain Python closure per
 approximate variant; the Pliant actuator (``core/variants``) keeps one per
@@ -53,4 +54,21 @@ def make_train_step(cfg: ModelConfig, knobs: ApproxKnobs = PRECISE, *,
                    for k, v in metrics.items()}
         return params, opt, dict(metrics, loss=loss, **opt_metrics)
 
+    return step
+
+
+def make_paged_megastep(cfg: ModelConfig, knobs: ApproxKnobs = PRECISE, *,
+                        k: int, temperature: float = 0.0, seed: int = 0,
+                        eos_id: int = -1):
+    """Returns step(params, cur, pos, alive, uids, draws, budget, caches)
+    -> (toks (B, K), cur, pos, alive, draws, budget, caches): K decode steps
+    with on-device sampling and stop masking (``lm.decode_megastep``). The
+    carry and the caches are updated in place, so the engine chains
+    megasteps on the device without a host sync between them, and a graph
+    captured over ``k=1`` replays on the same tensors."""
+
+    def step(params, cur, pos, alive, uids, draws, budget, caches):
+        return lm_mod.decode_megastep(
+            params, cur, pos, alive, uids, draws, budget, caches, cfg, knobs,
+            k=k, temperature=temperature, seed=seed, eos_id=eos_id)
     return step
