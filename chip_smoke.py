@@ -107,6 +107,31 @@ Phases, each reported on its own line:
              first-token logits gate, and a ``torch.profiler`` summary of
              the deepest full chunk on both paths.
 
+9. colocate  the colocation harness at full width,
+             ``repro_torch.launch.colocate``: phi4-mini-3.8b serving (32
+             layers, bf16, 8 slots, max_len 1024, page 16, 16 requests of
+             128 prompt and 32 new tokens, Poisson arrivals at 1.0 req/s)
+             and mamba2-780m training (48 layers, fp32 params and AdamW,
+             1 x 512 tokens, 8 duty-cycle quanta, a decision every 1 s)
+             on the one card, serially on one stream; first each training
+             rung's step time at that shape. Four runs on the same
+             weights, requests and seeds: (a) serve alone in a loop of
+             this script's, (b) precise colocation (QoS target 1000 s, no
+             action), (c) Pliant with the interference-aware arbiter and
+             (d) with round-robin, both at the geometric mean of (a)'s
+             and (b)'s p99. A line a run: token gaps p50 / p99 and
+             violation rate at that target, tok/s, wall, decode steps,
+             admission times, train steps, rungs, quality loss and final
+             loss, actions and what the monitor read, final variants,
+             pages and quanta reclaimed, int8 weight cache drops and
+             misses, device memory before, at peak and after; the streams
+             of (b) equal to (a)'s; launch counters zeroed just before
+             and read just after (c). Checks: every request done, train
+             steps in (b)-(d), no action in (b), in (c) and (d) decisions
+             made and an action for every one that read a violation,
+             the int8 kernels launched where (c) ran an int8 rung, the
+             four runs under ``COLO_BUDGET_S``.
+
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``. Any
 failure raises: the script then exits non-zero without the result line, as
@@ -2507,6 +2532,344 @@ def ring_cell(device, rungs=("precise", "int8+kvq8")):
     return report, total
 
 
+# -------------------------------------------------------------- colocate --
+
+# The colocation cell: phi4-mini-3.8b serving (bf16, 8 slots) and
+# mamba2-780m training (fp32, AdamW) on the one card under one arbiter,
+# through ``repro_torch.launch.colocate``. 1.0 req/s of 32-token requests
+# offers 32 tok/s, ~0.75 of the per-step serve run's rate. A lower rate
+# does not bring the serve-alone p99 near a decode step (it is a
+# first-token gap at any rate: a 128-token prompt admits in 8 chunks of
+# 16, one a step while decoders run), and the colocated runs are
+# admission-bound at every rate tried (0.3-1.0: ~110-160 turns, each with
+# a train step), so a lower rate only lengthens the runs.
+COLO_SERVE = ["--serve-arch", "phi4-mini-3.8b", "--dtype", "bf16",
+              "--slots", "8", "--max-len", "1024", "--page-size", "16",
+              "--prompt-len", "128", "--max-new", "32", "--requests", "16"]
+COLO_RATE = 1.0
+# A loop turn with a train step takes ~0.3-0.4 s, so a decision every
+# 0.1 s consumes the monitor's window every turn, before it holds
+# ``--slots`` samples (the batch runs ~4 rows): the monitor abstains and
+# the arbiter never acts. A 1 s interval (the simulator's) spans ~3 turns.
+COLO_TRAIN = ["--train-arch", "mamba2-780m", "--train-groups", "8",
+              "--decision-interval", "1.0"]
+# The step is host-bound at ~260-380 ms on every shape from 1 x 128 to
+# 2 x 512 tokens (7-11 serve decode steps), so the smallest shape that
+# still trains on full sequences is kept
+COLO_TRAIN_SHAPE = (1, 512)       # batch, seq
+COLO_BUDGET_S = 420.0             # the four runs together: 160-220 s on
+                                  # an H100, each colocated turn carrying
+                                  # a 0.26-0.54 s train step
+
+
+def colo_opt(flag):
+    """The value of ``flag`` in the cell's harness arguments."""
+    args = COLO_SERVE + COLO_TRAIN
+    return args[args.index(flag) + 1]
+
+
+def colocate_sizing(device, shapes, steps=4):
+    """Median ms of the train tenant's training step (fp32, seeded weights) at
+    each (batch, seq) of ``shapes`` on each rung of the ladder the harness
+    builds (``max_variants=3``), over the last ``steps - 1`` of ``steps``
+    steps: what a colocated token waits for when a train step runs before
+    it. Also warms the kernels and cuBLAS for the train tenant's shapes."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.explorer import explore
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.train import build_variant_steps
+    from repro_torch.models.lm import init_lm
+    from repro_torch.train import optim
+    cfg = get_config(colo_opt("--train-arch"))
+    out = {}
+    for batch, seq in shapes:
+        params = init_lm(cfg, 1, torch.float32, device)
+        opt = optim.init_opt(params)
+        table = explore(cfg, ShapeConfig("cli", seq, batch, "train"),
+                        serving=False, max_variants=3)
+        build_variant_steps(cfg, table, optim.OptConfig(
+            lr=1e-3, warmup=5, total_steps=1000))
+        src = SyntheticLM(DataConfig(cfg.vocab_size, seq, batch, seed=0))
+        row = {}
+        for i, v in enumerate(table.variants):
+            times = []
+            for k in range(steps):
+                tokens = torch.as_tensor(src.batch(k), device=device)
+                t0 = time.perf_counter()
+                params, opt, m = table.executable(i)(params, opt,
+                                                     {"tokens": tokens})
+                float(m["loss"])
+                times.append(time.perf_counter() - t0)
+            row[v.name] = 1e3 * float(np.median(times[1:]))
+        out[(batch, seq)] = row
+        print(f"colocate sizing: {cfg.name} train step at {batch} x {seq} "
+              f"tokens, median ms a rung "
+              f"{ {k: round(x, 1) for k, x in row.items()} }")
+        del params, opt, table
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_alone(device, sparams, rate):
+    """Run (a): the harness's engine and requests, in the harness's loop
+    without the train tenant and without a runtime (no control)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch import colocate
+    from repro_torch.launch.serve import serving_table
+    from repro_torch.launch.serve import DTYPES
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = get_config(colo_opt("--serve-arch"))
+    slots, max_len = int(colo_opt("--slots")), int(colo_opt("--max-len"))
+    plen, max_new = int(colo_opt("--prompt-len")), int(colo_opt("--max-new"))
+    table = serving_table(cfg, slots=slots, max_len=max_len,
+                          page_occupancy=min(1.0, (plen + max_new)
+                                             / max_len))
+    eng = ServeEngine(cfg, batch_slots=slots, max_len=max_len,
+                      params=sparams, table=table,
+                      page_size=int(colo_opt("--page-size")), seed=0,
+                      cache_dtype=DTYPES[colo_opt("--dtype")],
+                      device=device)
+    # the harness's requests and arrivals, drawn as it draws them (every
+    # run's prompts are checked equal to these)
+    n = int(colo_opt("--requests"))
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, prompt=list(rng.integers(1, cfg.vocab_size, plen)),
+                    max_new=max_new) for i in range(n)]
+    arrivals = np.cumsum(rng.exponential(1.0 / rate, n))
+    t0 = time.perf_counter()
+    nxt = 0
+    while not all(r.done for r in reqs):
+        now = time.perf_counter() - t0
+        while nxt < len(reqs) and arrivals[nxt] <= now:
+            reqs[nxt].t_arrival = t0 + arrivals[nxt]
+            eng.submit(reqs[nxt])
+            nxt += 1
+        if not eng.idle:
+            eng.step()
+        if eng.idle and nxt < len(reqs):
+            time.sleep(max(0.0, min(arrivals[nxt]
+                                    - (time.perf_counter() - t0), 0.005)))
+    wall = time.perf_counter() - t0
+    toks = sum(len(r.out) for r in reqs)
+    return {"requests_done": sum(r.done for r in reqs), "tokens": toks,
+            "wall_s": wall, "tok_per_s": toks / wall,
+            "run": dict(engine=eng, requests=reqs,
+                        token_latencies=colocate.token_latencies(reqs))}
+
+
+def colocate_run(name, fn):
+    """One run of the cell with its device memory: allocated before, the
+    peak (reset first), and allocated once the run's objects are dropped,
+    with the int8 weight cache and after emptying it, and the cache's drops
+    and misses (quantisations) during the run. Keeps what the report
+    needs: streams, prompts, every token gap, and what the harness's
+    monitor was fed (each decode step's time, each admission's time from
+    its first chunk to its first token)."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    drop_int8_weights()
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    drops, misses = ops.weight_cache_drops, ops.weight_cache_misses
+    s = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    cache = (ops.weight_cache_drops - drops,
+             ops.weight_cache_misses - misses)
+    run = s.pop("run")
+    eng, reqs = run["engine"], run["requests"]
+    history = list(run["runtime"].history) if "runtime" in run else []
+    keep = dict(cache=cache,
+                streams={r.uid: list(map(int, r.out)) for r in reqs},
+                prompts=[list(map(int, r.prompt)) for r in reqs],
+                lat=np.asarray(run["token_latencies"]),
+                admit=np.asarray([r.t_admit - r.t_admit_start
+                                  for r in reqs]),
+                steps=np.asarray(eng.step_latencies), swaps=list(eng.swaps),
+                train_variants=run.get("train_variants", []),
+                decisions=len(history),
+                violated=sum(bool(h["violated"]) for h in history),
+                # a window under the monitor's min_samples reads no p99:
+                # no violation and a slack of exactly 0
+                abstained=sum(not h["violated"] and h["slack"] == 0.0
+                              for h in history),
+                actions=[(h["action"], h["victim"]) for h in history
+                         if h["action"] != "hold"])
+    del run, eng, reqs
+    gc.collect()
+    after = torch.cuda.memory_allocated()
+    drop_int8_weights()
+    keep.update(name=name, summary=s, mem=dict(
+        before=before, peak=peak, after=after,
+        after_clear=torch.cuda.memory_allocated()))
+    return keep
+
+
+def colocate_runs(device, sparams, rate, shape):
+    """The cell's runs in order: (a) serve alone, (b) precise
+    colocation (``--qos-target 1000``: the arbiter never acts), (c) Pliant
+    with ``--arbiter interference`` and (d) with ``--arbiter round_robin``,
+    (c) and (d) at the geometric mean of (a)'s and (b)'s p99. The same
+    weights, requests, arrivals and seeds in every run; the launch
+    counters zeroed just before and read just after (c), and the int8
+    weight cache's drops and misses around it."""
+    import math
+
+    import numpy as np
+    from repro_torch.launch import colocate
+    batch, seq = shape
+    argv = COLO_SERVE + COLO_TRAIN + [
+        "--rate", str(rate), "--train-batch", str(batch), "--train-seq",
+        str(seq), "--device", str(device)]
+
+    def harness(*extra):
+        return lambda: colocate.main(argv + list(extra),
+                                     serve_params=sparams)
+
+    t0 = time.perf_counter()
+    runs, out = {}, dict(rate=rate, shape=shape)
+    runs["a"] = colocate_run("serve alone",
+                             lambda: serve_alone(device, sparams, rate))
+    runs["b"] = colocate_run("precise colocation",
+                             harness("--qos-target", "1000"))
+    out["target"] = math.sqrt(np.percentile(runs["a"]["lat"], 99)
+                              * np.percentile(runs["b"]["lat"], 99))
+    q = ["--qos-target", repr(out["target"])]
+    reset_launches()
+    runs["c"] = colocate_run("Pliant interference",
+                             harness(*q, "--arbiter", "interference"))
+    out["launches"] = read_launches()
+    int8_designs("colocate (c)")
+    runs["d"] = colocate_run("Pliant round_robin",
+                             harness(*q, "--arbiter", "round_robin"))
+    out["seconds"] = time.perf_counter() - t0
+    out["runs"] = runs
+    colocate_report(out)
+    return out
+
+
+def colocate_report(out):
+    """One line a run: token gaps (p50, p99, violation rate at the Pliant
+    target), tok/s, wall, decode steps; for the colocated runs the train
+    tenant, the arbiter and what its monitor saw; device memory."""
+    import numpy as np
+    runs, target = out["runs"], out["target"]
+    n = int(colo_opt("--requests"))
+    gib = 2.0 ** 30
+    print(f"colocate: rate {out['rate']} req/s, train {out['shape'][0]} x "
+          f"{out['shape'][1]} tokens, QoS target of (c) and (d) "
+          f"{1e3 * target:.1f} ms (geometric mean of the p99 of (a) and "
+          f"(b)), four runs in {out['seconds']:.1f} s")
+    for key, r in runs.items():
+        s, lat, m = r["summary"], r["lat"], r["mem"]
+        line = (f"colocate ({key}) {r['name']}: {s['requests_done']}/{n} "
+                f"done, p50 {1e3 * np.percentile(lat, 50):.1f} ms p99 "
+                f"{1e3 * np.percentile(lat, 99):.1f} ms, violation rate at "
+                f"the target {float(np.mean(lat > target)):.3f}, "
+                f"{s['tok_per_s']:.2f} tok/s, wall {s['wall_s']:.2f} s, "
+                f"{len(r['steps'])} decode steps (median "
+                f"{1e3 * np.median(r['steps']):.1f} ms, max "
+                f"{1e3 * r['steps'].max():.1f}), admission to first token "
+                f"median {1e3 * np.median(r['admit']):.1f} ms max "
+                f"{1e3 * r['admit'].max():.1f}")
+        if key != "a":
+            line += (f"; train {s['train_steps']} steps, "
+                     f"{s['train_skipped']} yielded turns, rungs "
+                     f"{np.bincount(r['train_variants'], minlength=3).tolist()}"
+                     f", mean qloss {s['train_mean_quality_loss']:.4f}, "
+                     f"final loss {s['train_final_loss']:.4f}; "
+                     f"{s['actions']} actions in {r['decisions']} decisions "
+                     f"({r['violated']} read a violation, {r['abstained']} "
+                     f"abstained), victims "
+                     f"{s['victims']}, final variants serve "
+                     f"{s['serve_variant']} train {s['train_variant']}, "
+                     f"pool reclaimed {s['serve_reclaimed_pages']}, train "
+                     f"quanta yielded {s['train_yielded_quanta']}, serve "
+                     f"swaps {r['swaps']}, int8 weight cache {r['cache'][0]} "
+                     f"drops {r['cache'][1]} misses")
+        line += (f"; memory before {m['before'] / gib:.2f} GiB, peak "
+                 f"{m['peak'] / gib:.2f}, after {m['after'] / gib:.2f} "
+                 f"({m['after_clear'] / gib:.2f} with the int8 weight cache "
+                 f"emptied)")
+        print(line)
+        if r["actions"]:
+            print(f"colocate ({key}) actions: {r['actions'][:16]}")
+    same = sum(runs["b"]["streams"][u] == runs["a"]["streams"][u]
+               for u in runs["a"]["streams"])
+    print(f"colocate: greedy streams of (b) equal to (a)'s: {same}/{n}")
+    print(f"colocate (c) launches {out['launches']}")
+
+
+def colocate_cell(device):
+    """The colocation cell at full width: the train tenant's step timed per
+    rung (``colocate_sizing``), then runs (a)-(d) (``colocate_runs``) and
+    their checks. Returns (c)'s launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import DTYPES
+    from repro_torch.models.lm import init_lm
+    shape = COLO_TRAIN_SHAPE
+    sizing = colocate_sizing(device, [shape])[shape]
+    sparams = init_lm(get_config(colo_opt("--serve-arch")), 0,
+                      DTYPES[colo_opt("--dtype")], device)
+    out = colocate_runs(device, sparams, COLO_RATE, shape)
+    del sparams
+    drop_int8_weights()
+    torch.cuda.empty_cache()
+    runs, launches = out["runs"], out["launches"]
+    serve_step = 1e3 * float(np.median(runs["a"]["steps"]))
+    print(f"colocate: precise train step {sizing['precise']:.1f} ms = "
+          f"{sizing['precise'] / serve_step:.2f} serve-alone decode steps "
+          f"(median {serve_step:.1f} ms); the rungs "
+          f"{ {k: round(x, 1) for k, x in sizing.items()} } ms")
+    n = int(colo_opt("--requests"))
+    for key, r in runs.items():
+        assert r["prompts"] == runs["a"]["prompts"], key
+        assert r["summary"]["requests_done"] == n, (key, r["summary"])
+        if key != "a":
+            assert r["summary"]["train_steps"] > 0, (key, r["summary"])
+    assert runs["b"]["summary"]["actions"] == 0, runs["b"]["summary"]
+    for key in "cd":
+        # the arbiter acts on every window that reads a violation; whether
+        # any window does is the measurement: the monitor is fed decode
+        # steps and admissions, not the token gaps the target is set from
+        r = runs[key]
+        assert r["decisions"] > 0, (key, r["summary"])
+        assert r["summary"]["actions"] >= r["violated"], (key, r["actions"])
+        if not r["violated"]:
+            print(f"colocate ({key}): no decision read a violation: the "
+                  f"monitor's samples (decode steps, median "
+                  f"{1e3 * np.median(r['steps']):.1f} ms; admissions, max "
+                  f"{1e3 * r['admit'].max():.1f} ms) stayed under the "
+                  f"target {1e3 * out['target']:.1f} ms, or their window "
+                  f"held fewer than --slots samples")
+    assert launches["flash_attention"] == launches["ring_hop"] == 0, launches
+    assert launches["paged_attention"] > 0 and launches["ssd_scan"] > 0 \
+        and launches["ssd_scan_backward"] > 0, launches
+    c = runs["c"]
+    int8_served = any(v > 0 and at < len(c["steps"]) for at, v in c["swaps"])
+    int8_trained = any(v > 0 for v in c["train_variants"])
+    if int8_served or int8_trained:
+        assert launches["int8_matmul"] > 0 and \
+            launches["quantize_rows"] > 0, launches
+    else:
+        print("colocate (c): no int8 rung ran a step (serve swaps "
+              f"{c['swaps']}, train rungs {set(c['train_variants'])}), so "
+              "int8_matmul and quantize_rows launched "
+              f"{launches['int8_matmul']} and {launches['quantize_rows']}")
+    assert out["seconds"] < COLO_BUDGET_S, out["seconds"]
+    return launches
+
 # ------------------------------------------------------------------ main --
 
 def main():
@@ -2642,6 +3005,8 @@ def main():
     torch.cuda.empty_cache()
     _, ring_launches = ring_cell(device)
     phase_done("serve-ring")
+    colo_launches = colocate_cell(device)
+    phase_done("colocate")
 
     src_of = {"flash_attention": (
                   "src/repro_torch/csrc/flash_attention.cu",
@@ -2665,7 +3030,8 @@ def main():
                       "serve-megastep": mega_launches[name],
                       "train": train_launches[name],
                       "train-attn": attn_train_launches[name],
-                      "serve-ring": ring_launches[name]}
+                      "serve-ring": ring_launches[name],
+                      "colocate": colo_launches[name]}
                for name in kernels}
     ring_row = next(r for r in pa_rows if r["name"] == "ring-decode")
     paged_ring = {"ring_decode_ms": ring_row["ms"],

@@ -1,8 +1,9 @@
-"""Config dataclasses for architectures and serving shapes.
+"""Config dataclasses for architectures and shapes.
 
 A copy of the JAX package's ``configs/base.py`` (the port imports nothing of
-that package): ``ModelConfig``, ``ShapeConfig``, the layer kinds and
-``smoke_config``, field for field, so both packages size a model the same.
+that package): ``ModelConfig``, ``ShapeConfig``, the four assigned shapes in
+``SHAPES`` with ``shape_applicable``, the layer kinds and ``smoke_config``,
+field for field, so both packages size a model the same.
 """
 from __future__ import annotations
 
@@ -126,6 +127,23 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
     kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether an (arch, shape) cell runs; (False, reason) for documented skips."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, "pure full-attention arch: 500k decode cache is quadratic-cost to build; skipped per brief (DESIGN.md §5)"
+    if shape.name == "long_500k" and cfg.family == "encdec":
+        return False, "enc-dec decoder max context << 500k (DESIGN.md §5)"
+    return True, ""
 
 
 def smoke_config(cfg: ModelConfig) -> ModelConfig:

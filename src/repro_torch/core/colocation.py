@@ -1,18 +1,40 @@
-"""The interactive services' latency model: ``ServiceProfile`` and
-``SERVICES``, copied from the JAX package's ``core/colocation.py``. The
-training driver draws its synthetic p99 signal from ``token-serve``; the
-decision-interval simulator waits for the colocation slice.
+"""Colocation contention model + decision-interval simulator: the JAX
+package's ``core/colocation.py``, copied name for name (the port imports
+nothing of that package). It is pure numpy over the port's copies of the
+monitor, arbiter, explorer and tenants.
+
+The latency signal source is a calibrated queueing model; monitor, arbiter
+and tenant actuation are the real runtime code paths (DESIGN.md §2, §11) —
+each job is wrapped in a ``core.tenant.SimTenant`` and driven by the same
+``core.arbiter`` classes that drive the serve/train runtimes. The batch
+job's resource *pressures* come from the explorer's roofline terms per
+variant. ``launch/colocate.py`` is the measured counterpart: a real server
+and a real training job on one card under one arbiter.
 
 Model:
     rho      = offered_load / capacity_boost(reclaimed chips)
+    interf   = sum_j chip_share_j * (s_mem * hbm_j + s_ici * ici_j)
     p99      = p99_iso(rho) * (1 + interf / (1 - rho))
     p99_iso  = service_time * (1 + c_q / (1 - rho))
+
+Three interactive-service profiles mirror the paper's (strict / moderate /
+lenient): per-token LLM decode ("memcached-like"), interactive search prefill
+("NGINX-like"), and a batch-embedding API ("MongoDB-like").
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
 
-from repro_torch.core.variants import ResourcePressure
+import numpy as np
+
+from repro_torch.configs import SHAPES, get_config
+from repro_torch.core.arbiter import InterferenceAwareArbiter, RoundRobinArbiter
+from repro_torch.core.controller import ControllerConfig
+from repro_torch.core.explorer import explore
+from repro_torch.core.monitor import LatencyMonitor
+from repro_torch.core.tenant import SimTenant
+from repro_torch.core.variants import ResourcePressure, VariantTable
 
 
 @dataclass(frozen=True)
@@ -47,6 +69,9 @@ class ServiceProfile:
         return self.p99_iso(rho) * (1.0 + interference / (1.0 - rho))
 
 
+# Calibrated so precise-mode colocation violates QoS by the paper's bands
+# (memcached 1.46-3.8x, NGINX 2.1-9.8x, MongoDB 2.08-5.91x) at 75-80% load —
+# asserted in tests/test_colocation.py and its twin.
 SERVICES = {
     # strict per-token decode SLA; decode is HBM-bound -> high mem sensitivity
     "token-serve": ServiceProfile(
@@ -61,3 +86,204 @@ SERVICES = {
         "embed-api", qos_target_s=1.500, service_time_s=0.30, c_q=0.55,
         sens_mem=0.30, sens_ici=0.12, qps_at_saturation=310.0),
 }
+
+# paper analogue mapping (DESIGN.md §2)
+PAPER_ANALOGUE = {"token-serve": "memcached", "search-prefill": "NGINX",
+                  "embed-api": "MongoDB"}
+
+# Three contention ARCHETYPES for the arbiter comparison (dry-run-shaped
+# baseline roofline terms): an HBM-bound dense job, an ICI-bound MoE job
+# (all-to-all dominant), and a compute-bound SSM job. Victim selection only
+# matters when tenants press on DIFFERENT resources — the stock analytic
+# baseline gives every train job near-identical pressure ratios, which
+# would measure nothing but noise.
+CONTENTION_ARCHETYPES = {
+    "phi4-mini-3.8b": dict(compute_s=0.8, memory_s=1.6, collective_s=0.3),
+    "olmoe-1b-7b": dict(compute_s=0.9, memory_s=0.7, collective_s=1.7),
+    "mamba2-780m": dict(compute_s=1.5, memory_s=0.8, collective_s=0.25),
+}
+
+
+_ARCHETYPE_TABLES: dict = {}
+
+
+def archetype_jobs(total_work: float = 5000.0) -> List["BatchJob"]:
+    """The heterogeneous steady-state mix the round-robin vs interference-
+    aware comparison runs on (tests + benchmarks/multiapp.py). ``total_work``
+    outlasts the horizon so the two arbiters are compared over identical
+    denominators — a faster-finishing mix would pad its own met-fraction
+    with quiet tail intervals. Tables are deterministic, so they are
+    explored once and shared; only the (mutable-state) BatchJobs are fresh
+    per call."""
+    if not _ARCHETYPE_TABLES:
+        for arch, art in CONTENTION_ARCHETYPES.items():
+            _ARCHETYPE_TABLES[arch] = explore(
+                get_config(arch), SHAPES["train_4k"], baseline_art=art)
+    rng = np.random.default_rng(5)
+    return [BatchJob(arch, _ARCHETYPE_TABLES[arch], total_work=total_work,
+                     phase_offset=float(rng.uniform(0, 2 * np.pi)),
+                     phase_period=float(rng.uniform(50, 120)))
+            for arch in CONTENTION_ARCHETYPES]
+
+
+@dataclass
+class BatchJob:
+    name: str
+    table: VariantTable
+    total_work: float = 300.0        # nominal seconds of precise execution
+    variant: int = 0
+    chip_groups: int = 16            # one data-axis slice per group (16x16 pod)
+    reclaimed: int = 0
+    work_done: float = 0.0
+    weighted_loss: float = 0.0       # integral of qloss over work
+    finished_at: Optional[float] = None
+    # execution phases (paper: e.g. canneal only contends in some phases) —
+    # pressure swings between (1 - phase_amp) and 1 with period phase_period
+    phase_amp: float = 0.75
+    phase_period: float = 80.0
+    phase_offset: float = 0.0
+
+    def pressure(self, t: float = 0.0) -> ResourcePressure:
+        v = self.table.variants[self.variant]
+        m = 1.0 - self.phase_amp * (0.5 + 0.5 * float(
+            np.sin(2 * np.pi * (t / self.phase_period) + self.phase_offset)))
+        return v.pressure.scaled(m)
+
+    def chip_frac(self) -> float:
+        return max(self.chip_groups - self.reclaimed, 0) / self.chip_groups
+
+    def advance(self, dt: float, now: float) -> None:
+        if self.finished_at is not None:
+            return
+        v = self.table.variants[self.variant]
+        speed = self.chip_frac() / max(v.rel_time, 1e-6)
+        dw = dt * speed
+        self.work_done += dw
+        self.weighted_loss += dw * v.quality_loss
+        if self.work_done >= self.total_work:
+            self.finished_at = now
+
+    @property
+    def quality_loss(self) -> float:
+        return self.weighted_loss / max(self.work_done, 1e-9)
+
+
+@dataclass
+class TimelinePoint:
+    t: float
+    p99: float
+    variants: Tuple[int, ...]
+    reclaimed: Tuple[int, ...]
+    action: str
+
+
+@dataclass
+class SimResult:
+    timeline: List[TimelinePoint]
+    service: ServiceProfile
+    jobs: List[BatchJob]
+
+    @property
+    def qos_met_frac(self) -> float:
+        return float(np.mean([p.p99 <= self.service.qos_target_s
+                              for p in self.timeline]))
+
+    def exec_time(self, j: int = 0) -> float:
+        job = self.jobs[j]
+        return job.finished_at if job.finished_at is not None \
+            else self.timeline[-1].t
+
+    @property
+    def max_reclaimed(self) -> Tuple[int, ...]:
+        return tuple(int(np.max([p.reclaimed[i] for p in self.timeline]))
+                     for i in range(len(self.jobs)))
+
+
+def interference_of(jobs: Sequence[BatchJob], svc: ServiceProfile,
+                    t: float = 0.0) -> float:
+    total = 0.0
+    n = max(len(jobs), 1)
+    for job in jobs:
+        if job.finished_at is not None:
+            continue
+        p = job.pressure(t)
+        total += (job.chip_frac() / n) * (svc.sens_mem * p.hbm
+                                          + svc.sens_ici * p.ici)
+    return total
+
+
+def simulate(service: ServiceProfile, jobs: List[BatchJob], *,
+             load_frac: float = 0.775, horizon_s: float = 420.0,
+             interval_s: float = 1.0, precise_only: bool = False,
+             seed: int = 0, slack_threshold: float = 0.10,
+             samples_per_interval: int = 2000,
+             arbiter: str = "round_robin") -> SimResult:
+    """Decision-interval simulation of one colocation.
+
+    ``arbiter`` selects the victim policy over the SAME arbiter code path
+    the real serve/train runtimes use (``core/arbiter.py``): the paper's
+    ``"round_robin"`` baseline, or ``"interference"`` — contended-resource
+    attribution from the service's sensitivity vector, victims scored by
+    contended pressure relieved (violation side) and by quality recovered
+    per pressure added (slack side). Reclaim budgets are per tenant (each
+    job's own ``chip_groups - 1``), not sized from ``jobs[0]``.
+    """
+    rng = np.random.default_rng(seed)
+    monitor = LatencyMonitor(service.qos_target_s,
+                             window=2 * samples_per_interval)
+    # no max_reclaim here: budgets are PER TENANT (from_tenants reads each
+    # SimTenant's chip_groups - 1) — sizing a shared one from jobs[0] was
+    # exactly the heterogeneous-jobs bug this field would re-invite
+    cfg = ControllerConfig(slack_threshold=slack_threshold,
+                           decision_interval_s=interval_s)
+    multi = len(jobs) > 1
+    tenants = [SimTenant(j) for j in jobs]
+    if arbiter == "interference":
+        ctl = InterferenceAwareArbiter.from_tenants(
+            tenants, cfg, sensitivity=service.sensitivity)
+    elif arbiter == "round_robin":
+        # paper: first victim selected randomly (single-job sims skip the
+        # draw so their noise streams match the historical calibration)
+        ctl = RoundRobinArbiter.from_tenants(
+            tenants, cfg, start=int(rng.integers(len(jobs))) if multi else 0)
+    else:
+        raise ValueError(f"unknown arbiter {arbiter!r}")
+
+    timeline: List[TimelinePoint] = []
+    t = 0.0
+    sigma = 0.35
+    while t < horizon_s and any(j.finished_at is None for j in jobs):
+        interf = interference_of(jobs, service, t)
+        reclaimed_total = sum(j.reclaimed for j in jobs)
+        p99_true = service.p99(load_frac, interf, reclaimed_total)
+        # generate request latencies whose p99 matches the model
+        med = p99_true / float(np.exp(2.326 * sigma))
+        lat = med * np.exp(sigma * rng.standard_normal(samples_per_interval))
+        monitor.record_many(lat)
+        # control acts on the (sampled, noisy) monitor estimate — realistic;
+        # the timeline records the REALIZED p99 the interval's requests saw.
+        p99_real = float(np.percentile(lat, 99))
+
+        action = "hold"
+        if not precise_only:
+            # consume the decision window (act on fresh data next interval);
+            # below min_samples the estimator abstains -> realized fallback
+            p99_mon, _, _ = monitor.consume_window()
+            p99_obs = p99_mon if p99_mon is not None else p99_real
+            violated = p99_obs > service.qos_target_s
+            slack = (service.qos_target_s - p99_obs) / service.qos_target_s
+            # the arbiter actuates the SimTenants directly — the same code
+            # path PliantRuntime drives for the real serve/train tenants
+            act, idx = ctl.tick(violated, slack, t=t)
+            action = f"{act.value}:{idx}" if (multi and idx is not None) \
+                else act.value
+
+        for j in jobs:
+            j.advance(interval_s, t + interval_s)
+        timeline.append(TimelinePoint(
+            t=t, p99=p99_real,
+            variants=tuple(j.variant for j in jobs),
+            reclaimed=tuple(j.reclaimed for j in jobs),
+            action=action))
+        t += interval_s
+    return SimResult(timeline, service, jobs)

@@ -68,9 +68,10 @@ def test_port_imports_with_jax_blocked():
 
 def test_entry_points_refuse_without_cuda(monkeypatch):
     """``device`` defaults to CUDA: without it the engine, the model init and
-    the serving and training drivers raise instead of running on the CPU."""
+    the serving, training and colocation drivers raise instead of running
+    on the CPU."""
     from repro_torch.configs import get_config
-    from repro_torch.launch import serve, train
+    from repro_torch.launch import colocate, serve, train
     from repro_torch.models.lm import init_lm
     from repro_torch.serve.engine import ServeEngine
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -84,6 +85,8 @@ def test_entry_points_refuse_without_cuda(monkeypatch):
         serve.main(["--requests", "1"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train.main(["--steps", "1", "--batch", "2", "--seq", "16"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        colocate.main(["--requests", "1"])
     eng = ServeEngine(cfg, batch_slots=2, max_len=32, params=params,
                       device="cpu")
     assert eng.device.type == "cpu"

@@ -57,6 +57,39 @@ def test_config_and_param_count(model):
         tcfg.param_count()
 
 
+@pytest.mark.parametrize("arch", sorted(t_configs.ARCHS))
+@pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
+def test_configs_equal_jax(arch, smoke):
+    """Every config the port registers equals the JAX package's field for
+    field (MoE and SSM sub-configs included), and both packages agree on
+    ``SHAPES`` and ``shape_applicable``."""
+    import dataclasses
+    from repro.configs.base import SHAPES as JAX_SHAPES
+    from repro.configs.base import shape_applicable as jax_applicable
+    from repro_torch.configs.base import SHAPES, shape_applicable
+    name = arch + "-smoke" if smoke else arch
+    tcfg, jcfg = t_configs.get_config(name), jax_configs.get_config(name)
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    assert tcfg.param_count() == jcfg.param_count()
+    assert {k: dataclasses.astuple(v) for k, v in SHAPES.items()} == \
+        {k: dataclasses.astuple(v) for k, v in JAX_SHAPES.items()}
+    for k in SHAPES:
+        assert shape_applicable(tcfg, SHAPES[k]) == \
+            jax_applicable(jcfg, JAX_SHAPES[k])
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b-smoke", "olmoe-1b-7b"])
+def test_init_lm_refuses_experts(arch):
+    """The port has no MoE block: a config with experts raises rather than
+    building a dense model in its place."""
+    cfg = t_configs.get_config(arch)
+    assert cfg.moe is not None
+    with pytest.raises(NotImplementedError, match="MoE"):
+        t_lm.init_lm(cfg, 0, torch.float32, "cpu")
+    with pytest.raises(NotImplementedError, match="MoE"):
+        t_lm.lm_specs(cfg)
+
+
 def test_rms_norm(model):
     rng = np.random.default_rng(0)
     x = rng.normal(size=(2, 3, 64)).astype(np.float32)
