@@ -32,7 +32,8 @@ Phases, each reported on its own line:
              1 and 2, and the differentiable ``quantized_matmul``'s gradients (zero
              pattern included) against the CPU plain path. ``int8_matmul``
              at every shape a path launches (decode M 1 and 8 with L2 cold,
-             admission M 128 and 2048, mamba2 and phi4-mini training),
+             admission M 128 and 2048, mamba2 and phi4-mini training,
+             gemma2-27b's MLP on the serve-dense cell at M 8, 104, 512),
              bit for bit in each of its three designs, beside
              ``torch._int_mm`` on both layouts of the weight, and
              ``quantize_rows`` forward and backward at the shapes the
@@ -131,6 +132,34 @@ Phases, each reported on its own line:
              made and an action for every one that read a violation,
              the int8 kernels launched where (c) ran an int8 rung, the
              four runs under ``COLO_BUDGET_S``.
+
+10. serve-dense  the dense serving engine (per-slot rings, synchronous
+             chunked admission with a slot insert; the engine's default):
+             gemma2-27b-smoke in fp32 on every serving rung, prompts past
+             its 32-token window, the greedy streams on the card equal to
+             the CPU's and to the paged engine's on the card; then
+             ``repro_torch.launch.serve`` on gemma2-27b cut to 16 of its
+             46 layers (bf16, random weights, 8 slots, max_len 8192, chunks
+             of 512, 12 requests of 4200-7600 prompt tokens, so every local
+             ring wraps, 32 new tokens, greedy) under a QoS target tight
+             enough that the runtime swaps variants, launch counters zeroed
+             just before and read just after (``int8_matmul`` and
+             ``quantize_rows`` launched where an int8 rung ran,
+             ``paged_attention`` not at all); a ``request_variant`` walk,
+             the dense and the paged engine on each rung serving the same
+             8 prompts: admission ms a chunk, the mean decode step, a
+             profiled window's busy share and decode attention's share of
+             the device time, no host sync in the dense decode step;
+             ``prefill_with_cache`` on one 7600-token prompt (one bf16
+             ``flash_attention`` a layer, each call timed), its first-token
+             logits against chunked admission's within 0.5 of their rms,
+             both handoffs' rings holding the same positions with their
+             cursors at the next slot and K/V within 0.5 of their rms, then
+             32 decode steps teacher-forced through both, each step's
+             logits within 0.15 of their rms; ``flash_attention``
+             at that shape (causal and window 4096, softcap 50) beside its
+             plain version and ``scaled_dot_product_attention`` without the
+             softcap; device memory before, at peak and after.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``. Any
@@ -327,12 +356,16 @@ def int8_shapes():
     """The products the paths launch: serving decode (M 1 and 8, L2 cold)
     and admission chunks (M 128; the ring cell's M 2048) over phi4-mini's
     MLP (K 3072 -> N 8192 and K 8192 -> N 3072), a ragged shape the
-    fallback takes, mamba2-780m training (4 x 1024 tokens) and phi4-mini
-    training (2 x 4096 tokens)."""
+    fallback takes, mamba2-780m training (4 x 1024 tokens), phi4-mini
+    training (2 x 4096 tokens), and the serve-dense cell over gemma2-27b's
+    MLP (K 4608 -> N 36864 and K 36864 -> N 4608): decode (M 8, L2 cold),
+    its 512-token admission chunks and a ragged last chunk (M 104)."""
     shapes = [(m, k, n) for m in (1, 8, 128, 2048)
               for k, n in ((3072, 8192), (8192, 3072))] + [(5, 3000, 1000)]
     shapes += [(4096, 1536, 3072), (4096, 3072, 1536)]
     shapes += [(8192, 3072, 8192), (8192, 8192, 3072)]
+    shapes += [(m, k, n) for m in (8, 104, DENSE_CHUNK)
+               for k, n in ((4608, 36864), (36864, 4608))]
     return shapes
 
 
@@ -395,12 +428,17 @@ def quantize_shapes():
     activations in bf16 over phi4-mini's MLP widths; in fp32 mamba2-780m's
     training activations (4096 rows of 1536 and 3072) and phi4-mini's (8192
     rows of 3072 and 8192), and its weights as rows of ``w.t()`` (8192 x
-    3072 for ``wi``, 3072 x 8192 for ``wo``)."""
+    3072 for ``wi``, 3072 x 8192 for ``wo``); in bf16 the serve-dense
+    cell's activations over gemma2-27b's MLP widths (8, 104 and 512 rows of
+    4608 and 36864) and its weights as rows of ``w.t()`` (36864 x 4608 for
+    ``wi_gate`` and ``wi_up``, 4608 x 36864 for ``wo``)."""
     import torch
     bf16, f32 = torch.bfloat16, torch.float32
     return [(8, 3072, bf16), (8, 8192, bf16), (2048, 3072, bf16),
             (4096, 1536, f32), (4096, 3072, f32), (8192, 3072, f32),
-            (8192, 8192, f32), (3072, 8192, f32)]
+            (8192, 8192, f32), (3072, 8192, f32)] + [
+        (m, k, bf16) for m in (8, 104, DENSE_CHUNK) for k in (4608, 36864)
+    ] + [(36864, 4608, bf16), (4608, 36864, bf16)]
 
 
 # -------------------------------------------------------------- ssd_scan --
@@ -1036,11 +1074,13 @@ def phi4_paged_cases(dtype_main):
 # ---------------------------------------------------------------- parity --
 
 def engine_streams(cfg, params, table, device, rung, prompts, max_new,
-                   mesh=None, prefill_chunk=4, n_pages=24):
+                   mesh=None, prefill_chunk=4, n_pages=24, paged=True):
+    """Greedy streams of ``prompts`` served on rung ``rung`` by a 2-slot
+    engine (max_len 64), paged (page 4, ``n_pages`` pages) or dense."""
     from repro_torch.serve.engine import Request, ServeEngine
     eng = ServeEngine(cfg, batch_slots=2, max_len=64, params=params,
-                      table=table, prefill_chunk=prefill_chunk, page_size=4,
-                      n_pages=n_pages, device=device, mesh=mesh)
+                      table=table, prefill_chunk=prefill_chunk, paged=paged,
+                      page_size=4, n_pages=n_pages, device=device, mesh=mesh)
     eng.request_variant(rung)
     reqs = [Request(i, prompt=list(p), max_new=max_new)
             for i, p in enumerate(prompts)]
@@ -1313,7 +1353,7 @@ def rung_walk(res, device, batch=8, prompt_len=128, max_new=16):
     for rung, name in enumerate(res["names"]):
         eng = ServeEngine(src.cfg, batch_slots=batch, max_len=1024,
                           params=src.params, table=src.table,
-                          prefill_chunk=128, page_size=16,
+                          prefill_chunk=128, paged=True, page_size=16,
                           cache_dtype=src.cache_dtype, device=device)
         eng.request_variant(rung)
         assert eng.active_variant == rung
@@ -1357,7 +1397,7 @@ def profile_rungs(res, device, batch=8, prompt_len=128, steps=8):
     for rung, name in enumerate(res["names"]):
         eng = ServeEngine(src.cfg, batch_slots=batch, max_len=1024,
                           params=src.params, table=src.table,
-                          prefill_chunk=128, page_size=16,
+                          prefill_chunk=128, paged=True, page_size=16,
                           cache_dtype=src.cache_dtype, device=device)
         eng.request_variant(rung)
         for i in range(batch):
@@ -1401,7 +1441,7 @@ def mega_engine(src, device, rung, k=MEGA_K, **kw):
     from repro_torch.serve.engine import ServeEngine
     eng = ServeEngine(src.cfg, batch_slots=8, max_len=1024,
                       params=src.params, table=src.table, prefill_chunk=128,
-                      page_size=16, cache_dtype=src.cache_dtype,
+                      paged=True, page_size=16, cache_dtype=src.cache_dtype,
                       device=device, max_admission_chunks=8, megastep_k=k,
                       **kw)
     eng.request_variant(rung)
@@ -2423,8 +2463,8 @@ def ring_cell(device, rungs=("precise", "int8+kvq8")):
         for path, m in (("ring", mesh), ("single", None)):
             eng = ServeEngine(cfg, batch_slots=4, max_len=RING_CTX,
                               params=params, table=table,
-                              prefill_chunk=RING_CHUNK, page_size=16,
-                              n_pages=4 * RING_CTX // 16 + 8,
+                              prefill_chunk=RING_CHUNK, paged=True,
+                              page_size=16, n_pages=4 * RING_CTX // 16 + 8,
                               cache_dtype=torch.bfloat16, device=device,
                               mesh=m)
             eng.request_variant(rung)
@@ -2629,7 +2669,7 @@ def serve_alone(device, sparams, rate):
                           page_occupancy=min(1.0, (plen + max_new)
                                              / max_len))
     eng = ServeEngine(cfg, batch_slots=slots, max_len=max_len,
-                      params=sparams, table=table,
+                      params=sparams, table=table, paged=True,
                       page_size=int(colo_opt("--page-size")), seed=0,
                       cache_dtype=DTYPES[colo_opt("--dtype")],
                       device=device)
@@ -2870,6 +2910,481 @@ def colocate_cell(device):
     assert out["seconds"] < COLO_BUDGET_S, out["seconds"]
     return launches
 
+# ------------------------------------------------------------ serve-dense --
+
+DENSE_ARCH = "gemma2-27b"
+# 16 of its 46 layers (8 local/global pairs): at 46 the bf16 weights (54.4
+# GB), the int8 rungs' MLP weight cache (23.4 GB) and the rings (~18.5 GB)
+# do not fit in 80 GB; at 16 they take ~20.5, ~8.2 and ~6.4 GB
+DENSE_LAYERS = 16
+DENSE_SLOTS = 8
+DENSE_CTX = 8192              # max_len: a global layer's ring
+DENSE_CHUNK = 512             # prefill chunk
+DENSE_PROMPTS = (4200, 7600)  # prompt lengths, drawn uniformly: past the
+DENSE_NEW = 32                # 4096 window, so every local ring wraps
+DENSE_REQUESTS = 12
+# first-token logits, prefill_with_cache against chunked admission (bf16
+# sums in other orders over 16 layers): max |diff| over the rms of the
+# chunked logits, the ring phase's gate
+DENSE_LOGIT_TOL = 0.5
+# each teacher-forced decode step's logits from the two handoffs' rings, the
+# same measure: three times the first token's reading on an H100 (0.054)
+DENSE_STEP_TOL = 0.15
+
+
+def dense_prompts(vocab, n, seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lo, hi = DENSE_PROMPTS
+    return [list(map(int, rng.integers(1, vocab, int(length))))
+            for length in rng.integers(lo, hi + 1, n)]
+
+
+def n_chunks(prompts):
+    return sum(-(-len(p) // DENSE_CHUNK) for p in prompts)
+
+
+def dense_parity(device):
+    """gemma2-27b-smoke in fp32 on the dense engine (2 slots, max_len 64,
+    chunks of 8), every serving rung, four prompts, two of them past the
+    32-token window so the local rings wrap: the card's greedy streams
+    equal the CPU's, and equal the paged engine's on the card."""
+    import copy
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serving_table
+    from repro_torch.models.lm import init_lm
+    cfg = get_config("gemma2-27b-smoke")
+    cpu_params = init_lm(cfg, 0, torch.float32, "cpu")
+    dev_params = copy.deepcopy(cpu_params).to(device)
+    table = serving_table(cfg, slots=2, max_len=64)
+    rng = np.random.default_rng(5)
+    prompts = [list(rng.integers(1, cfg.vocab_size, n))
+               for n in (7, 36, 20, 40)]
+    kw = dict(prefill_chunk=8, n_pages=32)
+    for rung, v in enumerate(table.variants):
+        card = engine_streams(cfg, dev_params, table, device, rung, prompts,
+                              6, paged=False, **kw)
+        cpu = engine_streams(cfg, cpu_params, table, torch.device("cpu"),
+                             rung, prompts, 6, paged=False, **kw)
+        paged = engine_streams(cfg, dev_params, table, device, rung, prompts,
+                               6, **kw)
+        assert card == cpu == paged, (v.name, card, cpu, paged)
+        print(f"serve-dense parity {v.name}: dense {device} streams == "
+              f"dense cpu streams == paged {device} streams "
+              f"({sum(map(len, card))} tokens)")
+
+
+def dense_serve(device):
+    """The cell through ``launch/serve.py``: gemma2-27b cut to
+    ``DENSE_LAYERS`` layers, bf16, the dense engine (no ``--paged``),
+    ``DENSE_REQUESTS`` requests at t = 0 under a QoS target tight enough
+    that the runtime swaps variants; launch counters zeroed just before and
+    read just after. Returns (``serve.main``'s result, launches)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    lo, hi = DENSE_PROMPTS
+    cfg = dataclasses.replace(get_config(DENSE_ARCH), n_layers=DENSE_LAYERS)
+    argv = ["--dtype", "bf16", "--device", str(device),
+            "--slots", str(DENSE_SLOTS), "--max-len", str(DENSE_CTX),
+            "--prefill-chunk", str(DENSE_CHUNK),
+            "--requests", str(DENSE_REQUESTS), "--prompt-len", str(lo),
+            "--prompt-len-max", str(hi), "--max-new", str(DENSE_NEW),
+            "--qos-target", "0.001", "--decision-interval", "0",
+            "--min-samples", "4"]
+    tag = f"serve-dense {DENSE_ARCH} ({DENSE_LAYERS} layers)"
+    drop_int8_weights()
+    reset_launches()
+    res = serve.main(argv, cfg=cfg)
+    launches = read_launches()
+    int8_designs(tag)
+    eng, reqs, names = res["engine"], res["requests"], res["names"]
+    assert not eng.paged and eng.pool is None
+    assert eng.cfg.n_layers == DENSE_LAYERS
+    assert all(r.done and len(r.out) == DENSE_NEW for r in reqs), \
+        [(r.uid, r.done, len(r.out)) for r in reqs]
+    assert all(0 <= t < eng.cfg.vocab_size for r in reqs for t in r.out)
+    assert names == ["precise", "int8", "int8+kvq8"], names
+    visited = {0} | {v for _, v in eng.swaps}
+    assert len(visited) > 1, eng.swaps
+    assert launches["paged_attention"] == launches["flash_attention"] \
+        == launches["ring_hop"] == launches["ssd_scan"] \
+        == launches["ssd_scan_backward"] == 0, launches
+    if visited - {0}:       # every rung past precise runs the int8 matmuls
+        assert launches["int8_matmul"] > 0 and \
+            launches["quantize_rows"] > 0, launches
+    chunks = n_chunks([r.prompt for r in reqs])
+    print(f"{tag}: {res['tokens']} tokens, tok_s={res['tok_s']:.2f} "
+          f"p50_ms={1e3 * res['p50_s']:.3f} p99_ms={1e3 * res['p99_s']:.3f} "
+          f"wall={res['wall_s']:.2f}s swaps={eng.swaps} admission "
+          f"{1e3 * sum(eng.admit_latencies) / chunks:.2f} ms a "
+          f"{DENSE_CHUNK}-token chunk ({chunks} chunks, "
+          f"{len(eng.admit_latencies)} admissions), mean decode step "
+          f"{1e3 * sum(eng.step_latencies) / len(eng.step_latencies):.3f} "
+          f"ms ({len(eng.step_latencies)} steps), launches={launches}")
+    return res, launches
+
+
+def range_device_us(prof, name):
+    """Device time (us) of the kernels launched inside every
+    ``record_function(name)`` range of a host + device profile."""
+    import torch
+    total = 0.0
+    for e in prof.events():
+        if e.name != name or e.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        stack = [e]
+        while stack:
+            x = stack.pop()
+            total += sum(k.duration for k in x.kernels)
+            stack.extend(x.cpu_children)
+    return total
+
+
+def dense_decode_window(eng, steps, attn_fn):
+    """Two profiled windows of ``steps`` decode steps: the card's activity
+    alone (wall and device busy a step, its busy share), then host and
+    card with every call of ``models.attention.<attn_fn>`` in a
+    ``record_function`` range (decode attention's share of the device
+    time). Returns (wall ms, busy ms, attention share)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import attention as attn_mod
+
+    def dev_us(e):
+        return (getattr(e, "self_device_time_total", None)
+                or getattr(e, "self_cuda_time_total", 0))
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    busy = sum(dev_us(e) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) \
+        / 1e3 / steps
+    orig = getattr(attn_mod, attn_fn)
+
+    def ranged(*a, **kw):
+        with record_function("decode_attention"):
+            return orig(*a, **kw)
+    setattr(attn_mod, attn_fn, ranged)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                eng.step()
+            torch.cuda.synchronize()
+    finally:
+        setattr(attn_mod, attn_fn, orig)
+    total = sum(dev_us(e) for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.key != "decode_attention")
+    attn = range_device_us(prof, "decode_attention")
+    assert 0 < attn < total, (attn, total)
+    return wall, busy, attn / total
+
+
+def dense_walk(res, device, decode_steps=8, prof_steps=4):
+    """``request_variant`` walk over the ladder on the cell's weights: on
+    each rung the dense engine, then the paged engine (page 16, every
+    admission in one step), serve the same ``DENSE_SLOTS`` prompts. Each
+    reports admission ms a chunk, the mean decode step over
+    ``decode_steps`` steps with every slot live, and a profiled window's
+    busy share and decode attention's share of the device time (dense:
+    ``decode_attention``, ``_sdpa`` over the rings; paged:
+    ``paged_decode_attention``, the ``paged_attention`` kernel). The dense
+    decode step makes no host sync."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Request, ServeEngine
+    src = res["engine"]
+    prompts = dense_prompts(src.cfg.vocab_size, DENSE_SLOTS, seed=11)
+    chunks = n_chunks(prompts)
+    for rung, name in enumerate(res["names"]):
+        for paged in (False, True):
+            drop_int8_weights()
+            eng = ServeEngine(src.cfg, batch_slots=DENSE_SLOTS,
+                              max_len=DENSE_CTX, params=src.params,
+                              table=src.table, prefill_chunk=DENSE_CHUNK,
+                              paged=paged, page_size=16,
+                              max_admission_chunks=chunks,
+                              cache_dtype=src.cache_dtype, device=device)
+            eng.request_variant(rung)
+            for i, p in enumerate(prompts):
+                eng.submit(Request(i, prompt=p, max_new=2 * prof_steps
+                                   + decode_steps + 4))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            while not all(s is not None for s in eng.slots):
+                eng.step()
+            torch.cuda.synchronize()
+            admit = (sum(eng.admit_latencies) if not paged
+                     else time.perf_counter() - t0)
+            eng.step()
+            n0 = len(eng.step_latencies)
+            for _ in range(decode_steps):
+                eng.step()
+            step = 1e3 * sum(eng.step_latencies[n0:]) / decode_steps
+            wall, busy, share = dense_decode_window(
+                eng, prof_steps,
+                "paged_decode_attention" if paged else "decode_attention")
+            kind = "paged" if paged else "dense"
+            syncs = ""
+            if not paged:
+                toks = torch.tensor(eng.cur_tokens, dtype=torch.long,
+                                    device=device)[:, None]
+                pos = torch.tensor(eng.positions, device=device)
+                n = host_syncs(lambda: lm.decode_step(
+                    eng.params, toks, pos, eng.caches, eng.cfg,
+                    eng.active_knobs))
+                assert n == 0, n
+                syncs = ", host syncs in a decode step 0"
+            print(f"serve-dense walk {name} {kind}: admission "
+                  f"{1e3 * admit / chunks:.2f} ms a {DENSE_CHUNK}-token "
+                  f"chunk ({chunks} chunks), mean decode step {step:.3f} "
+                  f"ms ({DENSE_SLOTS} slots, {decode_steps} steps); "
+                  f"profiled {prof_steps} steps: wall {wall:.3f} ms, busy "
+                  f"{busy:.3f} ms ({busy / wall:.3f}), decode attention "
+                  f"{share:.3f} of the device time{syncs}")
+            del eng
+            torch.cuda.empty_cache()
+
+
+def ring_order(caches, length):
+    """Each dense ring after ``length`` tokens holds positions
+    ``[length - n, length)``, ``n = min(length, W)``, once each, the other
+    slots empty, and its cursor names the slot written next: the oldest
+    entry of a full ring, an empty slot otherwise. Asserted exactly;
+    returns each stacked cache's slot order by position (the empty slots
+    first) with its count of empty slots, so two handoffs' K/V can be
+    compared entry by entry."""
+    import torch
+    order = []
+    for c in caches:            # pos (groups, B, W); cursor (groups,), mod W
+        W = c.pos.shape[-1]
+        n = min(length, W)
+        got, idx = c.pos.long().sort(-1)
+        want = torch.arange(length - n, length, device=got.device)
+        assert (got[..., :W - n] == -1).all(), (length, W)
+        assert torch.equal(got[..., W - n:], want.expand_as(got[..., W - n:])), \
+            (length, W, got[..., W - n:W - n + 4], got[..., -4:])
+        cur = (c.cursor.long() % W).view(-1, 1, 1).expand(
+            *c.pos.shape[:-1], 1)
+        at = c.pos.long().gather(-1, cur)
+        assert (at == (length - W if n == W else -1)).all(), \
+            (length, W, c.cursor, at)
+        order.append((idx, W - n))
+    return order
+
+
+def ring_kv_err(caches_a, caches_b, length):
+    """max |a - b| over the rms of b, over every ring entry of two
+    handoffs' caches at the same positions (``ring_order`` asserted on
+    both)."""
+    worst = 0.0
+    for a, b, (ia, skip), (ib, _) in zip(caches_a, caches_b,
+                                         ring_order(caches_a, length),
+                                         ring_order(caches_b, length)):
+        for x, y in ((a.k, b.k), (a.v, b.v)):
+            shape = ia.shape + x.shape[3:]
+            xa = x.gather(2, ia.view(*ia.shape, 1, 1).expand(shape))
+            yb = y.gather(2, ib.view(*ib.shape, 1, 1).expand(shape))
+            xa, yb = xa[:, :, skip:].float(), yb[:, :, skip:].float()
+            worst = max(worst, float((xa - yb).abs().max()
+                                     / yb.pow(2).mean().sqrt()))
+    return worst
+
+
+def dense_handoff(res, device):
+    """``prefill_with_cache`` on one prompt of ``DENSE_PROMPTS[1]`` tokens
+    at the cell's width (bf16, precise): its attention through
+    ``ops.flash`` (one ``flash_attention`` launch a layer, each timed by
+    CUDA events around the call), its first-token logits against chunked
+    admission's (``_chunked_prefill``, chunks of ``DENSE_CHUNK``) within
+    ``DENSE_LOGIT_TOL`` of their rms. The rings each hands to decode hold
+    the same positions in ``ring_order`` and the same K/V within
+    ``DENSE_LOGIT_TOL`` of their rms; then ``DENSE_NEW`` decode steps
+    teacher-forced with chunked admission's greedy tokens through both,
+    each step's logits within ``DENSE_STEP_TOL`` of their rms, and the
+    rings in ``ring_order`` again after the last."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import lm
+    from repro_torch.serve import prefill as prefill_mod
+    from repro_torch.serve.engine import ServeEngine
+    src = res["engine"]
+    cfg, params = src.cfg, src.params
+    drop_int8_weights()
+    S = DENSE_PROMPTS[1]
+    prompt = list(map(int, np.random.default_rng(13).integers(
+        1, cfg.vocab_size, S)))
+    calls, flash = [], kops.flash
+
+    def timed_flash(*a, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        o = flash(*a, **kw)
+        ev[1].record()
+        calls.append((ev, kw.get("window", 0)))
+        return o
+    reset_launches()
+    kops.flash = timed_flash
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits_pf, caches_pf = prefill_mod.prefill_with_cache(
+            params, torch.tensor([prompt], device=device), cfg, DENSE_CTX)
+        torch.cuda.synchronize()
+        pf_s = time.perf_counter() - t0
+    finally:
+        kops.flash = flash
+    launches = read_launches()
+    designs = {k: n for k, n in fa.design_launches.items() if n}
+    assert launches["flash_attention"] == cfg.n_layers == len(calls), \
+        (launches, len(calls))
+    assert designs == {fa.select_flash_design(torch.bfloat16,
+                                              cfg.resolved_head_dim):
+                       cfg.n_layers}, designs
+    ms = [(w, a.elapsed_time(b)) for (a, b), w in calls]
+    eng = ServeEngine(cfg, batch_slots=1, max_len=DENSE_CTX, params=params,
+                      prefill_chunk=DENSE_CHUNK, cache_dtype=src.cache_dtype,
+                      device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits_ck, caches_ck = eng._chunked_prefill(prompt)
+    torch.cuda.synchronize()
+    ck_s = time.perf_counter() - t0
+
+    def rel(a, b):
+        a, b = a.float(), b.float()
+        return float((a - b).abs().max() / b.pow(2).mean().sqrt())
+    gate = rel(logits_pf, logits_ck)
+    assert gate <= DENSE_LOGIT_TOL, gate
+    kv_err = ring_kv_err(caches_pf, caches_ck, S)
+    assert kv_err <= DENSE_LOGIT_TOL, kv_err
+    steps, same = [], 0
+    cur = logits_ck.argmax(-1)
+    pos = torch.full((1,), S, dtype=torch.int32, device=device)
+    for _ in range(DENSE_NEW):
+        same += int(logits_pf.argmax(-1) == cur)
+        logits_pf, caches_pf = lm.decode_step(params, cur[:, None], pos,
+                                              caches_pf, cfg)
+        logits_ck, caches_ck = lm.decode_step(params, cur[:, None], pos,
+                                              caches_ck, cfg)
+        assert torch.isfinite(logits_pf).all()
+        steps.append(rel(logits_pf, logits_ck))
+        cur = logits_ck.argmax(-1)
+        assert 0 <= int(cur) < cfg.vocab_size
+        pos += 1
+    assert max(steps) <= DENSE_STEP_TOL, steps
+    kv_after = ring_kv_err(caches_pf, caches_ck, S + DENSE_NEW)
+    assert kv_after <= DENSE_LOGIT_TOL, kv_after
+    print(f"serve-dense prefill_with_cache: {S} tokens in {1e3 * pf_s:.1f} "
+          f"ms (chunked admission {1e3 * ck_s:.1f} ms), flash_attention "
+          f"launches {launches['flash_attention']} by design {designs}; "
+          f"first-token logits max |diff| {gate:.4f} of their rms (tol "
+          f"{DENSE_LOGIT_TOL}); rings hold the same positions, cursors at "
+          f"the next slot, K/V max |diff| {kv_err:.4f} of their rms "
+          f"({kv_after:.4f} after {DENSE_NEW} steps); {DENSE_NEW} "
+          f"teacher-forced decode steps: logits max |diff| worst "
+          f"{max(steps):.4f} of their rms (tol {DENSE_STEP_TOL}), mean "
+          f"{sum(steps) / len(steps):.4f}; greedy tokens equal "
+          f"{same}/{DENSE_NEW}")
+    for kind in sorted({w for w, _ in ms}):
+        each = [t for w, t in ms if w == kind]
+        print(f"serve-dense prefill_with_cache flash_attention "
+              f"{'window ' + str(kind) if kind else 'causal'}: "
+              f"{len(each)} calls, ms {[round(t, 3) for t in each]}")
+
+
+def gemma2_flash_cases():
+    """``flash_attention`` at the cell's ``prefill_with_cache`` shape: one
+    prompt of ``DENSE_PROMPTS[1]`` tokens, gemma2-27b's heads, bf16,
+    softcap 50, causal (global layers) and window 4096 (local layers)."""
+    import torch
+    S = DENSE_PROMPTS[1]
+    shape = (1, 32, 16, S, S, 128)
+    return [dict(name="gemma2-global-bf16", shape=shape,
+                 dtype=torch.bfloat16, cap=50.0),
+            dict(name="gemma2-local-bf16", shape=shape, dtype=torch.bfloat16,
+                 window=4096, cap=50.0)]
+
+
+def gemma2_flash(device, iters=5):
+    """``check_flash`` at ``gemma2_flash_cases``, then the same shapes
+    through ``scaled_dot_product_attention`` without the softcap (no single
+    library call computes one): the library column, with the backend
+    PyTorch picks and with cuDNN's forced (None where cuDNN refuses the
+    call)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    rows = check_flash(device, gemma2_flash_cases(), iters=iters)
+    for c, r in zip(gemma2_flash_cases(), rows):
+        B, H, KVH, Sq, Skv, hd = c["shape"]
+        q, k, v = flash_case(B, H, KVH, Sq, Skv, hd, c["dtype"], device)
+        kw = (dict(attn_mask=flash_kept(Sq, Skv, dict(
+            causal=True, window=c["window"], kv_keep_stride=1), device))
+              if c.get("window") else dict(is_causal=True))
+
+        def lib_call():
+            return F.scaled_dot_product_attention(q, k, v, enable_gqa=True,
+                                                  **kw)
+        lib, cudnn = timed(lib_call, device, iters), None
+        try:
+            with sdpa_kernel(SDPBackend.CUDNN_ATTENTION):
+                cudnn = timed(lib_call, device, iters)
+        except RuntimeError as e:
+            print(f"flash_attention {c['name']}: cuDNN refuses: "
+                  f"{str(e).splitlines()[0][:160]}")
+        print(f"flash_attention {c['name']}: scaled_dot_product_attention "
+              f"without the softcap {lib:.4f} ms (cuDNN forced: "
+              f"{'null' if cudnn is None else f'{cudnn:.4f} ms'}), kernel "
+              f"{r['ms']:.4f} ms ({r['ms'] / lib:.2f}x)")
+        del q, k, v
+        torch.cuda.empty_cache()
+
+
+def dense_cell(device):
+    """Phase ``serve-dense``: parity, the cell's serve run, the rung walk,
+    the ``prefill_with_cache`` handoff and ``flash_attention`` at its
+    shape; device memory before, at peak and after. Returns the serve
+    run's launches."""
+    import gc
+
+    import torch
+    drop_int8_weights()
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dense_parity(device)
+    res, launches = dense_serve(device)
+    dense_walk(res, device)
+    dense_handoff(res, device)
+    del res                  # the engine and its runtime hold a cycle
+    drop_int8_weights()
+    gc.collect()
+    torch.cuda.empty_cache()
+    gemma2_flash(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated()
+    after = torch.cuda.memory_allocated()
+    print(f"serve-dense memory: before {before / 2 ** 30:.2f} GiB, peak "
+          f"{peak / 2 ** 30:.2f} GiB, after {after / 2 ** 30:.2f} GiB")
+    return launches
+
+
 # ------------------------------------------------------------------ main --
 
 def main():
@@ -3007,6 +3522,8 @@ def main():
     phase_done("serve-ring")
     colo_launches = colocate_cell(device)
     phase_done("colocate")
+    dense_launches = dense_cell(device)
+    phase_done("serve-dense")
 
     src_of = {"flash_attention": (
                   "src/repro_torch/csrc/flash_attention.cu",
@@ -3031,7 +3548,8 @@ def main():
                       "train": train_launches[name],
                       "train-attn": attn_train_launches[name],
                       "serve-ring": ring_launches[name],
-                      "colocate": colo_launches[name]}
+                      "colocate": colo_launches[name],
+                      "serve-dense": dense_launches[name]}
                for name in kernels}
     ring_row = next(r for r in pa_rows if r["name"] == "ring-decode")
     paged_ring = {"ring_decode_ms": ring_row["ms"],

@@ -10,8 +10,8 @@ Mamba), and every weight keeps the ``x @ W`` orientation.
 parameters (the parameters themselves, their gradients, AdamW moments)
 becomes the JAX package's nested layout with the layers restacked.
 ``caches_to_numpy`` lays the port's caches out as the JAX package does (one
-``PagedKVCache`` per pattern position, leaves stacked over layer groups),
-so tests can compare them leaf by leaf.
+``KVCache`` or ``PagedKVCache`` per pattern position, leaves stacked over
+layer groups), so tests can compare them leaf by leaf.
 """
 from __future__ import annotations
 
@@ -19,7 +19,6 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import PagedKVCache
 from repro_torch.models.common import ParamTree, tree_map
 
 
@@ -69,5 +68,6 @@ def tree_to_numpy(named, cfg: ModelConfig):
 
 
 def caches_to_numpy(caches):
-    """The port's paged caches as numpy, in the JAX package's layout."""
-    return tuple(PagedKVCache(*(x.cpu().numpy() for x in c)) for c in caches)
+    """The port's caches as numpy, in the JAX package's layout (each
+    cache's own type, its leaves numpy arrays)."""
+    return tuple(type(c)(*(x.cpu().numpy() for x in c)) for c in caches)

@@ -118,7 +118,7 @@ def main(argv=None, *, serve_params=None, train_params=None):
         page_occupancy=min(1.0, (args.prompt_len + args.max_new)
                            / args.max_len))
     eng = ServeEngine(scfg, batch_slots=args.slots, max_len=args.max_len,
-                      params=sparams, table=stable,
+                      params=sparams, table=stable, paged=True,
                       page_size=args.page_size, seed=args.seed,
                       cache_dtype=dtype, device=device)
     serve_tenant = ServeTenant(engine=eng, name="serve")

@@ -1,25 +1,29 @@
-"""Open-loop serving driver: Poisson arrivals into the paged continuous-
-batching engine, with the Pliant control loop (monitor -> controller ->
-variant hot-swap) closed over per-token latency.
+"""Open-loop serving driver: Poisson arrivals into the continuous-batching
+engine, with the Pliant control loop (monitor -> controller -> variant
+hot-swap) closed over per-token latency.
 
 Serving variants come from the explorer's serving grid, ordered
-precise-first.
+precise-first. The engine is dense (per-slot rings, synchronous chunked
+admission) unless ``--paged`` asks for the page pool, as in the JAX
+package's driver, whose defaults these are:
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \
       --paged --dtype bf16 --requests 12 --slots 8 --max-len 1024 \
       --page-size 16 --prefill-chunk 128 --prompt-len 64 \
       --prompt-len-max 400 --max-new 16 --qos-target 0.001
 
-``--megastep K`` decodes up to K tokens a dispatch (on the card, K replays
-of one CUDA graph of the decode step; ``--sync-timing`` drains each
-megastep before the next dispatch, so token stamps time the compute).
+``--megastep K`` (paged) decodes up to K tokens a dispatch (on the card, K
+replays of one CUDA graph of the decode step; ``--sync-timing`` drains
+each megastep before the next dispatch, so token stamps time the compute).
 ``--qos-target 0`` disables control (pin a variant with ``--variant``);
 ``--device cpu`` runs the kernels' plain versions on the CPU. ``--mesh DxM``
 serves under a (data=D, model=M) mesh whose positions are all the one
 device: admission chunks run ring attention over D sequence shards in turn
 (the ``ring_hop`` kernel on the card); decode stays single-device. ``main``
 prints the summary lines and returns a dict with the engine, the requests
-and the headline numbers.
+and the headline numbers; ``main(argv, cfg=)`` serves ``cfg`` (a config
+cut in depth, say) in place of ``--arch``'s.
 """
 from __future__ import annotations
 
@@ -61,9 +65,9 @@ def percentiles(lat, ps=(50, 95, 99)):
     return {p: float(np.percentile(a, p)) for p in ps}
 
 
-def main(argv=None):
+def main(argv=None, *, cfg: ModelConfig = None):
     p = argparse.ArgumentParser()
-    p.add_argument("--arch", default="phi4-mini-3.8b-smoke")
+    p.add_argument("--arch", default="gemma2-27b-smoke")
     p.add_argument("--requests", type=int, default=16)
     p.add_argument("--slots", type=int, default=4)
     p.add_argument("--max-new", type=int, default=12)
@@ -89,8 +93,8 @@ def main(argv=None):
                         "ring-attention admission over 4 sequence shards, "
                         "all on --device")
     p.add_argument("--paged", action="store_true",
-                   help="paged page-pool caches (the port's only layout; "
-                        "accepted for the JAX driver's command line)")
+                   help="paged page-pool caches with prefix reuse and the "
+                        "pool_pages Pliant knob (default: dense rings)")
     p.add_argument("--page-size", type=int, default=8)
     p.add_argument("--pool-pages", type=int, default=0,
                    help="physical pages (0 = auto-size)")
@@ -100,7 +104,7 @@ def main(argv=None):
                    help="fuse up to K decode steps per dispatch (on-device "
                         "sampling + EOS/budget stop masking, async double-"
                         "buffered host loop; K replays of a CUDA graph on "
-                        "the card); 0 = one dispatch per token")
+                        "the card); paged only, 0 = one dispatch per token")
     p.add_argument("--eos-id", type=int, default=-1,
                    help="stop-token id; a request emitting it finishes "
                         "early (-1 = generate max-new tokens)")
@@ -117,10 +121,11 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
 
-    cfg = get_config(args.arch)
+    cfg = cfg or get_config(args.arch)
     dtype = DTYPES[args.dtype]
     params = init_lm(cfg, args.seed, dtype, args.device)
-    occupancy = min(1.0, (args.prompt_len + args.max_new) / args.max_len)
+    occupancy = (min(1.0, (args.prompt_len + args.max_new) / args.max_len)
+                 if args.paged else None)
     table = serving_table(cfg, slots=args.slots, max_len=args.max_len,
                           page_occupancy=occupancy)
     names = [v.name for v in table.variants]
@@ -145,7 +150,8 @@ def main(argv=None):
                       params=params, table=table, runtime=runtime,
                       temperature=args.temperature,
                       prefill_chunk=args.prefill_chunk, seed=args.seed,
-                      cache_dtype=dtype, page_size=args.page_size,
+                      cache_dtype=dtype, paged=args.paged,
+                      page_size=args.page_size,
                       n_pages=args.pool_pages,
                       max_admission_chunks=args.max_admission_chunks,
                       qos_guard=args.qos_guard,
@@ -218,20 +224,21 @@ def main(argv=None):
           f"p95={1e3 * pct[95]:.1f} p99={1e3 * pct[99]:.1f}  "
           f"ttft p95={1e3 * ttft95:.1f}  queue-wait p95={1e3 * q95:.1f}  "
           f"admit-compute p95={1e3 * a95:.1f}")
-    s = eng.pool.stats
-    looks = s["prefix_hits"] + s["prefix_misses"]
-    chunks = [c for c, _ in eng.step_admission_chunks]
-    print(f"paged: pages={eng.pool.spec.n_pages} "
-          f"occupancy={eng.pool.occupancy():.2f} "
-          f"peak_used={s['peak_used']} "
-          f"prefix_hit_rate={s['prefix_hits'] / max(looks, 1):.2f} "
-          f"tokens_skipped={s['tokens_skipped']} "
-          f"reclaim_events={s['reclaim_events']}")
-    print(f"admission: grouped_pages={s['grouped_pages']} "
-          f"grouped_fallbacks={s['grouped_fallbacks']} "
-          f"replenish_evictions={s['replenish_evictions']} "
-          f"chunks/step max={max(chunks, default=0)} "
-          f"budget_cap={args.max_admission_chunks}")
+    if args.paged:
+        s = eng.pool.stats
+        looks = s["prefix_hits"] + s["prefix_misses"]
+        chunks = [c for c, _ in eng.step_admission_chunks]
+        print(f"paged: pages={eng.pool.spec.n_pages} "
+              f"occupancy={eng.pool.occupancy():.2f} "
+              f"peak_used={s['peak_used']} "
+              f"prefix_hit_rate={s['prefix_hits'] / max(looks, 1):.2f} "
+              f"tokens_skipped={s['tokens_skipped']} "
+              f"reclaim_events={s['reclaim_events']}")
+        print(f"admission: grouped_pages={s['grouped_pages']} "
+              f"grouped_fallbacks={s['grouped_fallbacks']} "
+              f"replenish_evictions={s['replenish_evictions']} "
+              f"chunks/step max={max(chunks, default=0)} "
+              f"budget_cap={args.max_admission_chunks}")
     if args.megastep:
         d_t = eng.row_dispatches / max(eng.row_tokens, 1)
         print(f"megastep: k={args.megastep} "

@@ -1,18 +1,30 @@
 """GQA attention: specs, the fp32-softmax core, the full-sequence
-(training) forward, int8 KV encoding, the paged cache, one-token decode and
-chunked prefill.
+(training) forward, int8 KV encoding, the dense ring cache and the paged
+cache, one-token decode and chunked prefill on each.
 
 Counterpart of the JAX package's ``models/attention.py``, single device.
 The full-sequence forward goes through ``ops.flash`` (the CUDA
 ``flash_attention`` kernel on the card, its plain version on the CPU) in
 every mode but the perforated causal one: with ``kv_keep_stride`` > 1 it is
 ``_causal_chunked``, the JAX package's absolute perforation rule, in plain
-PyTorch. Decode writes the new K/V entry with a plain index write and then
-calls the fused ``paged_attention`` kernel; chunked prefill gathers the
-slot's pages and runs ``_sdpa``, as the JAX package does, or, under a mesh
-whose plan carries a sequence ring, ``ring_chunk_attention`` over the
-gathered block row (the ``ring_hop`` kernel). Cache writes update the pool
-tensors in place.
+PyTorch.
+
+Dense rings (``KVCache``): decode and chunked prefill write their K/V at
+``cursor``-relative ring slots with index writes (the slots of the JAX
+package's one-hot selects, the same values bit for bit) and attend with
+``_sdpa`` over the ring, as the JAX package does outside any Pallas
+kernel; under a mesh whose plan carries a sequence ring, a chunk attends
+with ``ring_chunk_attention`` over ``[ring; chunk]`` (the ``ring_hop``
+kernel). The cursor stays a device tensor, so a decode step needs no host
+sync.
+
+Paged pool (``PagedKVCache``): decode writes the new K/V entry with a plain
+index write and then calls the fused ``paged_attention`` kernel; chunked
+prefill gathers the slot's pages and runs ``_sdpa``, as the JAX package
+does, or, under a mesh whose plan carries a sequence ring,
+``ring_chunk_attention`` over the gathered block row.
+
+Cache writes update the cache tensors in place.
 """
 from __future__ import annotations
 
@@ -141,6 +153,30 @@ def dequantize_kv(x, dtype, scale: float = KV_SCALE):
     return x.to(dtype) * scale
 
 
+class KVCache(NamedTuple):
+    """Dense decode cache of one layer: a ring of ``W`` entries per batch
+    row (a local layer's ring is its window, a global layer's ``max_len``),
+    written at ``cursor % W``. The cursor is shared by every row."""
+    k: torch.Tensor       # (B, W, G, hd)
+    v: torch.Tensor
+    pos: torch.Tensor     # (B, W) int32 absolute positions, -1 = empty
+    cursor: torch.Tensor  # () int32: the next write slot (mod W)
+
+
+def init_cache(cfg: ModelConfig, batch: int, length: int,
+               dtype=torch.bfloat16, quantized: bool = False,
+               device="cpu") -> KVCache:
+    hd = cfg.resolved_head_dim
+    kdt = torch.int8 if quantized else dtype
+    shape = (batch, length, cfg.n_kv_heads, hd)
+    return KVCache(
+        k=torch.zeros(shape, dtype=kdt, device=device),
+        v=torch.zeros(shape, dtype=kdt, device=device),
+        pos=torch.full((batch, length), -1, dtype=torch.int32,
+                       device=device),
+        cursor=torch.zeros((), dtype=torch.int32, device=device))
+
+
 class PagedKVCache(NamedTuple):
     """Paged decode cache: entries live in a shared physical page pool and
     each batch slot maps logical pages (position // page_size) to physical
@@ -200,6 +236,96 @@ def _qkv(params, x, positions, cfg: ModelConfig, kv_scale: float, kv_dtype):
     if kv_scale:
         return q, quantize_kv(k, kv_scale), quantize_kv(v, kv_scale)
     return q, k.to(kv_dtype), v.to(kv_dtype)
+
+
+def _as_q(a, dtype, kv_scale: float):
+    """Stored K/V entries at the queries' dtype (dequantised when int8)."""
+    return dequantize_kv(a, dtype, kv_scale) if kv_scale else a.to(dtype)
+
+
+def decode_attention(params, x, position, cache: KVCache, cfg: ModelConfig,
+                     *, window: int = 0, kv_scale: float = 0.0):
+    """One-token decode against a dense ring. x: (B,1,D); position: (B,)
+    absolute positions.
+
+    Every row writes its new K/V entry at ring slot ``cursor % W`` (an
+    index write at a device index), the cursor advances, and ``_sdpa``
+    attends over the whole ring, the entries masked by position (valid,
+    not ahead of the query, inside ``window`` when given). ``kv_scale`` > 0
+    stores int8 entries. Returns (out (B,1,D), cache)."""
+    B = x.shape[0]
+    hd = cfg.resolved_head_dim
+    G, R = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    q, k_store, v_store = _qkv(params, x, position[:, None], cfg, kv_scale,
+                               cache.k.dtype)
+    W = cache.k.shape[1]
+    slot = (cache.cursor.long() % W).reshape(1)
+    cache.k.index_copy_(1, slot, k_store)
+    cache.v.index_copy_(1, slot, v_store)
+    cache.pos.index_copy_(1, slot, position.to(torch.int32)[:, None])
+    cache.cursor.add_(1)
+    kk = _as_q(cache.k, q.dtype, kv_scale)
+    vv = _as_q(cache.v, q.dtype, kv_scale)
+    npos, qpos = cache.pos, position[:, None]
+    valid = (npos >= 0) & (npos <= qpos)
+    if window:
+        valid &= npos > qpos - window
+    o = _sdpa(q.reshape(B, 1, G, R, hd), kk, vv,
+              mask=valid[:, None, None, None, :], cap=cfg.attn_softcap)
+    return o.reshape(B, 1, cfg.q_dim) @ params.wo, cache
+
+
+def chunk_decode_attention(params, x, positions, cache: KVCache,
+                           cfg: ModelConfig, *, window: int = 0,
+                           kv_scale: float = 0.0, mesh=None):
+    """C-token prompt-chunk step against a dense ring (chunked admission).
+    x: (B,C,D); positions: (B,C) absolute.
+
+    The chunk attends over ``[ring entries; the chunk]``, causally by
+    position and inside ``window`` when given, so its own tokens are
+    visible even when C exceeds the ring. Then its last ``min(C, W)``
+    entries go into the ring at ``(cursor + C - n_keep + j) % W``, the
+    slots C successive decode steps would have written, and the cursor
+    advances by C: decode continues from it as from a token-by-token
+    warmup. Under a ``mesh`` whose ``prefill_plan`` finds a sequence layout
+    for C, the attend is ``ring_chunk_attention`` over ``[ring; chunk]`` at
+    storage dtype. Returns (out (B,C,D), cache)."""
+    B, C, _ = x.shape
+    hd = cfg.resolved_head_dim
+    G, R = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    q, k_store, v_store = _qkv(params, x, positions, cfg, kv_scale,
+                               cache.k.dtype)
+    qg = q.reshape(B, C, G, R, hd)
+    pos32 = positions.to(torch.int32)
+    kv_pos = torch.cat([cache.pos, pos32], dim=1)              # (B, W+C)
+    plan, _ = _prefill_ring_plan(cfg, mesh, C)
+    if plan is not None:
+        o = ring_chunk_attention(
+            qg, torch.cat([cache.k, k_store], dim=1),
+            torch.cat([cache.v, v_store], dim=1), positions, kv_pos,
+            mesh=mesh, plan=plan, window=window, cap=cfg.attn_softcap,
+            kv_scale=kv_scale)
+    else:
+        kk = torch.cat([_as_q(cache.k, q.dtype, kv_scale),
+                        _as_q(k_store, q.dtype, kv_scale)], dim=1)
+        vv = torch.cat([_as_q(cache.v, q.dtype, kv_scale),
+                        _as_q(v_store, q.dtype, kv_scale)], dim=1)
+        kp, qp = kv_pos[:, None, :], positions[:, :, None]
+        valid = (kp >= 0) & (kp <= qp)
+        if window:
+            valid &= kp > qp - window
+        o = _sdpa(qg, kk, vv, mask=valid[:, None, None],
+                  cap=cfg.attn_softcap)
+    # the ring write, after the attend has copied the ring it read
+    W = cache.k.shape[1]
+    n_keep = min(C, W)
+    dest = (cache.cursor.long() + (C - n_keep)
+            + torch.arange(n_keep, device=x.device)) % W
+    cache.k.index_copy_(1, dest, k_store[:, C - n_keep:])
+    cache.v.index_copy_(1, dest, v_store[:, C - n_keep:])
+    cache.pos.index_copy_(1, dest, pos32[:, C - n_keep:])
+    cache.cursor.add_(C)
+    return o.reshape(B, C, cfg.q_dim) @ params.wo, cache
 
 
 def paged_decode_attention(params, x, position, cache: PagedKVCache,

@@ -1,14 +1,16 @@
 """Pre-norm residual blocks. Counterpart of the JAX package's
 ``models/blocks.py``: the ATTN and LOCAL_ATTN kinds with an MLP, on the
-paged serving path (decode and paged chunked prefill) and in the
-full-sequence forward of the training path, and the MAMBA kind's
-full-sequence forward. MoE and cross-attention blocks are not ported."""
+serving paths (decode on dense rings or the paged pool, chunked prefill
+into either) and in the full-sequence forward of the training path, and
+the MAMBA kind's full-sequence forward. MoE and cross-attention blocks are
+not ported; Mamba serving is ROADMAP.md queue 1 item 4."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.approx.knobs import PRECISE, ApproxKnobs
-from repro_torch.configs.base import ATTN, LOCAL_ATTN, MAMBA, ModelConfig
+from repro_torch.configs.base import (ATTN, LOCAL_ATTN, MAMBA, SHARED_ATTN,
+                                      ModelConfig)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2 as mamba_mod
 from repro_torch.models import mlp as mlp_mod
@@ -56,6 +58,29 @@ def _kv_args(kind: str, cfg: ModelConfig, knobs: ApproxKnobs):
     return window, kv_scale
 
 
+def refuse_unported(kind: str) -> None:
+    if kind in (MAMBA, SHARED_ATTN):
+        raise NotImplementedError(
+            f"serving a {kind} block is not ported (ROADMAP.md queue 1, "
+            "item 4 'Mamba serving and hybrids')")
+
+
+def block_prefill(kind: str, params, h, positions, cache, cfg: ModelConfig,
+                  knobs: ApproxKnobs = PRECISE, *, mesh=None):
+    """A C-token prompt chunk against a dense ring (chunked admission).
+    h: (B,C,D); positions: (B,C) absolute. Under ``mesh`` the attention may
+    run the sequence ring. Returns (h, cache)."""
+    refuse_unported(kind)
+    window, kv_scale = _kv_args(kind, cfg, knobs)
+    y, cache = attn_mod.chunk_decode_attention(
+        params.attn, rms_norm(h, params.norm_attn, cfg.norm_eps),
+        positions, cache, cfg, window=window, kv_scale=kv_scale, mesh=mesh)
+    h = h + y
+    hn = rms_norm(h, params.norm_mlp, cfg.norm_eps)
+    return h + mlp_mod.mlp(params.mlp, hn,
+                           precision=knobs.matmul_precision), cache
+
+
 def block_prefill_paged(kind: str, params, h, positions, cache,
                         cfg: ModelConfig, knobs: ApproxKnobs = PRECISE, *,
                         slot: int, mesh=None):
@@ -75,17 +100,25 @@ def block_prefill_paged(kind: str, params, h, positions, cache,
 
 def block_decode(kind: str, params, h, position, cache, cfg: ModelConfig,
                  knobs: ApproxKnobs = PRECISE, *, active=None):
-    """Single-token decode. Returns (h, cache).
+    """Single-token decode on a ``PagedKVCache`` or a dense ``KVCache``
+    ring, chosen by the cache's type. Returns (h, cache).
 
-    ``active`` (B,) bool masks per-slot cache writes; None = all rows live.
-    The FREEZE contract: for a row with ``active=False`` every page the row
-    owns comes back bit-identical, because its write is redirected to the
-    never-read null page."""
+    On the paged pool ``active`` (B,) bool masks per-slot cache writes;
+    None = all rows live. The FREEZE contract: for a row with
+    ``active=False`` every page the row owns comes back bit-identical,
+    because its write is redirected to the never-read null page. A dense
+    ring takes no mask: every row writes at the shared cursor."""
+    refuse_unported(kind)
     window, kv_scale = _kv_args(kind, cfg, knobs)
     hn = rms_norm(h, params.norm_attn, cfg.norm_eps)
-    y, cache = attn_mod.paged_decode_attention(
-        params.attn, hn, position, cache, cfg, window=window,
-        kv_scale=kv_scale, active=active)
+    if isinstance(cache, attn_mod.PagedKVCache):
+        y, cache = attn_mod.paged_decode_attention(
+            params.attn, hn, position, cache, cfg, window=window,
+            kv_scale=kv_scale, active=active)
+    else:
+        y, cache = attn_mod.decode_attention(
+            params.attn, hn, position, cache, cfg, window=window,
+            kv_scale=kv_scale)
     h = h + y
     hn = rms_norm(h, params.norm_mlp, cfg.norm_eps)
     return h + mlp_mod.mlp(params.mlp, hn,

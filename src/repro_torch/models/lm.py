@@ -1,22 +1,25 @@
-"""Decoder-only LM: specs, init, logits; on the paged serving path the
-paged caches and the one-token decode step, on the training path the
+"""Decoder-only LM: specs, init, logits; on the serving path the decode
+caches and the one-token decode step, on the training path the
 full-sequence forward, the chunked cross-entropy and ``lm_loss``.
 Counterpart of the JAX package's ``models/lm.py``; a Python loop over the
 layers takes the place of ``lax.scan`` over layer groups, and
 ``torch.utils.checkpoint`` the place of ``jax.checkpoint``.
 
-On the serving path ``sample_token`` and ``decode_megastep`` are the
-twins of the JAX package's on-device sampler and K-step megastep: the
-sampler keys its temperature draws by threefry (``models/threefry.py``),
-and the megastep's K steps are a Python loop over one body that updates
-its carry and the caches in place (the engine replays that body as a CUDA
-graph on the card).
+On the serving path ``init_caches`` (dense rings) and
+``init_paged_caches`` (the page pool) lay out the decode caches, and
+``decode_step`` runs on either. ``sample_token`` and ``decode_megastep``
+(paged) are the twins of the JAX package's on-device sampler and K-step
+megastep: the sampler keys its temperature draws by threefry
+(``models/threefry.py``), and the megastep's K steps are a Python loop over
+one body that updates its carry and the caches in place (the engine
+replays that body as a CUDA graph on the card).
 
 Parameters are a ``ParamTree`` with ``embed``, ``final_norm`` (and
 ``unembed`` when untied) and ``layers``: one block per layer in
-``cfg.kinds()`` order. Caches keep the JAX layout: one ``PagedKVCache`` per
-pattern position whose leaves are stacked over layer groups (axis 0), and
-layer ``g * period + j`` works on group ``g`` of cache ``j`` in place.
+``cfg.kinds()`` order. Caches keep the JAX layout: one ``KVCache`` or
+``PagedKVCache`` per pattern position whose leaves are stacked over layer
+groups (axis 0; a ring's cursor is a (n_groups,) tensor), and layer ``g *
+period + j`` works on group ``g`` of cache ``j`` in place.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.approx.knobs import PRECISE, ApproxKnobs, keep_groups
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import LOCAL_ATTN, MAMBA, ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.blocks import block_decode, block_forward, block_specs
 from repro_torch.models import threefry
@@ -160,6 +163,30 @@ def lm_loss(params, batch, cfg: ModelConfig, knobs: ApproxKnobs = PRECISE, *,
 
 # ------------------------------------------------------------------ decode --
 
+def _stack_groups(cache, cfg: ModelConfig):
+    """One layer's cache repeated over the layer groups (axis 0)."""
+    return type(cache)(*(x[None].repeat((cfg.n_groups,) + (1,) * x.ndim)
+                         for x in cache))
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int,
+                dtype=torch.bfloat16, quantized: bool = False, device="cpu"):
+    """One dense ``KVCache`` per pattern position, stacked over the layer
+    groups: a local layer's ring is ``min(window, max_len)`` wide, a global
+    layer's ``max_len``. Mamba state caches are not ported (ROADMAP.md
+    queue 1, item 4)."""
+    def one(kind):
+        if kind == MAMBA:
+            raise NotImplementedError(
+                f"{cfg.name}: Mamba serving caches are not ported "
+                "(ROADMAP.md queue 1, item 4 'Mamba serving and hybrids')")
+        length = min(cfg.window, max_len) if kind == LOCAL_ATTN else max_len
+        return _stack_groups(attn_mod.init_cache(
+            cfg, batch, length, dtype, quantized=quantized, device=device),
+            cfg)
+    return tuple(one(kind) for kind in cfg.pattern)
+
+
 def init_paged_caches(cfg: ModelConfig, batch: int, n_pages: int,
                       page_size: int, max_pages: int, dtype=torch.bfloat16,
                       quantized: bool = False, device="cpu"):
@@ -167,18 +194,17 @@ def init_paged_caches(cfg: ModelConfig, batch: int, n_pages: int,
     the layer groups (the block table is replicated per group, as in the
     JAX package)."""
     def one():
-        c = attn_mod.init_paged_cache(cfg, batch, n_pages, page_size,
-                                      max_pages, dtype, quantized=quantized,
-                                      device=device)
-        return attn_mod.PagedKVCache(*(
-            x[None].repeat((cfg.n_groups,) + (1,) * x.ndim) for x in c))
+        return _stack_groups(attn_mod.init_paged_cache(
+            cfg, batch, n_pages, page_size, max_pages, dtype,
+            quantized=quantized, device=device), cfg)
     return tuple(one() for _ in cfg.pattern)
 
 
 def layer_cache(caches, cfg: ModelConfig, layer: int):
-    """Views of layer ``layer``'s cache (writes land in ``caches``)."""
+    """Views of layer ``layer``'s cache, of its stacked cache's type
+    (writes land in ``caches``)."""
     g, j = divmod(layer, len(cfg.pattern))
-    return attn_mod.PagedKVCache(*(x[g] for x in caches[j]))
+    return type(caches[j])(*(x[g] for x in caches[j]))
 
 
 def decode_step(params, tokens, position, caches, cfg: ModelConfig,
@@ -186,7 +212,9 @@ def decode_step(params, tokens, position, caches, cfg: ModelConfig,
     """tokens: (B,1) int; position: (B,) int32 absolute positions.
 
     Returns (logits (B,V) fp32, caches), the caches updated in place.
-    ``active`` (B,) bool masks per-slot cache writes."""
+    ``caches`` are dense rings (``init_caches``) or the page pool
+    (``init_paged_caches``); on the pool ``active`` (B,) bool masks
+    per-slot cache writes."""
     h = params.embed[tokens[:, 0]][:, None, :]
     for i, kind in enumerate(cfg.kinds()):
         h, _ = block_decode(kind, params.layers[i], h, position,

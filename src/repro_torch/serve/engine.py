@@ -1,6 +1,19 @@
-"""Paged serving engine: continuous-batching slots over the paged decode
-step, run under Pliant control. Counterpart of the paged, single-device,
-per-step path of the JAX package's ``serve/engine.py``.
+"""Batched serving engine: continuous-batching slots over the decode step,
+run under Pliant control. Counterpart of the single-device path of the JAX
+package's ``serve/engine.py``, with its two cache data models, selected by
+``paged``:
+
+* **dense** (the default, as in the JAX package): per-slot rings,
+  ``max_len`` wide (a local layer's ``min(window, max_len)``), written at
+  one cursor shared by every slot. Admission is synchronous: the prompt
+  streams through fixed-size chunks (``serve.prefill.prefill_chunk``) into
+  a fresh single-request cache, which ``serve.slots.insert_request``
+  rotates by the cursors' difference into the slot's row, and the first
+  token is sampled; then every slot decodes in one ``lm.decode_step``
+  (free slots too, at stale positions, their output unread), and the host
+  samples from the (B, V) logits. A ``kv_quant`` swap converts the rings.
+  There is no page pool (``pool`` is None) and no megastep.
+* **paged**: the rest of this docstring.
 
 KV entries live in a shared physical page pool with per-slot block tables
 (``serve.pages.PagePool`` owns allocation host-side). Admission is chunked
@@ -23,27 +36,29 @@ protocol (``request_variant``, deferred while an admission is in flight);
 RECLAIM/RETURN shrink and regrow the pool's page budget.
 
 The engine runs on ``device`` (CUDA unless the caller asks for the CPU);
-on the card decode attention and the int8 matmuls are the hand-written
-kernels, on the CPU their plain versions. Caches update in place.
+on the card the paged decode attention and the int8 matmuls are the
+hand-written kernels, on the CPU their plain versions. Dense decode
+attention is ``_sdpa`` over the ring in plain PyTorch on both, as the JAX
+package computes it outside any Pallas kernel. Caches update in place.
 
-With ``megastep_k`` > 0 the engine decodes in megasteps, the twin of the
-JAX package's megastep pipeline: one dispatch fuses up to K decode steps
-with on-device sampling (greedy, or threefry keyed by (seed, uid, draw))
-and EOS/budget stop masking, the carry (cur, pos, alive, uids, draws,
-budget) chains on the device between dispatches in static tensors, and
-the host loop is double-buffered: dispatch N+1 is issued before megastep N
-is drained. On the card a megastep of K is K back-to-back replays of one
-CUDA graph of the decode step per variant, each writing its token into
-column j of a (B, megastep_k) buffer, and the tokens reach the host
-through a pinned buffer and an event; on the CPU the same step runs K
-times eagerly. Graphs hold raw addresses, so a variant swap (the only place the caches
-are rebuilt) flushes the pipeline and drops every graph, and a graph whose
-cached int8 weights were dropped is recaptured before it could replay over
-freed memory.
+With ``megastep_k`` > 0 the paged engine decodes in megasteps, the twin
+of the JAX package's megastep pipeline: one dispatch fuses up to K decode
+steps with on-device sampling (greedy, or threefry keyed by (seed, uid,
+draw)) and EOS/budget stop masking, the carry (cur, pos, alive, uids,
+draws, budget) chains on the device between dispatches in static tensors,
+and the host loop is double-buffered: dispatch N+1 is issued before
+megastep N is drained. On the card a megastep of K is K back-to-back
+replays of one CUDA graph of the decode step per variant, each writing its
+token into column j of a (B, megastep_k) buffer, and the tokens reach the
+host through a pinned buffer and an event; on the CPU the same step runs K
+times eagerly. Graphs hold raw addresses, so a variant swap (the only
+place the caches are rebuilt) flushes the pipeline and drops every graph,
+and a graph whose cached int8 weights were dropped is recaptured before it
+could replay over freed memory.
 
 With a ``mesh`` (``launch.mesh.Mesh``, every position on ``device``),
-admission chunks run their attention as a sequence ring when
-``dist.sharding.prefill_plan`` finds a layout for the chunk length
+admission chunks (dense or paged) run their attention as a sequence ring
+when ``dist.sharding.prefill_plan`` finds a layout for the chunk length
 (``ring_chunk_attention``, the ``ring_hop`` kernel on the card): the plan is
 derived once for ``prefill_chunk`` and again by the chunk cell for each
 chunk length, so a ragged tail re-plans and a tail shorter than the shard
@@ -159,6 +174,7 @@ class ServeEngine:
     prefill_chunk: int = 16
     seed: int = 0
     cache_dtype: object = torch.float32
+    paged: bool = False                # paged pool instead of dense rings
     page_size: int = 8
     n_pages: int = 0                   # 0 = auto (serve.pages.spec_for)
     pack_window: int = 4               # pending requests scanned per slot
@@ -177,7 +193,8 @@ class ServeEngine:
                                        # dispatch (on-device sampling, EOS/
                                        # budget stop masking, async double-
                                        # buffered host loop; a replayed CUDA
-                                       # graph on the card). 0 = per-step
+                                       # graph on the card); paged engines
+                                       # only. 0 = per-step
     sync_timing: bool = False          # drain each megastep before
                                        # dispatching the next: no pipeline
                                        # overlap, but per-token stamps
@@ -199,12 +216,17 @@ class ServeEngine:
         self._variant_knobs = ([v.knobs for v in self.table.variants]
                                if self.table is not None else [self.knobs])
         self._active = 0
-        self._page_spec = pages_mod.spec_for(
-            self.batch_slots, self.max_len, self.page_size, self.n_pages)
-        self.pool = pages_mod.PagePool(self._page_spec, self.batch_slots)
-        # greedy engines take argmax on the device: the step returns (B,)
-        # token ids, so the host never pulls (B, V) logits
-        self._fused_sample = self.temperature <= 0.0
+        if self.megastep_k:
+            assert self.paged, "megastep decode requires the paged engine"
+        self.pool: Optional[pages_mod.PagePool] = None
+        self._page_spec = None
+        if self.paged:
+            self._page_spec = pages_mod.spec_for(
+                self.batch_slots, self.max_len, self.page_size, self.n_pages)
+            self.pool = pages_mod.PagePool(self._page_spec, self.batch_slots)
+        # greedy paged engines take argmax on the device: the step returns
+        # (B,) token ids, so the host never pulls (B, V) logits
+        self._fused_sample = self.paged and self.temperature <= 0.0
         self.caches = self._init_caches(self.active_knobs.kv_quant)
         self.positions = np.zeros(self.batch_slots, np.int32)
         self.slots: List[Optional[Request]] = [None] * self.batch_slots
@@ -216,7 +238,7 @@ class ServeEngine:
         self._await_admit: Dict[int, _Admission] = {}
         self._head_skips = 0           # consecutive pool-blocked head skips
         # window-exit page freeing is sound only when EVERY layer is banded
-        self._window_free = (self.cfg.window if self.cfg.window
+        self._window_free = (self.cfg.window if self.paged and self.cfg.window
                              and set(self.cfg.pattern) <= {LOCAL_ATTN}
                              else 0)
         self.cur_tokens = np.zeros(self.batch_slots, np.int32)
@@ -244,6 +266,7 @@ class ServeEngine:
         if self.megastep_k:
             self._init_megastep_buffers()
         self.step_latencies: List[float] = []
+        self.admit_latencies: List[float] = []  # dense admissions' walls
         self.swaps: List[Tuple[int, int]] = []   # (step index, variant index)
         self.step_admission_chunks: List[Tuple[int, int]] = []  # (used, budget)
         self._token_lat: List[float] = []        # unflushed monitor samples
@@ -288,6 +311,11 @@ class ServeEngine:
         where = (f"{self.device}, single device (decode is not sharded "
                  "over the mesh)" if self.mesh is not None
                  else f"{self.device}")
+        if not self.paged:
+            mm = ("int8_matmul on int8 rungs" if self.device.type == "cuda"
+                  else "int8_matmul's plain version on int8 rungs")
+            return ("dense decode: ring caches (no paged dispatch), _sdpa "
+                    f"over the ring in plain PyTorch, {mm}, {where}")
         mega = ""
         if self.megastep_k > 0:
             mega = (f", inside a fused {self.megastep_k}-token megastep "
@@ -332,8 +360,9 @@ class ServeEngine:
 
     def set_variant(self, idx: int) -> None:
         """Hot-swap the active variant at a step boundary, converting the
-        page pool when the swap crosses the ``kv_quant`` boundary and
-        dropping the cached int8 weights when it leaves the int8 matmuls."""
+        rings or the page pool when the swap crosses the ``kv_quant``
+        boundary and dropping the cached int8 weights when it leaves the
+        int8 matmuls."""
         if idx == self._active:
             return
         # the graphs hold the addresses of the caches and of the cached
@@ -345,7 +374,7 @@ class ServeEngine:
         if old.kv_quant != new.kv_quant:
             self.caches = slots_mod.convert_caches(
                 self.caches, new.kv_quant, self.cache_dtype)
-        if old != new:
+        if old != new and self.paged:
             # prefix entries are tagged by the knobs that computed them; a
             # swap re-encodes the pool in place, so drop the stale index
             self.pool.flush_prefixes()
@@ -385,6 +414,10 @@ class ServeEngine:
     # ------------------------------------------------------------- helpers --
 
     def _init_caches(self, quantized: bool):
+        if not self.paged:
+            return lm.init_caches(self.cfg, self.batch_slots, self.max_len,
+                                  dtype=self.cache_dtype,
+                                  quantized=quantized, device=self.device)
         sp = self._page_spec
         return lm.init_paged_caches(
             self.cfg, self.batch_slots, sp.n_pages, sp.page_size,
@@ -470,6 +503,54 @@ class ServeEngine:
             c.block.copy_(bt.expand_as(c.block))
 
     # ----------------------------------------------------------- admission --
+
+    def _chunked_prefill(self, prompt: List[int]):
+        """Dense path: stream the prompt through fixed-size chunks into a
+        fresh single-request cache. Returns (last-token logits, caches)."""
+        knobs = self.active_knobs
+        caches = lm.init_caches(self.cfg, 1, self.max_len,
+                                dtype=self.cache_dtype,
+                                quantized=knobs.kv_quant, device=self.device)
+        toks = torch.tensor([prompt], dtype=torch.long, device=self.device)
+        S, start, logits = len(prompt), 0, None
+        while start < S:
+            C = min(self.prefill_chunk, S - start)
+            logits, caches = prefill_mod.prefill_chunk(
+                self.params, toks[:, start:start + C], start, caches,
+                self.cfg, knobs, mesh=self.mesh)
+            start += C
+        return logits, caches
+
+    def _admit(self) -> None:
+        """Dense path: synchronous admission (the whole chunked prefill into
+        a fresh cache, the slot insert and the first token inside one
+        step), every free slot in turn."""
+        for i in range(self.batch_slots):
+            while self.slots[i] is None and self.pending:
+                req = self.pending[0]
+                assert len(req.prompt) <= self.max_len, \
+                    (len(req.prompt), self.max_len)
+                t0 = time.perf_counter()
+                req.t_admit_start = t0
+                logits, rcaches = self._chunked_prefill(req.prompt)
+                self.caches = slots_mod.insert_request(self.caches, rcaches,
+                                                       i)
+                self.pending.popleft()
+                tok = int(self._sample_rows(logits.cpu().numpy(), [req])[0])
+                now = time.perf_counter()
+                self.admit_latencies.append(now - t0)
+                self._token_lat.append(now - t0)   # TTFT sample
+                req.t_admit = now                  # admission COMPLETION
+                req.admit_compute_s = now - t0     # sync: compute == wall
+                req.out.append(tok)
+                req.token_times.append(now)
+                if len(req.out) >= req.max_new or (
+                        self.eos_id >= 0 and tok == self.eos_id):
+                    req.done = True                # 1-token request: no slot
+                    continue
+                self.positions[i] = len(req.prompt)
+                self.cur_tokens[i] = tok
+                self.slots[i] = req
 
     def _prefix_dedup_wait(self, req: Request, shard: int = 0) -> bool:
         """Cold-start prefix dedup: True when an in-flight admission is
@@ -646,13 +727,15 @@ class ServeEngine:
 
     # --------------------------------------------------------------- steps --
 
-    def _decode(self, rows_active: np.ndarray):
+    def _decode(self, rows_active: Optional[np.ndarray]):
         """The decode step over every slot: (B,) greedy token ids (argmax on
-        the device) or (B, V) logits for host sampling."""
+        the device) or (B, V) logits for host sampling. ``rows_active``
+        masks the paged pool's writes; dense rings take None."""
         toks = torch.tensor(self.cur_tokens, dtype=torch.long,
                             device=self.device)[:, None]
         pos = torch.tensor(self.positions, device=self.device)
-        act = torch.tensor(rows_active, device=self.device)
+        act = (None if rows_active is None
+               else torch.tensor(rows_active, device=self.device))
         logits, self.caches = lm.decode_step(
             self.params, toks, pos, self.caches, self.cfg, self.active_knobs,
             active=act)
@@ -935,34 +1018,43 @@ class ServeEngine:
 
     def step(self) -> None:
         """One engine step. Megastep (``megastep_k`` > 0): one round of the
-        async double-buffered pipeline (``_megastep_round``). Per-step: the
-        admission phase (open admissions on every free slot, advance them
-        under the QoS chunk budget), one decode for every live slot
-        (admitting slots ride along inactive), then the single drain point
-        and the Pliant control tick."""
+        async double-buffered pipeline (``_megastep_round``). Paged
+        per-step: the admission phase (open admissions on every free slot,
+        advance them under the QoS chunk budget), one decode for every live
+        slot (admitting slots ride along inactive), then the single drain
+        point. Dense: synchronous admission, then one decode of every slot.
+        All tick the Pliant control loop at the step boundary."""
         self.step_count += 1
         self._expire_pending()
         if self.megastep_k > 0:
             self._megastep_round()
             return
-        self._advance_admissions()
+        if self.paged:
+            self._advance_admissions()
+        else:
+            self._admit()
         # the decode row set is FIXED here: slots activated at this step's
         # admission drain join the next step's decode
         rows = [i for i, req in enumerate(self.slots) if req is not None]
         if not rows:
-            self._drain_admissions()
-            self.pool.replenish()
-            self._control_tick()
+            if self.paged:
+                self._drain_admissions()
+                self.pool.replenish()
+            self._control_tick()       # flush TTFT samples of 1-token admits
             return
-        dirty = False
-        for i in rows:
-            dirty |= self.pool.ensure_decode_page(i, int(self.positions[i]))
-        if dirty:
-            self._push_blocks()
+        if self.paged:
+            dirty = False
+            for i in rows:
+                dirty |= self.pool.ensure_decode_page(
+                    i, int(self.positions[i]))
+            if dirty:
+                self._push_blocks()
         t0 = time.perf_counter()
-        out = self._decode(np.array([s is not None for s in self.slots]))
+        out = self._decode(np.array([s is not None for s in self.slots])
+                           if self.paged else None)
         self.decode_dispatches += 1
-        self._drain_admissions()
+        if self.paged:
+            self._drain_admissions()
         tb = time.perf_counter()
         out = out.cpu().numpy()
         self.drain_block_s += time.perf_counter() - tb
@@ -989,13 +1081,15 @@ class ServeEngine:
                 req.done = True
                 self.slots[i] = None            # slot freed: continuous batch
                 self._rngs.pop(req.uid, None)
-                freed |= self._free_slot(i)
+                if self.paged:
+                    freed |= self._free_slot(i)
             elif self._window_free:
                 freed |= self.pool.release_window_pages(
                     i, int(self.positions[i]) - self._window_free)
         if freed:
             self._push_blocks()
-        self.pool.replenish()
+        if self.paged:
+            self.pool.replenish()
         self._token_lat.extend([dt] * len(rows))
         self._control_tick()
 

@@ -1,14 +1,70 @@
-"""Chunked-prefill admission into the paged pool. Counterpart of the JAX
-package's ``serve/prefill.paged_prefill_chunk``."""
+"""Prompt admission. Counterpart of the JAX package's ``serve/prefill.py``:
+``prefill_chunk`` streams one prompt chunk into dense rings (the dense
+engine's admission into a fresh single-request cache),
+``paged_prefill_chunk`` one chunk of one slot into the page pool, and
+``prefill_with_cache`` runs the full-sequence forward once and hands dense
+rings to decode. Attention kinds only: a Mamba or shared-attention block
+raises until ROADMAP.md queue 1 item 4."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.approx.knobs import PRECISE, ApproxKnobs
-from repro_torch.configs.base import ModelConfig
-from repro_torch.models.blocks import block_prefill_paged
-from repro_torch.models.common import rms_norm
+from repro_torch.configs.base import LOCAL_ATTN, ModelConfig
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import mlp as mlp_mod
+from repro_torch.models.attention import KVCache
+from repro_torch.models.blocks import (block_prefill, block_prefill_paged,
+                                       refuse_unported)
+from repro_torch.models.common import apply_rope, rms_norm
 from repro_torch.models.lm import layer_cache, logits_fn
+
+
+def _attn_block_with_kv(params, h, positions, cfg: ModelConfig, kind: str,
+                        knobs: ApproxKnobs, max_len: int):
+    """An attention block over the whole sequence that also returns its
+    decode ring: the last ``min(S, W)`` K/V entries in the first slots, at
+    the activations' dtype. h: (B,S,D). Returns (h, KVCache)."""
+    hn = rms_norm(h, params.norm_attn, cfg.norm_eps)
+    B, S, _ = hn.shape
+    hd, G = cfg.resolved_head_dim, cfg.n_kv_heads
+    k = apply_rope((hn @ params.attn.wk).reshape(B, S, G, hd), positions,
+                   cfg.rope_theta)
+    v = (hn @ params.attn.wv).reshape(B, S, G, hd)
+    mode = "window" if kind == LOCAL_ATTN else "causal"
+    h = h + attn_mod.attention(params.attn, hn, positions, cfg, mode=mode,
+                               kv_keep_stride=knobs.kv_keep_stride)
+    hn2 = rms_norm(h, params.norm_mlp, cfg.norm_eps)
+    h = h + mlp_mod.mlp(params.mlp, hn2, precision=knobs.matmul_precision)
+    W = min(cfg.window, max_len) if kind == LOCAL_ATTN else max_len
+    n_keep = min(S, W)
+    cache = attn_mod.init_cache(cfg, B, W, k.dtype, device=h.device)
+    cache.k[:, :n_keep] = k[:, S - n_keep:]
+    cache.v[:, :n_keep] = v[:, S - n_keep:]
+    cache.pos[:, :n_keep] = torch.arange(S - n_keep, S, dtype=torch.int32,
+                                         device=h.device)
+    cache.cursor.fill_(n_keep % W)
+    return h, cache
+
+
+def prefill_chunk(params, tokens, start: int, caches, cfg: ModelConfig,
+                  knobs: ApproxKnobs = PRECISE, *, mesh=None):
+    """One prompt chunk against dense decode rings (chunked admission).
+
+    tokens: (B, C); ``start`` is the chunk's first absolute position;
+    caches: the ``lm.init_caches`` layout. Each layer's chunk attends over
+    its ring and itself, then enters the ring; under ``mesh`` the attention
+    may run the sequence ring. Returns (last-token logits (B,V) fp32,
+    caches), the caches updated in place."""
+    h = params.embed[tokens]
+    B, C, _ = h.shape
+    positions = start + torch.arange(C, device=h.device).expand(B, C)
+    for i, kind in enumerate(cfg.kinds()):
+        h, _ = block_prefill(kind, params.layers[i], h, positions,
+                             layer_cache(caches, cfg, i), cfg, knobs,
+                             mesh=mesh)
+    h = rms_norm(h, params.final_norm, cfg.norm_eps)
+    return logits_fn(params, h[:, -1], cfg), caches
 
 
 def paged_prefill_chunk(params, tokens, start: int, caches, slot: int,
@@ -29,4 +85,30 @@ def paged_prefill_chunk(params, tokens, start: int, caches, slot: int,
                                    layer_cache(caches, cfg, i), cfg, knobs,
                                    slot=slot, mesh=mesh)
     h = rms_norm(h, params.final_norm, cfg.norm_eps)
+    return logits_fn(params, h[:, -1], cfg), caches
+
+
+def prefill_with_cache(params, tokens, cfg: ModelConfig, max_len: int,
+                       knobs: ApproxKnobs = PRECISE):
+    """tokens: (B, S) -> (last-token logits (B,V) fp32, decode caches).
+
+    One full-sequence forward (its attention through ``ops.flash``); the
+    caches come back in the ``lm.init_caches`` layout with the last
+    ``min(S, W)`` positions of each ring filled, and ``lm.decode_step``
+    continues from position S."""
+    h = params.embed[tokens]
+    B, S, _ = h.shape
+    positions = torch.arange(S, device=h.device).expand(B, S)
+    period = len(cfg.pattern)
+    per_layer = []
+    for i, kind in enumerate(cfg.kinds()):
+        refuse_unported(kind)
+        h, cache = _attn_block_with_kv(params.layers[i], h, positions, cfg,
+                                       kind, knobs, max_len)
+        per_layer.append(cache)
+    h = rms_norm(h, params.final_norm, cfg.norm_eps)
+    caches = tuple(
+        KVCache(*(torch.stack(leaves) for leaves in
+                  zip(*per_layer[j::period])))
+        for j in range(period))
     return logits_fn(params, h[:, -1], cfg), caches

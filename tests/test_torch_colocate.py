@@ -149,7 +149,7 @@ def test_serve_tenant_swap_defers_mid_admission():
                     dict(paged=True)),
             "port": (t_engine, tenant, runtime, controller, monitor,
                      serving_table, _converted(arch, 0), tcfg,
-                     dict(device="cpu"))}.items():
+                     dict(paged=True, device="cpu"))}.items():
         eng = eng_mod.ServeEngine(cfg, params=params, table=table_fn(
             cfg, slots=2, max_len=32, page_occupancy=0.5), **kw, **extra)
         serve = ten.ServeTenant(engine=eng, name="serve")

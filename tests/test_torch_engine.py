@@ -72,7 +72,7 @@ def _engines(model, *, runtime=False, max_new=MAX_NEW, n_pages=POOL):
     je = jax_engine.ServeEngine(jcfg, params=jparams, table=jtable,
                                 runtime=jrt, paged=True, **kw)
     te = t_engine.ServeEngine(tcfg, params=tparams, table=ttable,
-                              runtime=trt, device="cpu", **kw)
+                              runtime=trt, paged=True, device="cpu", **kw)
     for eng, mod in ((je, jax_engine), (te, t_engine)):
         eng.reqs = [mod.Request(i, prompt=list(p), max_new=max_new)
                     for i, p in enumerate(_prompts(tcfg.vocab_size))]

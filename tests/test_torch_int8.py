@@ -255,7 +255,8 @@ def test_set_variant_away_from_int8_empties_the_cache(empty_cache):
     eng = t_engine.ServeEngine(cfg, params=init_lm(cfg, 0, torch.float32,
                                                    "cpu"),
                                table=table, batch_slots=2, max_len=32,
-                               prefill_chunk=4, page_size=4, device="cpu")
+                               prefill_chunk=4, paged=True, page_size=4,
+                               device="cpu")
     eng.set_variant(names.index("int8"))
     eng.submit(t_engine.Request(0, prompt=[3, 5, 7, 9, 11], max_new=3))
     eng.run()
@@ -290,7 +291,7 @@ def test_streams_identical_across_int8_precise_int8(model, empty_cache,
     je = jax_engine.ServeEngine(jcfg, params=jparams, table=jtable,
                                 paged=True, **kw)
     te = t_engine.ServeEngine(tcfg, params=tparams, table=ttable,
-                              device="cpu", **kw)
+                              paged=True, device="cpu", **kw)
     made = []
     quantize = ops.quantize_weight
     monkeypatch.setattr(ops, "quantize_weight",

@@ -61,10 +61,10 @@ def prompts_for(vocab, n=5, length=7, seed=3):
 
 def make_engine(model, pkg, **kw):
     cfg, params = model[pkg]
-    kw = dict(dict(batch_slots=2, max_len=64, prefill_chunk=3, page_size=4),
-              **kw)
+    kw = dict(dict(batch_slots=2, max_len=64, prefill_chunk=3, paged=True,
+                   page_size=4), **kw)
     if pkg == "jax":
-        return ENGINES[pkg].ServeEngine(cfg, params=params, paged=True, **kw)
+        return ENGINES[pkg].ServeEngine(cfg, params=params, **kw)
     return ENGINES[pkg].ServeEngine(cfg, params=params, device="cpu", **kw)
 
 

@@ -390,7 +390,7 @@ def _port_streams(port_model, rung, mesh):
     from repro_torch.serve.engine import Request, ServeEngine
     cfg, params, table = port_model
     eng = ServeEngine(cfg, params=params, table=table, device="cpu",
-                      mesh=mesh, **ENGINE_KW)
+                      mesh=mesh, paged=True, **ENGINE_KW)
     eng.request_variant(rung)
     reqs = [Request(i, prompt=list(p), max_new=MAX_NEW)
             for i, p in enumerate(_prompts(cfg.vocab_size))]
@@ -454,7 +454,7 @@ def test_engine_mesh_must_share_the_engine_device(port_model):
     with pytest.raises(ValueError, match="mesh on meta"):
         ServeEngine(cfg, params=params, table=table, device="cpu",
                     mesh=make_mesh((2, 1), ("data", "model"), "meta"),
-                    **ENGINE_KW)
+                    paged=True, **ENGINE_KW)
 
 
 def test_serve_cli_mesh_banner(capsys):
