@@ -15,9 +15,12 @@ Phases, each reported on its own line:
              widths for ``ssd_scan`` and the int8 projections;
              phi4-mini-3.8b training at 2 x 4096 tokens for
              ``flash_attention``, plus window + softcap + GQA, stride-2
-             perforation and ragged Sq != Skv cases, each through the
-             design ``select_flash_design`` names, the tiled one on every
-             fp32 hd-128 case), fp32 and bf16, with
+             perforation, ragged Sq != Skv cases, hd 64 and a caller
+             grid of 48 x 80 that leaves rows fully masked, each in fp32
+             and in bf16 and through the design ``select_flash_design``
+             names, the tiled one for fp32 and tc for bf16 at hd 64 and
+             128, with the transcendentals' floor beside the bound), fp32
+             and bf16, with
              its time beside the plain version's, a library call's where one
              computes the same function, and its bound. Then the training
              path's gradients: ``ssd_scan``'s backward kernels against
@@ -156,10 +159,12 @@ Phases, each reported on its own line:
              both handoffs' rings holding the same positions with their
              cursors at the next slot and K/V within 0.5 of their rms, then
              32 decode steps teacher-forced through both, each step's
-             logits within 0.15 of their rms; ``flash_attention``
-             at that shape (causal and window 4096, softcap 50) beside its
-             plain version and ``scaled_dot_product_attention`` without the
-             softcap; device memory before, at peak and after.
+             logits within 0.15 of their rms, its 16 ``flash_attention``
+             launches all of design tc, its time beside the 614.6 ms the
+             simple design took on an H100; ``flash_attention`` at that shape
+             (causal and window 4096, softcap 50, and causal without it)
+             beside its plain version and ``scaled_dot_product_attention``
+             without the softcap; device memory before, at peak and after.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``. Any
@@ -184,6 +189,9 @@ HBM_BW = 3.35e12
 INT8_OPS = 1979e12
 BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12
+# transcendentals (MUFU: ex2, rcp, tanh, ...) a second: 16 an SM a clock,
+# 132 SMs at the 1980 MHz boost clock
+SFU_OPS = 16 * 132 * 1.98e9
 
 # bf16 rounds to 8 significant bits: kernel and plain version sum in other
 # orders, so their bf16 outputs may differ by one bf16 step (2^-7 relative;
@@ -678,9 +686,10 @@ def check_int8_grads(device, M=256, K=1536, N=3072):
 
 # ------------------------------------------------------- flash_attention --
 
-def flash_case(B, H, KVH, Sq, Skv, hd, dtype, device, seed=0):
+def flash_case(B, H, KVH, Sq, Skv, hd, dtype, device, seed=0, q_scale=1.0):
     """q, k, v at unit scale (the model's RoPE'd projections are O(1)):
-    scores q.k / sqrt(hd) of unit spread."""
+    scores q.k / sqrt(hd) of unit spread, or of ``q_scale`` spread with q
+    scaled by it (a power of 2 scales bf16 exactly)."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
@@ -688,18 +697,19 @@ def flash_case(B, H, KVH, Sq, Skv, hd, dtype, device, seed=0):
     for shape in ((B, H, Sq, hd), (B, KVH, Skv, hd), (B, KVH, Skv, hd)):
         out.append(torch.tensor(rng.normal(size=shape), dtype=torch.float32
                                 ).to(device=device, dtype=dtype))
+    out[0] *= q_scale
     return out
 
 
-def flash_kept(Sq, Skv, kw, device, rows=None):
+def flash_kept(Sq, Skv, kw, device, rows=None, grid=(128, 128)):
     """(rows, Skv) bool: the (query, key) pairs whose score the function
     needs, entries of the running blocks that survive the mask, on the
-    default (128, 128) block grid."""
+    caller's block ``grid`` (the default (128, 128))."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     qpos = torch.arange(Sq, device=device) if rows is None else rows
     kpos = torch.arange(Skv, device=device)
-    bq, bk = min(128, Sq), min(128, Skv)
+    bq, bk = min(grid[0], Sq), min(grid[1], Skv)
     return fa.block_runs(qpos, kpos, causal=kw["causal"], window=kw["window"],
                          kv_keep_stride=kw["kv_keep_stride"], bq=bq,
                          bk=bk) \
@@ -707,12 +717,12 @@ def flash_kept(Sq, Skv, kw, device, rows=None):
                         n_kv=Skv)
 
 
-def flash_kept_pairs(Sq, Skv, kw, device):
+def flash_kept_pairs(Sq, Skv, kw, device, grid=(128, 128)):
     """How many pairs ``flash_kept`` holds, counted 1024 query rows at a
     time."""
     import torch
     return sum(int(flash_kept(Sq, Skv, kw, device, torch.arange(
-        r0, min(r0 + 1024, Sq), device=device)).sum())
+        r0, min(r0 + 1024, Sq), device=device), grid).sum())
         for r0 in range(0, Sq, 1024))
 
 
@@ -727,6 +737,13 @@ def flash_bound_ms(B, H, KVH, Sq, Skv, hd, esize, pairs):
     t_bytes, t_ops = nbytes / HBM_BW, ops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def flash_sfu_ms(B, H, pairs, cap):
+    """The transcendentals' floor: one exp a needed pair and head, and one
+    tanh more under a softcap, at ``SFU_OPS``. Printed beside the bound,
+    which it does not enter."""
+    return 1e3 * B * H * pairs * (2 if cap else 1) / SFU_OPS
 
 
 def cuda_kernel_names(fn):
@@ -778,33 +795,44 @@ def check_flash(device, cases, iters=10):
     output's own rounding by up to one bf16 step. So each bf16 element is
     held to ``|out - ref| <= 2^-7 |ref| + BF16_ROW * rms(ref's row)``,
     BF16_ROW = 2^-6 = 8 * 2^-9 (the excess measured is printed). The
-    output is small: at unit-scale q, k, v a causal row r averages ~r/e keys, so
-    |o| ~ sqrt(e / r), ~0.03 at the median row of S 4096 (the median |ref|
-    is printed), and an absolute tolerance would pass a few-percent fault;
-    this one does not (a 2% scaling of every element fails it).
+    output is small: at unit-scale q, k, v a causal row r averages ~r/e
+    keys, so |o| ~ sqrt(e / r), ~0.03 at the median row of S 4096 (the
+    median |ref| is printed), and an absolute tolerance would pass a
+    few-percent fault; this one does not (a 2% scaling of every element
+    fails it).
     ``library_ms``: ``F.scaled_dot_product_attention`` on the same inputs
     where one call computes the same function (is_causal for causal
     attention, a boolean mask of the kept entries for window and stride;
-    no softcap), with the kernels it ran."""
+    no softcap, no caller grid), with the kernels it ran. A case may name
+    the caller's block ``grid`` (bq, bk), the ``design`` it must take and
+    a ``q_scale`` (``flash_case``: at unit scale cap tanh(s / cap) ~ s for
+    the caps here, so a softcap is only tested where q is scaled up);
+    the design ``select_flash_design`` gives is asserted in any case, the
+    tiled one for fp32 and tc for bf16 at hd 64 and 128."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     rows = []
     for c in cases:
         B, H, KVH, Sq, Skv, hd = c["shape"]
+        grid = c.get("grid", (128, 128))
         kw = dict(causal=c.get("causal", True), window=c.get("window", 0),
                   cap=c.get("cap", 0.0),
                   kv_keep_stride=c.get("stride", 1))
-        q, k, v = flash_case(B, H, KVH, Sq, Skv, hd, c["dtype"], device)
+        kwg = dict(kw, bq=grid[0], bk=grid[1])
+        q, k, v = flash_case(B, H, KVH, Sq, Skv, hd, c["dtype"], device,
+                             q_scale=c.get("q_scale", 1.0))
         design = fa.select_flash_design(c["dtype"], hd)
         for key in fa.design_launches:
             fa.design_launches[key] = 0
-        out = fa.flash_attention(q, k, v, **kw)
+        out = fa.flash_attention(q, k, v, **kwg)
         assert fa.design_launches[design] == 1, (c["name"], design,
                                                 fa.design_launches)
-        if c["dtype"] == torch.float32 and hd == 128:
-            assert design == "tiled", (c["name"], design)
-        ref = fa.flash_attention_plain(q, k, v, **kw)
+        if hd in (64, 128) and c["dtype"] in (torch.float32, torch.bfloat16):
+            want = "tiled" if c["dtype"] == torch.float32 else "tc"
+            assert design == want, (c["name"], design)
+        assert design == c.get("design", design), (c["name"], design)
+        ref = fa.flash_attention_plain(q, k, v, **kwg)
         torch.cuda.synchronize()
         err = max_err(out, ref)
         assert torch.isfinite(out).all(), c["name"]
@@ -818,11 +846,14 @@ def check_flash(device, cases, iters=10):
             tol_s = (f"2^-7 |ref| + {tol:.3g} row rms: excess {excess:.3g} "
                      f"row rms, median |ref| "
                      f"{float(ref.float().abs().median()):.3g}")
-        kern = timed(lambda: fa.flash_attention(q, k, v, **kw), device, iters)
-        plain = timed(lambda: fa.flash_attention_plain(q, k, v, **kw),
+        kern = timed(lambda: fa.flash_attention(q, k, v, **kwg), device,
+                     iters)
+        plain = timed(lambda: fa.flash_attention_plain(q, k, v, **kwg),
                       device, 3, warmup=1)
         lib, backend = None, "none: no single call computes a softcap"
-        if not kw["cap"]:
+        if "grid" in c:
+            backend = "none: no single call computes another block grid"
+        elif not kw["cap"]:
             if kw["causal"] and not kw["window"] and kw["kv_keep_stride"] \
                     == 1 and Sq == Skv:
                 sdpa_kw = dict(is_causal=True)
@@ -836,21 +867,22 @@ def check_flash(device, cases, iters=10):
             lib = timed(lib_call, device, iters)
             backend = ",".join(cuda_kernel_names(lib_call))[:160] \
                 + f" (max_abs_err vs plain {lib_err:.3g})"
-        pairs = flash_kept_pairs(Sq, Skv, kw, device)
+        pairs = flash_kept_pairs(Sq, Skv, kw, device, grid)
         bound, by = flash_bound_ms(B, H, KVH, Sq, Skv, hd, q.element_size(),
                                    pairs)
+        sfu = flash_sfu_ms(B, H, pairs, kw["cap"])
         rows.append(dict(name=c["name"], shape=c["shape"], design=design,
                          dtype=str(c["dtype"]).split(".")[-1],
                          max_abs_err=err, tol=tol, row_excess=excess,
                          ms=kern, plain_ms=plain, library_ms=lib,
-                         bound_ms=bound, bound_by=by))
+                         bound_ms=bound, bound_by=by, sfu_ms=sfu))
         print(f"flash_attention {c['name']} B={B} H={H} KVH={KVH} Sq={Sq} "
               f"Skv={Skv} hd={hd} {rows[-1]['dtype']}, design {design}: "
               f"max_abs_err={err:.3g} "
               f"(tol {tol_s}) ms={kern:.4f} plain_ms={plain:.4f} "
               f"library_ms={'null' if lib is None else f'{lib:.4f}'} "
               f"bound_ms={bound:.4f} ({by}, {pairs} pairs) "
-              f"library: {backend}")
+              f"sfu_floor_ms={sfu:.4f} library: {backend}")
     return rows
 
 
@@ -859,7 +891,8 @@ def phi4_flash_cases():
     cell = (2, 24, 8, 4096, 4096, 128)      # phi4-mini training, 2 x 4096
     return [
         dict(name="cell-fp32", shape=cell, dtype=torch.float32),
-        dict(name="cell-bf16", shape=cell, dtype=torch.bfloat16),
+        dict(name="cell-bf16", shape=cell, dtype=torch.bfloat16,
+             design="tc"),
         dict(name="cell-b1-fp32", shape=(1,) + cell[1:],
              dtype=torch.float32),            # int8+drop50% keeps 1 row
         dict(name="window+softcap+gqa", shape=(2, 24, 4, 2048, 2048, 128),
@@ -878,6 +911,37 @@ def phi4_flash_cases():
              dtype=torch.float32, causal=False),
         dict(name="stride2-hd64", shape=(1, 6, 3, 1100, 1100, 64),
              dtype=torch.float32, stride=2),
+        # the tc design (bf16, hd 64 and 128) on the same edges: GQA R 6
+        # over two blocks of 3 heads, R 2 and 4, hd 64, perforation,
+        # ragged Sq != Skv both ways over the KV tail, and a caller grid
+        # whose rows past Skv + window keep nothing (each the mean of V
+        # over its running blocks' masked entries)
+        dict(name="window+softcap+gqa-bf16", shape=(2, 24, 4, 2048, 2048,
+                                                    128),
+             dtype=torch.bfloat16, window=512, cap=50.0, design="tc"),
+        dict(name="stride2-bf16", shape=(2, 24, 8, 2048, 2048, 128),
+             dtype=torch.bfloat16, stride=2, design="tc"),
+        dict(name="ragged-hd128-bf16", shape=(2, 6, 2, 1000, 1500, 128),
+             dtype=torch.bfloat16, causal=True, window=300, cap=30.0,
+             design="tc"),
+        dict(name="ragged-q-long-bf16", shape=(1, 8, 4, 1500, 1000, 128),
+             dtype=torch.bfloat16, causal=True, window=300, design="tc"),
+        dict(name="full-ragged-hd64-bf16", shape=(1, 4, 1, 777, 333, 64),
+             dtype=torch.bfloat16, causal=False, design="tc"),
+        dict(name="stride2-hd64-bf16", shape=(1, 6, 3, 1100, 1100, 64),
+             dtype=torch.bfloat16, stride=2, design="tc"),
+        dict(name="grid48x80-bf16", shape=(1, 8, 2, 700, 500, 128),
+             dtype=torch.bfloat16, causal=True, window=97, cap=20.0,
+             grid=(48, 80), design="tc"),
+        # the softcap where it bites (q x 16: scores of ~16 rms, past caps
+        # 30 and 20) and the GQA splits not above: R 1, one head a block
+        # (128-key tiles), and R 8 in blocks of 3 + 3 + 2 (64-key tiles, one
+        # consumer idle in the last)
+        dict(name="r1-softcap-q16-bf16", shape=(1, 4, 4, 1000, 1000, 128),
+             dtype=torch.bfloat16, cap=30.0, q_scale=16.0, design="tc"),
+        dict(name="r8-window-softcap-q16-hd64-bf16",
+             shape=(1, 16, 2, 900, 1300, 64), dtype=torch.bfloat16,
+             window=200, cap=20.0, q_scale=16.0, design="tc"),
     ]
 
 
@@ -3205,8 +3269,9 @@ def ring_kv_err(caches_a, caches_b, length):
 def dense_handoff(res, device):
     """``prefill_with_cache`` on one prompt of ``DENSE_PROMPTS[1]`` tokens
     at the cell's width (bf16, precise): its attention through
-    ``ops.flash`` (one ``flash_attention`` launch a layer, each timed by
-    CUDA events around the call), its first-token logits against chunked
+    ``ops.flash`` (one ``flash_attention`` launch a layer, all of design
+    tc, each timed by CUDA events around the call), its first-token logits
+    against chunked
     admission's (``_chunked_prefill``, chunks of ``DENSE_CHUNK``) within
     ``DENSE_LOGIT_TOL`` of their rms. The rings each hands to decode hold
     the same positions in ``ring_order`` and the same K/V within
@@ -3251,9 +3316,7 @@ def dense_handoff(res, device):
     designs = {k: n for k, n in fa.design_launches.items() if n}
     assert launches["flash_attention"] == cfg.n_layers == len(calls), \
         (launches, len(calls))
-    assert designs == {fa.select_flash_design(torch.bfloat16,
-                                              cfg.resolved_head_dim):
-                       cfg.n_layers}, designs
+    assert designs == {"tc": cfg.n_layers}, designs
     ms = [(w, a.elapsed_time(b)) for (a, b), w in calls]
     eng = ServeEngine(cfg, batch_slots=1, max_len=DENSE_CTX, params=params,
                       prefill_chunk=DENSE_CHUNK, cache_dtype=src.cache_dtype,
@@ -3289,7 +3352,9 @@ def dense_handoff(res, device):
     kv_after = ring_kv_err(caches_pf, caches_ck, S + DENSE_NEW)
     assert kv_after <= DENSE_LOGIT_TOL, kv_after
     print(f"serve-dense prefill_with_cache: {S} tokens in {1e3 * pf_s:.1f} "
-          f"ms (chunked admission {1e3 * ck_s:.1f} ms), flash_attention "
+          f"ms (614.6 ms through bf16 flash \"simple\" on an H100 80GB "
+          f"HBM3 at 700 W; chunked admission "
+          f"{1e3 * ck_s:.1f} ms), flash_attention "
           f"launches {launches['flash_attention']} by design {designs}; "
           f"first-token logits max |diff| {gate:.4f} of their rms (tol "
           f"{DENSE_LOGIT_TOL}); rings hold the same positions, cursors at "
@@ -3309,14 +3374,22 @@ def dense_handoff(res, device):
 def gemma2_flash_cases():
     """``flash_attention`` at the cell's ``prefill_with_cache`` shape: one
     prompt of ``DENSE_PROMPTS[1]`` tokens, gemma2-27b's heads, bf16,
-    softcap 50, causal (global layers) and window 4096 (local layers)."""
+    softcap 50, causal (global layers) and window 4096 (local layers),
+    causal without the softcap (the function the library column computes),
+    and causal with q scaled by 16 so that the softcap bites (scores of
+    ~16 rms against cap 50; at unit scale cap tanh(s / cap) ~ s)."""
     import torch
     S = DENSE_PROMPTS[1]
     shape = (1, 32, 16, S, S, 128)
     return [dict(name="gemma2-global-bf16", shape=shape,
-                 dtype=torch.bfloat16, cap=50.0),
+                 dtype=torch.bfloat16, cap=50.0, design="tc"),
             dict(name="gemma2-local-bf16", shape=shape, dtype=torch.bfloat16,
-                 window=4096, cap=50.0)]
+                 window=4096, cap=50.0, design="tc"),
+            # the same function as the library column's
+            dict(name="gemma2-global-bf16-nocap", shape=shape,
+                 dtype=torch.bfloat16, design="tc"),
+            dict(name="gemma2-global-bf16-q16", shape=shape,
+                 dtype=torch.bfloat16, cap=50.0, q_scale=16.0, design="tc")]
 
 
 def gemma2_flash(device, iters=5):
@@ -3330,6 +3403,8 @@ def gemma2_flash(device, iters=5):
     from torch.nn.attention import SDPBackend, sdpa_kernel
     rows = check_flash(device, gemma2_flash_cases(), iters=iters)
     for c, r in zip(gemma2_flash_cases(), rows):
+        if "q_scale" in c:           # the unscaled case's library column
+            continue
         B, H, KVH, Sq, Skv, hd = c["shape"]
         q, k, v = flash_case(B, H, KVH, Sq, Skv, hd, c["dtype"], device)
         kw = (dict(attn_mask=flash_kept(Sq, Skv, dict(
@@ -3552,6 +3627,7 @@ def main():
                       "serve-dense": dense_launches[name]}
                for name in kernels}
     ring_row = next(r for r in pa_rows if r["name"] == "ring-decode")
+    tc_row = next(r for r in fa_rows if r["name"] == "cell-bf16")
     paged_ring = {"ring_decode_ms": ring_row["ms"],
                   "ring_decode_plain_ms": ring_row["plain_ms"],
                   "ring_decode_bound_ms": ring_row["bound_ms"]}
@@ -3570,14 +3646,17 @@ def main():
                             if name == "ring_hop" else {}),
                          **(paged_ring if name == "paged_attention"
                             else {}),
-                         **({"design": r["design"]}
+                         **({"design": r["design"], "tc": {
+                             k: tc_row[k] for k in (
+                                 "name", "ms", "plain_ms", "library_ms",
+                                 "bound_ms", "sfu_ms", "max_abs_err")}}
                             if name == "flash_attention" else {})))
+    print(f"chip_smoke: {time.perf_counter() - t0:.1f}s by its own clock")
     print(json.dumps({"kernels": line}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     print(smi.stdout.strip().splitlines()[0])
-    print(f"chip_smoke: {time.perf_counter() - t0:.1f}s", file=sys.stderr)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C entry point and compiles with
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` into its own shared library
 under ``build/torch_kernels/<hash>/`` at the repository root, where the hash
-covers the source and the flags: an edited source rebuilds, an unchanged one
+covers the source, every header ``csrc/*.cuh`` (which a source may include)
+and the flags: an edited source or header rebuilds, an unchanged one
 loads. The first use builds every source at once, one ``nvcc`` process per
 file, all started together. A failed build raises; nothing falls back.
 """
@@ -41,6 +42,8 @@ def _nvcc() -> str:
 
 def _so_path(name: str) -> pathlib.Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(FLAGS).encode())
     return BUILD / h.hexdigest()[:16] / f"lib{name}.so"
 

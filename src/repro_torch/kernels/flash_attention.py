@@ -32,10 +32,15 @@ or a stride > 1 here, to reproduce the Pallas function: the model calls
 the kernel at (128, 128) and stride 1, where causal rows are never fully
 masked and the grid changes no result.
 
-The kernel has two designs (``select_flash_design``): "tiled" for fp32 at hd
-64 or 128 (the training path: 8 x 8 register tiles, K/V streamed through
-``cp.async`` stages, 64-row query tiles over 128-key tiles whose visits
-``tile_walk`` mirrors) and "simple" for bf16 and other head sizes.
+The kernel has three designs (``select_flash_design``), each bound by its
+products at the paths' shapes. "tc" for bf16 at hd 64 or 128 (serving's
+``prefill_with_cache``): ``wgmma`` on the tensor cores fed by TMA, a block
+holding one 64-row query tile of a KV head's query heads (up to 3, over
+key tiles of 128 keys, or 64 for a block of 3 heads), so each K/V tile is
+staged once for a GQA group. "tiled" for fp32 at hd 64 or 128 (the
+training path: 8 x 8 register tiles of fp32 FMAs, K/V streamed through
+``cp.async`` stages, 64-row query tiles over 128-key tiles). "simple" for other dtypes
+and head sizes. ``tile_walk`` mirrors the key tiles "tc" and "tiled" visit.
 ``flash_attention`` runs the plain version for a CPU tensor and launches the
 kernel for a CUDA tensor, raising on anything else; it never falls back.
 ``FlashAttention`` wraps it for autograd. The Pallas call has no JVP rule,
@@ -52,14 +57,14 @@ import torch
 from repro_torch.kernels import _build
 
 launches = 0          # kernel launches since the last reset (plain runs: 0)
-design_launches = {"tiled": 0, "simple": 0}   # the same, by design
+design_launches = {"tc": 0, "tiled": 0, "simple": 0}   # the same, by design
 
 NEG_INF = -1e30
 ROW_BLOCK = 1024      # query rows per block of the plain version / backward
 TILE_Q, TILE_K = 64, 128   # the tiled design's query rows and keys a tile
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
-_DESIGNS = {"simple": 0, "tiled": 1}
+_DESIGNS = {"simple": 0, "tiled": 1, "tc": 2}
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 \
     + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 _HD_MAX = 256
@@ -67,10 +72,14 @@ _HD_MAX = 256
 
 def select_flash_design(dtype, hd: int) -> str:
     """The kernel design for inputs of ``dtype`` and head size ``hd``:
-    "tiled" for fp32 at hd 64 or 128 (a thread owns 4 output dims of every
-    64), "simple" otherwise."""
-    if dtype == torch.float32 and hd in (64, 128):
-        return "tiled"
+    "tc" for bf16 at hd 64 or 128 (TMA boxes of 64 dims), "tiled" for fp32
+    at hd 64 or 128 (a thread owns 4 output dims of every 64), "simple"
+    otherwise."""
+    if hd in (64, 128):
+        if dtype == torch.bfloat16:
+            return "tc"
+        if dtype == torch.float32:
+            return "tiled"
     return "simple"
 
 
@@ -96,10 +105,14 @@ def block_runs(qpos, kpos, *, causal, window, kv_keep_stride, bq, bk):
     return run
 
 
-def tile_walk(Sq, Skv, *, causal, window, kv_keep_stride, bq, bk):
-    """The key tiles (of TILE_K keys) the tiled design visits for each
-    query tile (of TILE_Q rows), in order: a list per query tile. The
-    kernel's rule, on the caller's (bq, bk) grid clipped to the shapes:
+def tile_walk(Sq, Skv, *, causal, window, kv_keep_stride, bq, bk,
+              tile_q=TILE_Q, tile_k=TILE_K):
+    """The key tiles (of ``tile_k`` keys) a design visits for each query
+    tile (of ``tile_q`` rows), in order: a list per query tile; the tiled
+    design's tiles by default, which are also tc's for blocks of 1 or 2
+    heads (tc takes 64-key tiles for blocks of 3, as the header of
+    ``csrc/flash_attention.cu`` sets out). The kernels' rule, on the
+    caller's (bq, bk) grid clipped to the shapes:
     causal keys stop at the running blocks' reach of the tile's last row,
     a window starts the walk at the first tile that can hold a running
     block's key, and a tile is visited when it keeps an entry
@@ -109,17 +122,17 @@ def tile_walk(Sq, Skv, *, causal, window, kv_keep_stride, bq, bk):
     bq, bk = _clip_blocks(Sq, Skv, bq, bk)
     n_kpad = -(-Skv // bk) * bk
     walks = []
-    for q0 in range(0, Sq, TILE_Q):
-        rows = torch.arange(q0, min(q0 + TILE_Q, Sq))
+    for q0 in range(0, Sq, tile_q):
+        rows = torch.arange(q0, min(q0 + tile_q, Sq))
         kend = n_kpad
         if causal:
-            i_last = (min(q0 + TILE_Q, Sq) - 1) // bq
+            i_last = (min(q0 + tile_q, Sq) - 1) // bq
             kend = min(kend, -(-((i_last + 1) * bq) // bk) * bk)
-        t0 = max(0, (q0 // bq) * bq - window - bk) // TILE_K if window else 0
+        t0 = max(0, (q0 // bq) * bq - window - bk) // tile_k if window else 0
         seen = torch.zeros(rows.shape[0], dtype=torch.bool)
         walk = []
-        for t in range(t0, -(-kend // TILE_K)):
-            keys = torch.arange(t * TILE_K, (t + 1) * TILE_K)
+        for t in range(t0, -(-kend // tile_k)):
+            keys = torch.arange(t * tile_k, (t + 1) * tile_k)
             inc = block_runs(rows, keys, causal=causal, window=window,
                              kv_keep_stride=kv_keep_stride, bq=bq, bk=bk) \
                 & (keys < n_kpad)[None]
@@ -261,20 +274,27 @@ def _launch(q, k, v, causal, window, cap, stride, bq, bk):
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    bq, bk = _clip_blocks(Sq, Skv, bq, bk)
-    design = select_flash_design(q.dtype, hd)
-    lib = _build.load("flash_attention", _ARGTYPES)
-    rc = lib.flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                             out.data_ptr(), B, H, KVH, Sq, Skv, hd, bq, bk,
-                             int(causal), int(window), int(stride),
-                             float(cap), float(hd ** -0.5), _CODES[q.dtype],
-                             _DESIGNS[design],
-                             torch.cuda.current_stream(dev).cuda_stream)
+    args, design = launch_args(q, k, v, out, causal, window, cap, stride, bq,
+                               bk)
+    rc = _build.load("flash_attention", _ARGTYPES).flash_attention(*args)
     if rc:
         raise RuntimeError(f"flash_attention: launch failed, cudaError {rc}")
     launches += 1
     design_launches[design] += 1
     return out
+
+
+def launch_args(q, k, v, out, causal, window, cap, stride, bq, bk):
+    """The C entry point's arguments for one call on checked CUDA tensors
+    (the caller's grid clipped to the shapes), and the design it takes."""
+    B, H, Sq, hd = q.shape
+    KVH, Skv = k.shape[1], k.shape[2]
+    bq, bk = _clip_blocks(Sq, Skv, bq, bk)
+    design = select_flash_design(q.dtype, hd)
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
+            KVH, Sq, Skv, hd, bq, bk, int(causal), int(window), int(stride),
+            float(cap), float(hd ** -0.5), _CODES[q.dtype], _DESIGNS[design],
+            torch.cuda.current_stream(q.device).cuda_stream), design
 
 
 def flash_attention_backward(q, k, v, go, *, causal: bool = True,

@@ -1,8 +1,11 @@
-"""The tile walk of the port's tiled ``flash_attention`` design, on the CPU.
+"""The tile walk of the port's tiled and tc ``flash_attention`` designs, on
+the CPU.
 
-The CUDA kernel takes 64 query rows a block and visits 128-key tiles; which
-tiles it visits is a rule on the caller's (bq, bk) block grid that
-``tile_walk`` mirrors. Here the rule is held to what the function needs:
+The CUDA kernels take 64 query rows a block and visit key tiles of 128 keys
+(tiled; tc for blocks of 1 or 2 query heads) or 64 (tc for blocks of 3);
+which tiles they visit is a rule on the caller's (bq, bk) block grid that
+``tile_walk`` mirrors. Here the rule is held, for both tile widths, to what
+the function needs:
 every tile holding a kept entry (``block_runs & entry_mask``) and every tile
 a still-masked row needs (its entries of running blocks weigh 1 while the
 row has kept nothing), and attention computed from the visited tiles alone
@@ -35,14 +38,32 @@ CASES = {
     "ragged-q-short": (100, 450, dict(causal=True, window=60), 64, 64),
     "ragged-q-long": (450, 130, dict(causal=True), 64, 128),
     "ragged-full": (77, 261, dict(causal=False), 32, 96),
+    # the tc design's edge shapes on the card (chip_smoke.phi4_flash_cases)
+    "card-ragged-q-long": (1500, 1000, dict(causal=True, window=300), 128,
+                           128),
+    "card-r8-window": (900, 1300, dict(causal=True, window=200), 128, 128),
+    "card-stride2-hd64": (1100, 1100, dict(causal=True, kv_keep_stride=2),
+                          128, 128),
+    "card-grid48x80": (700, 500, dict(causal=True, window=97), 48, 80),
 }
 
+# (tile_q, tile_k) of each walk: "tiled" is also tc's walk for blocks of 1
+# or 2 heads, "tc64" tc's for blocks of 3
+WALKS = {"tiled": (fa.TILE_Q, fa.TILE_K), "tc64": (64, 64)}
 
-def _masks(Sq, Skv, kw, bq, bk):
+
+def _by_walk(names):
+    """The cases ``names`` over both walks; the tiled walk's keep their
+    case's name as id."""
+    return [pytest.param(n, "tiled", id=n) for n in names] \
+        + [pytest.param(n, "tc64", id=f"{n}-tc64") for n in names]
+
+
+def _masks(Sq, Skv, kw, bq, bk, tile_k):
     """(Sq, keys) inc and keep on the padded key range of whole tiles."""
     bq, bk = min(bq, Sq), min(bk, Skv)
     n_kpad = -(-Skv // bk) * bk
-    keys = torch.arange(-(-max(n_kpad, Skv) // fa.TILE_K) * fa.TILE_K)
+    keys = torch.arange(-(-max(n_kpad, Skv) // tile_k) * tile_k)
     rows = torch.arange(Sq)
     mk = dict(causal=kw.get("causal", True), window=kw.get("window", 0))
     inc = fa.block_runs(rows, keys, kv_keep_stride=kw.get(
@@ -51,25 +72,26 @@ def _masks(Sq, Skv, kw, bq, bk):
     return inc, keep
 
 
-def _walk(Sq, Skv, kw, bq, bk):
+def _walk(Sq, Skv, kw, bq, bk, tiles=WALKS["tiled"]):
     return fa.tile_walk(Sq, Skv, causal=kw.get("causal", True),
                         window=kw.get("window", 0),
                         kv_keep_stride=kw.get("kv_keep_stride", 1), bq=bq,
-                        bk=bk)
+                        bk=bk, tile_q=tiles[0], tile_k=tiles[1])
 
 
-@pytest.mark.parametrize("name", list(CASES))
-def test_walk_visits_every_tile_the_function_needs(name):
+@pytest.mark.parametrize("name,walk_of", _by_walk(CASES))
+def test_walk_visits_every_tile_the_function_needs(name, walk_of):
     Sq, Skv, kw, bq, bk = CASES[name]
-    inc, keep = _masks(Sq, Skv, kw, bq, bk)
-    walks = _walk(Sq, Skv, kw, bq, bk)
-    n_t = inc.shape[1] // fa.TILE_K
-    assert len(walks) == -(-Sq // fa.TILE_Q)
+    tq, tk_ = WALKS[walk_of]
+    inc, keep = _masks(Sq, Skv, kw, bq, bk, tk_)
+    walks = _walk(Sq, Skv, kw, bq, bk, WALKS[walk_of])
+    n_t = inc.shape[1] // tk_
+    assert len(walks) == -(-Sq // tq)
     for qt, walk in enumerate(walks):
         assert walk == sorted(set(walk))
-        rows = slice(qt * fa.TILE_Q, (qt + 1) * fa.TILE_Q)
-        ti = inc[rows].reshape(-1, n_t, fa.TILE_K).any(-1)    # (rows, tiles)
-        tk = keep[rows].reshape(-1, n_t, fa.TILE_K).any(-1)
+        rows = slice(qt * tq, (qt + 1) * tq)
+        ti = inc[rows].reshape(-1, n_t, tk_).any(-1)    # (rows, tiles)
+        tk = keep[rows].reshape(-1, n_t, tk_).any(-1)
         # a tile holding a kept entry
         assert set(torch.nonzero(tk.any(0)).flatten().tolist()) <= set(walk)
         # a tile where a row that has kept nothing before has a running entry
@@ -81,18 +103,18 @@ def test_walk_visits_every_tile_the_function_needs(name):
                                 .flatten().tolist())
 
 
-def _walk_attention(q, k, v, Sq, Skv, kw, bq, bk):
-    """fp64 attention from the visited tiles' entries alone, as the kernel
-    scores them: kept entries by q.k / sqrt(hd) (soft-capped), masked
+def _walk_attention(q, k, v, Sq, Skv, kw, bq, bk, tiles):
+    """fp64 attention from the visited tiles' entries alone, as the kernels
+    score them: kept entries by q.k / sqrt(hd) (soft-capped), masked
     entries of running blocks -1e30, the rest left out."""
-    inc, keep = _masks(Sq, Skv, kw, bq, bk)
-    walks = _walk(Sq, Skv, kw, bq, bk)
+    tq, tk = tiles
+    inc, keep = _masks(Sq, Skv, kw, bq, bk, tk)
+    walks = _walk(Sq, Skv, kw, bq, bk, tiles)
     n = inc.shape[1]
     visited = torch.zeros(Sq, n, dtype=torch.bool)
     for qt, walk in enumerate(walks):
         for t in walk:
-            visited[qt * fa.TILE_Q:(qt + 1) * fa.TILE_Q,
-                    t * fa.TILE_K:(t + 1) * fa.TILE_K] = True
+            visited[qt * tq:(qt + 1) * tq, t * tk:(t + 1) * tk] = True
     qd, kd, vd = (torch.from_numpy(a).double() for a in (q, k, v))
     kd = torch.nn.functional.pad(kd, (0, 0, 0, n - Skv))
     vd = torch.nn.functional.pad(vd, (0, 0, 0, n - Skv))
@@ -111,11 +133,10 @@ def _walk_attention(q, k, v, Sq, Skv, kw, bq, bk):
     return (p @ vd / p.sum(-1, keepdim=True).clamp_min(1e-30)).numpy()
 
 
-@pytest.mark.parametrize("name", ["causal-grid64", "window-grid48x80",
-                                  "stride2-grid64", "stride3-window",
-                                  "ragged-q-short", "ragged-q-long",
-                                  "ragged-full"])
-def test_visited_tiles_give_the_function(name):
+@pytest.mark.parametrize("name,walk_of", _by_walk(
+    ["causal-grid64", "window-grid48x80", "stride2-grid64", "stride3-window",
+     "ragged-q-short", "ragged-q-long", "ragged-full"]))
+def test_visited_tiles_give_the_function(name, walk_of):
     """Attention over the visited tiles equals the plain version (every
     case) and the Pallas kernel in interpret mode (its grid must divide the
     shapes: the 64 x 64 cases), GQA 4 query heads over 2 KV heads."""
@@ -125,7 +146,7 @@ def test_visited_tiles_give_the_function(name):
     q = (rng.normal(size=(1, 4, Sq, 64)) * 0.3).astype(np.float32)
     k = (rng.normal(size=(1, 2, Skv, 64)) * 0.3).astype(np.float32)
     v = rng.normal(size=(1, 2, Skv, 64)).astype(np.float32)
-    got = _walk_attention(q, k, v, Sq, Skv, kw, bq, bk)
+    got = _walk_attention(q, k, v, Sq, Skv, kw, bq, bk, WALKS[walk_of])
     plain = fa.flash_attention_plain(*map(torch.from_numpy, (q, k, v)),
                                      bq=bq, bk=bk, **kw).numpy()
     np.testing.assert_allclose(got, plain, rtol=0, atol=ATOL)
@@ -151,9 +172,13 @@ def test_walk_skips_what_causal_and_stride_leave_out():
 @pytest.mark.parametrize("dtype,hd,design", [
     (torch.float32, 128, "tiled"), (torch.float32, 64, "tiled"),
     (torch.float32, 16, "simple"), (torch.float32, 80, "simple"),
-    (torch.float32, 256, "simple"), (torch.bfloat16, 128, "simple"),
-    (torch.bfloat16, 64, "simple"), (torch.float64, 128, "simple")])
+    (torch.float32, 256, "simple"), (torch.bfloat16, 128, "tc"),
+    (torch.bfloat16, 64, "tc"), (torch.float64, 128, "simple"),
+    (torch.bfloat16, 16, "simple"), (torch.bfloat16, 80, "simple"),
+    (torch.bfloat16, 256, "simple")])
 def test_select_flash_design(dtype, hd, design):
-    """phi4-mini's training attention (fp32, hd 128) takes the tiled design;
-    bf16 and other head sizes the simple one."""
+    """phi4-mini's training attention (fp32, hd 128) takes the tiled design,
+    bf16 at hd 64 and 128 (gemma2-27b's and phi4-mini's serving) the tc one;
+    other dtypes and head sizes the simple one."""
     assert fa.select_flash_design(dtype, hd) == design
+
