@@ -113,8 +113,9 @@ Phases, each reported on its own line:
 
 9. colocate  the colocation harness at full width,
              ``repro_torch.launch.colocate``: phi4-mini-3.8b serving (32
-             layers, bf16, 8 slots, max_len 1024, page 16, 16 requests of
-             128 prompt and 32 new tokens, Poisson arrivals at 1.0 req/s)
+             layers, bf16, 8 slots, max_len 1024, page 16, 12 requests of
+             128 prompt and 32 new tokens, Poisson arrivals at 1.0 req/s;
+             16 before serve-ssm was added)
              and mamba2-780m training (48 layers, fp32 params and AdamW,
              1 x 512 tokens, 8 duty-cycle quanta, a decision every 1 s)
              on the one card, serially on one stream; first each training
@@ -165,6 +166,38 @@ Phases, each reported on its own line:
              (causal and window 4096, softcap 50, and causal without it)
              beside its plain version and ``scaled_dot_product_attention``
              without the softcap; device memory before, at peak and after.
+
+11. serve-ssm  Mamba serving and the zamba2 hybrid: ``ssd_scan`` with the
+             state in and out (``ssd_scan_state``: a ragged length padded
+             to the kernels' chunks) at zamba2-2.7b's admission chunk (H
+             80, P 64, N 64; 128 tokens, a ragged 44 and 45) and its
+             2048-token ``prefill_with_cache``, and at mamba2-780m's (H
+             48, N 128), fp32 and bf16, against the plain version unpadded
+             at the JAX package's chunk, y and the final state, timed
+             beside the plain version and the bound; zamba2-2.7b-smoke and
+             mamba2-780m-smoke in fp32 on every serving rung, the card's
+             dense, paged and megastep streams equal to the CPU's; then
+             ``repro_torch.launch.serve --paged`` on zamba2-2.7b at full
+             width and depth (54 layers: 45 Mamba2 and 9 calls of the one
+             shared attention block; bf16, random weights, 8 slots,
+             max_len 4096, page 16, chunk 128, 12 requests of 512-3072
+             prompt tokens, 32 new tokens, greedy) under a QoS target
+             tight enough that the runtime swaps variants, launch counters
+             zeroed just before and read just after (``ssd_scan`` 4 a
+             Mamba layer an admission chunk, ``paged_attention``, and
+             ``int8_matmul`` on an int8 rung); a ``request_variant`` walk,
+             the dense and the paged engine on each rung serving 8 prompts
+             of 64 tokens: admission ms a chunk and a token, the mean
+             decode step, a profiled window's busy share, on precise the
+             shares of Mamba decode and attention decode and no host sync
+             in the paged decode step; the megastep (K 8) on precise and
+             int8+kvq8 (8 prompts of 64 tokens), streams equal to the
+             per-step engine's, the decode step beside the megastep's wall
+             a token; a prefix hit (256 tokens, 192 shared) that restores
+             an SSM snapshot, its stream equal to a cold run's;
+             ``prefill_with_cache`` on a 2048-token prompt, its first-token
+             logits and Mamba states within 0.5 of their rms against
+             chunked admission's; device memory before, at peak and after.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``. Any
@@ -232,6 +265,12 @@ def timed(fn, device, iters=20, warmup=3):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def dev_us(e):
+    """A profiler event's own device time, us."""
+    return (getattr(e, "self_device_time_total", None)
+            or getattr(e, "self_cuda_time_total", 0))
 
 
 def max_err(a, b):
@@ -1138,13 +1177,15 @@ def phi4_paged_cases(dtype_main):
 # ---------------------------------------------------------------- parity --
 
 def engine_streams(cfg, params, table, device, rung, prompts, max_new,
-                   mesh=None, prefill_chunk=4, n_pages=24, paged=True):
+                   mesh=None, prefill_chunk=4, n_pages=24, paged=True, **kw):
     """Greedy streams of ``prompts`` served on rung ``rung`` by a 2-slot
-    engine (max_len 64), paged (page 4, ``n_pages`` pages) or dense."""
+    engine (max_len 64), paged (page 4, ``n_pages`` pages) or dense;
+    ``kw`` goes to the engine (``megastep_k``, say)."""
     from repro_torch.serve.engine import Request, ServeEngine
     eng = ServeEngine(cfg, batch_slots=2, max_len=64, params=params,
                       table=table, prefill_chunk=prefill_chunk, paged=paged,
-                      page_size=4, n_pages=n_pages, device=device, mesh=mesh)
+                      page_size=4, n_pages=n_pages, device=device, mesh=mesh,
+                      **kw)
     eng.request_variant(rung)
     reqs = [Request(i, prompt=list(p), max_new=max_new)
             for i, p in enumerate(prompts)]
@@ -1452,10 +1493,6 @@ def profile_rungs(res, device, batch=8, prompt_len=128, steps=8):
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve.engine import Request, ServeEngine
 
-    def dev_us(e):
-        return (getattr(e, "self_device_time_total", None)
-                or getattr(e, "self_cuda_time_total", 0))
-
     src = res["engine"]
     rng = np.random.default_rng(2)
     for rung, name in enumerate(res["names"]):
@@ -1557,9 +1594,6 @@ def decode_window(eng, rounds):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    def dev_us(e):
-        return (getattr(e, "self_device_time_total", None)
-                or getattr(e, "self_cuda_time_total", 0))
     tokens0 = sum(len(r.out) for r in eng.slots if r is not None)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1900,10 +1934,6 @@ def profile_train(res, device):
     kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-
-    def dev_us(e):
-        return (getattr(e, "self_device_time_total", None)
-                or getattr(e, "self_cuda_time_total", 0))
 
     table, src = res["table"], res["source"]
     params, opt = res["params"], res["opt"]
@@ -2452,9 +2482,6 @@ def profile_summary(prof, wall, top=10, match=None):
     the kernels whose name holds it (``match_ms``)."""
     import torch
 
-    def dev_us(e):
-        return (getattr(e, "self_device_time_total", None)
-                or getattr(e, "self_cuda_time_total", 0))
     kern = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and dev_us(e) > 0]
@@ -2649,7 +2676,7 @@ def ring_cell(device, rungs=("precise", "int8+kvq8")):
 # a train step), so a lower rate only lengthens the runs.
 COLO_SERVE = ["--serve-arch", "phi4-mini-3.8b", "--dtype", "bf16",
               "--slots", "8", "--max-len", "1024", "--page-size", "16",
-              "--prompt-len", "128", "--max-new", "32", "--requests", "16"]
+              "--prompt-len", "128", "--max-new", "32", "--requests", "12"]
 COLO_RATE = 1.0
 # A loop turn with a train step takes ~0.3-0.4 s, so a decision every
 # 0.1 s consumes the monitor's window every turn, before it holds
@@ -3109,20 +3136,11 @@ def range_device_us(prof, name):
     return total
 
 
-def dense_decode_window(eng, steps, attn_fn):
-    """Two profiled windows of ``steps`` decode steps: the card's activity
-    alone (wall and device busy a step, its busy share), then host and
-    card with every call of ``models.attention.<attn_fn>`` in a
-    ``record_function`` range (decode attention's share of the device
-    time). Returns (wall ms, busy ms, attention share)."""
+def busy_window(eng, steps):
+    """``steps`` engine steps profiled for the card's activity alone:
+    (wall ms, device-busy ms) a step."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
-    from repro_torch.models import attention as attn_mod
-
-    def dev_us(e):
-        return (getattr(e, "self_device_time_total", None)
-                or getattr(e, "self_cuda_time_total", 0))
-
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3133,10 +3151,25 @@ def dense_decode_window(eng, steps, attn_fn):
     busy = sum(dev_us(e) for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA) \
         / 1e3 / steps
+    return wall, busy
+
+
+def dense_decode_window(eng, steps, attn_fn, mod=None):
+    """Two profiled windows of ``steps`` decode steps: the card's activity
+    alone (wall and device busy a step, its busy share), then host and
+    card with every call of ``<mod>.<attn_fn>`` (``models.attention``
+    unless ``mod`` names another module) in a ``record_function`` range
+    (that function's share of the device time). Returns (wall ms, busy ms,
+    share)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import attention as attn_mod
+    attn_mod = mod or attn_mod
+    wall, busy = busy_window(eng, steps)
     orig = getattr(attn_mod, attn_fn)
 
     def ranged(*a, **kw):
-        with record_function("decode_attention"):
+        with record_function(attn_fn):
             return orig(*a, **kw)
     setattr(attn_mod, attn_fn, ranged)
     try:
@@ -3149,8 +3182,8 @@ def dense_decode_window(eng, steps, attn_fn):
         setattr(attn_mod, attn_fn, orig)
     total = sum(dev_us(e) for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA
-                and e.key != "decode_attention")
-    attn = range_device_us(prof, "decode_attention")
+                and e.key != attn_fn)
+    attn = range_device_us(prof, attn_fn)
     assert 0 < attn < total, (attn, total)
     return wall, busy, attn / total
 
@@ -3460,6 +3493,489 @@ def dense_cell(device):
     return launches
 
 
+# -------------------------------------------------------------- serve-ssm --
+
+SSM_ARCH = "zamba2-2.7b"      # full width and depth: 54 layers
+SSM_SLOTS = 8
+SSM_CTX = 4096                # max_len
+SSM_PAGE = 16
+SSM_CHUNK = 128               # prefill chunk
+SSM_PROMPTS = (512, 3072)     # prompt lengths, drawn uniformly
+SSM_NEW = 32
+SSM_REQUESTS = 12
+# the walk's, the megastep's and the prefix hit's prompts: admission is
+# host-bound (~100-150 ms a chunk at this depth on an H100) and pauses
+# at every registered 16-token boundary, so they are short
+SSM_WALK_LEN = 64
+SSM_MEGA_LEN = 64
+SSM_PREFIX_LEN = 256
+SSM_HANDOFF_LEN = 2048        # prefill_with_cache's prompt
+# first-token logits, prefill_with_cache against chunked admission (bf16
+# sums in other orders and other chunkings over 54 layers): max |diff| over
+# the rms of the chunked logits, as the serve-dense phase's gate
+SSM_LOGIT_TOL = 0.5
+
+
+def jax_chunk(S, chunk=128):
+    """The JAX package's ``mamba_prefill`` chunk: the largest divisor of S
+    that is at most ``chunk``."""
+    q = min(chunk, S)
+    while S % q:
+        q -= 1
+    return q
+
+
+def ssd_state_cases():
+    """(B, S, H, P, N) of ``ssd_scan`` with a state in and out on the
+    serve-ssm path: zamba2-2.7b's admission chunk (H 80, P 64, N 64) of 128
+    tokens, a ragged 44 (one chunk of 44) and 45 (padded to 48), and its
+    ``prefill_with_cache`` at ``SSM_HANDOFF_LEN`` tokens; mamba2-780m's (H
+    48, P 64, N 128) chunk of 128 and ragged 44 and 45."""
+    return [(1, 128, 80, 64, 64), (1, 44, 80, 64, 64), (1, 45, 80, 64, 64),
+            (1, SSM_HANDOFF_LEN, 80, 64, 64), (1, 128, 48, 64, 128),
+            (1, 44, 48, 64, 128), (1, 45, 48, 64, 128)]
+
+
+def ssd_state_bound_ms(B, S, H, P, N, Q, esize):
+    """``ssd_bound_ms``'s count for S real tokens at chunk Q (a shorter S
+    is one chunk of S), plus the initial state read and the final state
+    written in fp32."""
+    q = min(Q, S)
+    nc = -(-S // q)
+    nbytes = 2 * B * S * H * P * esize + 4 * B * S * H + 4 * H \
+        + 2 * B * S * N * esize + 2 * 4 * B * H * P * N
+    ops = float(N * q * (q + 1)) * B * nc \
+        + float(P * q * (q + 1) + 4 * q * N * P) * B * H * nc
+    t_bytes, t_ops = nbytes / HBM_BW, ops / FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def check_ssd_state(device, cases, iters=10):
+    """``ssd_scan_state`` (the kernels with a state in and out, the
+    sequence padded to the kernels' chunks) on the card against the plain
+    version unpadded at the JAX package's chunk (``jax_chunk``), from the
+    same initial state, fp32 and bf16: y within ``check_ssd``'s tolerances,
+    the final state within 1e-5 x sqrt(chunks) of its largest entry (fp32
+    sums in other orders and other chunkings, from the same exactly upcast
+    inputs). Times
+    the kernel path beside the plain version and the bound."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ssd_scan as mod
+    rows = []
+    for B, S, H, P, N in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, dt, a, b, c = ssd_case(B, S, H, P, N, dtype, device)
+            init = torch.tensor(np.random.default_rng(1).normal(
+                size=(B, H, P, N)), dtype=torch.float32, device=device)
+            n0 = mod.launches
+            y, st = mod.ssd_scan_state(x, dt, a, b, c, chunk=SSM_CHUNK,
+                                       init_state=init)
+            assert mod.launches - n0 == mod.FWD_PASSES
+            q = jax_chunk(S, SSM_CHUNK)
+            yr, sr = mod.ssd_scan_plain(x, dt, a, b, c, chunk=q,
+                                        init_state=init, return_state=True)
+            torch.cuda.synchronize()
+            scale = float(yr.float().abs().max())
+            tol = (1e-5 if dtype == torch.float32 else 2 ** -8) * scale
+            err = max_err(y, yr)
+            # each chunk's carried state adds its own rounding: the
+            # errors add like a random walk over the chunks
+            s_tol = 1e-5 * (-(-S // q)) ** 0.5 * float(sr.abs().max())
+            s_err = max_err(st, sr)
+            assert torch.isfinite(y).all() and err <= tol, \
+                (B, S, H, P, N, dtype, err, tol)
+            assert torch.isfinite(st).all() and s_err <= s_tol, \
+                (B, S, H, P, N, dtype, s_err, s_tol)
+            kern = timed(lambda: mod.ssd_scan_state(
+                x, dt, a, b, c, chunk=SSM_CHUNK, init_state=init), device,
+                iters)
+            plain = timed(lambda: mod.ssd_scan_plain(
+                x, dt, a, b, c, chunk=q, init_state=init,
+                return_state=True), device, iters)
+            Q, S_pad = mod.state_chunk(S, SSM_CHUNK)
+            bound, by = ssd_state_bound_ms(B, S, H, P, N, Q,
+                                           x.element_size())
+            name = "fp32" if dtype == torch.float32 else "bf16"
+            rows.append(dict(shape=(B, S, H, P, N), dtype=name,
+                             max_abs_err=err, state_err=s_err, ms=kern,
+                             plain_ms=plain, library_ms=None,
+                             bound_ms=bound, bound_by=by))
+            print(f"ssd_scan state {name} B={B} S={S} H={H} P={P} N={N} "
+                  f"(kernel Q={Q}, {S_pad - S} padded; plain Q={q}): "
+                  f"max_abs_err={err:.3g} (tol {tol:.3g}) state "
+                  f"max_abs_err={s_err:.3g} (tol {s_tol:.3g}) ms={kern:.4f} "
+                  f"plain_ms={plain:.4f} library_ms=null "
+                  f"bound_ms={bound:.5f} ({by})")
+    return rows
+
+
+def ssm_parity(device):
+    """zamba2-2.7b-smoke and mamba2-780m-smoke in fp32 on every serving
+    rung, prompts sharing an 8-token prefix (later ones restore its SSM
+    snapshot on the paged engine): the greedy streams of the dense engine,
+    the paged engine and the paged engine under a 4-step megastep (a
+    replayed CUDA graph of the decode step) on the card all equal the
+    CPU's dense engine's."""
+    import copy
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serving_table
+    from repro_torch.models.lm import init_lm
+    for arch in ("zamba2-2.7b-smoke", "mamba2-780m-smoke"):
+        cfg = get_config(arch)
+        cpu_params = init_lm(cfg, 0, torch.float32, "cpu")
+        dev_params = copy.deepcopy(cpu_params).to(device)
+        table = serving_table(cfg, slots=2, max_len=64)
+        rng = np.random.default_rng(3)
+        prefix = list(rng.integers(1, cfg.vocab_size, 8))
+        prompts = [prefix + list(rng.integers(1, cfg.vocab_size, n))
+                   for n in (3, 9, 5, 13)]
+        for rung, v in enumerate(table.variants):
+            cpu = engine_streams(cfg, cpu_params, table, torch.device("cpu"),
+                                 rung, prompts, 6, paged=False)
+            runs = {kind: engine_streams(cfg, dev_params, table, device,
+                                         rung, prompts, 6, **kw)
+                    for kind, kw in (("dense", dict(paged=False)),
+                                     ("paged", {}),
+                                     ("megastep", dict(megastep_k=4)))}
+            assert all(r == cpu for r in runs.values()), (arch, v.name, cpu,
+                                                          runs)
+            print(f"serve-ssm parity {arch} {v.name}: {device} dense == "
+                  f"paged == megastep 4 == cpu dense streams "
+                  f"({sum(map(len, cpu))} tokens)")
+
+
+def ssm_prompts(vocab, n, seed, length=None):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lo, hi = SSM_PROMPTS
+    lengths = [length] * n if length else rng.integers(lo, hi + 1, n)
+    return [list(map(int, rng.integers(1, vocab, int(k)))) for k in lengths]
+
+
+def ssm_chunks(eng):
+    """Admission chunks the paged engine has run: its chunk budget's
+    spend."""
+    return sum(used for used, _ in eng.step_admission_chunks)
+
+
+def ssm_serve(device):
+    """The cell through ``launch/serve.py``: zamba2-2.7b at full width and
+    depth, bf16, the paged engine, ``SSM_REQUESTS`` requests at t = 0
+    under a QoS target tight enough that the runtime swaps variants;
+    launch counters zeroed just before and read just after: every
+    admission chunk launches ``ssd_scan`` (``FWD_PASSES`` a Mamba layer),
+    decode ``paged_attention`` (the shared-attention layers) and an int8
+    rung ``int8_matmul``. Returns (``serve.main``'s result, launches)."""
+    from repro_torch.configs.base import MAMBA
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.launch import serve
+    lo, hi = SSM_PROMPTS
+    argv = ["--arch", SSM_ARCH, "--paged", "--dtype", "bf16",
+            "--device", str(device), "--slots", str(SSM_SLOTS),
+            "--max-len", str(SSM_CTX), "--page-size", str(SSM_PAGE),
+            "--prefill-chunk", str(SSM_CHUNK),
+            "--requests", str(SSM_REQUESTS), "--prompt-len", str(lo),
+            "--prompt-len-max", str(hi), "--max-new", str(SSM_NEW),
+            "--qos-target", "0.001", "--decision-interval", "0",
+            "--min-samples", "4"]
+    tag = f"serve-ssm {SSM_ARCH}"
+    drop_int8_weights()
+    reset_launches()
+    res = serve.main(argv)
+    launches = read_launches()
+    int8_designs(tag)
+    eng, reqs, names = res["engine"], res["requests"], res["names"]
+    cfg = eng.cfg
+    n_mamba = sum(k == MAMBA for k in cfg.kinds())
+    assert eng.paged and cfg.n_layers == 54 and n_mamba == 45
+    assert all(r.done and len(r.out) == SSM_NEW for r in reqs), \
+        [(r.uid, r.done, len(r.out)) for r in reqs]
+    assert all(0 <= t < cfg.vocab_size for r in reqs for t in r.out)
+    assert names == ["precise", "int8", "int8+kvq8"], names
+    visited = {0} | {v for _, v in eng.swaps}
+    assert len(visited) > 1, eng.swaps
+    chunks = ssm_chunks(eng)
+    assert launches["ssd_scan"] == ssd_scan.FWD_PASSES * n_mamba * chunks, \
+        (launches, chunks)
+    assert launches["paged_attention"] > 0, launches
+    assert launches["flash_attention"] == launches["ring_hop"] \
+        == launches["ssd_scan_backward"] == 0, launches
+    if visited - {0}:       # every rung past precise runs the int8 matmuls
+        assert launches["int8_matmul"] > 0 and \
+            launches["quantize_rows"] > 0, launches
+    s = eng.pool.stats
+    print(f"{tag}: {res['tokens']} tokens, tok_s={res['tok_s']:.2f} "
+          f"p50_ms={1e3 * res['p50_s']:.3f} p99_ms={1e3 * res['p99_s']:.3f} "
+          f"wall={res['wall_s']:.2f}s swaps={eng.swaps} admission chunks "
+          f"{chunks} ({sum(len(r.prompt) for r in reqs)} prompt tokens; "
+          f"prefill pauses at every registered {SSM_PAGE}-token boundary), "
+          f"mean decode step "
+          f"{1e3 * sum(eng.step_latencies) / len(eng.step_latencies):.3f} "
+          f"ms ({len(eng.step_latencies)} steps), prefixes registered "
+          f"{s['prefix_registered']} evicted {s['prefix_evicted']}, "
+          f"launches={launches}")
+    return res, launches
+
+
+def ssm_engine(src, device, rung, paged=True, k=0, slots=0):
+    """An engine on the cell's weights (``slots`` slots, ``SSM_SLOTS`` for
+    0, max_len ``SSM_CTX``, page ``SSM_PAGE``, chunk ``SSM_CHUNK``, every
+    admission in one step) on rung ``rung``; megastep K ``k``."""
+    from repro_torch.serve.engine import ServeEngine
+    eng = ServeEngine(src.cfg, batch_slots=slots or SSM_SLOTS,
+                      max_len=SSM_CTX,
+                      params=src.params, table=src.table,
+                      prefill_chunk=SSM_CHUNK, paged=paged,
+                      page_size=SSM_PAGE, max_admission_chunks=1 << 20,
+                      cache_dtype=src.cache_dtype, device=device,
+                      megastep_k=k)
+    eng.request_variant(rung)
+    return eng
+
+
+def ssm_walk(res, device, decode_steps=4, prof_steps=2):
+    """``request_variant`` walk over the ladder on the cell's weights: on
+    each rung the dense engine, then the paged engine serve the same
+    ``SSM_SLOTS`` prompts of ``SSM_WALK_LEN`` tokens. Each reports
+    admission ms a chunk and a token (the paged engine pauses at every
+    16-token boundary it registers), the mean decode step over
+    ``decode_steps`` steps with every slot live and a profiled window's
+    busy share; on precise also the shares of the device time of the
+    Mamba decode (``mamba2.mamba_decode``) and of the attention decode
+    (host and card profiled: slow at this op count), and that the paged
+    decode step makes no host sync."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.models import mamba2 as mamba_mod
+    from repro_torch.serve.engine import Request
+    src = res["engine"]
+    prompts = ssm_prompts(src.cfg.vocab_size, SSM_SLOTS, 11, SSM_WALK_LEN)
+    tokens = SSM_SLOTS * SSM_WALK_LEN
+    for rung, name in enumerate(res["names"]):
+        for paged in (False, True):
+            drop_int8_weights()
+            eng = ssm_engine(src, device, rung, paged)
+            for i, p in enumerate(prompts):
+                eng.submit(Request(i, prompt=p, max_new=4 * prof_steps
+                                   + decode_steps + 4))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            while not all(s is not None for s in eng.slots):
+                eng.step()
+            torch.cuda.synchronize()
+            admit = time.perf_counter() - t0
+            chunks = (ssm_chunks(eng) if paged
+                      else SSM_SLOTS * -(-SSM_WALK_LEN // SSM_CHUNK))
+            eng.step()
+            n0 = len(eng.step_latencies)
+            for _ in range(decode_steps):
+                eng.step()
+            step = 1e3 * sum(eng.step_latencies[n0:]) / decode_steps
+            wall, busy = busy_window(eng, prof_steps)
+            kind = "paged" if paged else "dense"
+            extra = ""
+            if rung == 0:
+                attn_fn = "paged_decode_attention" if paged else \
+                    "decode_attention"
+                _, _, attn = dense_decode_window(eng, prof_steps, attn_fn)
+                _, _, mamba = dense_decode_window(eng, prof_steps,
+                                                  "mamba_decode", mamba_mod)
+                extra = (f", Mamba decode {mamba:.3f} and attention "
+                         f"{attn:.3f} of the device time")
+            if paged and rung == 0:
+                toks = torch.tensor(eng.cur_tokens, dtype=torch.long,
+                                    device=device)[:, None]
+                pos = torch.tensor(eng.positions, device=device)
+                act = torch.ones(SSM_SLOTS, dtype=torch.bool, device=device)
+                n = host_syncs(lambda: lm.decode_step(
+                    eng.params, toks, pos, eng.caches, eng.cfg,
+                    eng.active_knobs, active=act))
+                assert n == 0, n
+                extra += ", host syncs in a decode step 0"
+            print(f"serve-ssm walk {name} {kind}: admission "
+                  f"{1e3 * admit / chunks:.2f} ms a chunk ({chunks} chunks),"
+                  f" {1e3 * admit / tokens:.4f} ms a token; mean decode "
+                  f"step {step:.3f} ms ({SSM_SLOTS} slots, {decode_steps} "
+                  f"steps); profiled {prof_steps} steps: wall {wall:.3f} "
+                  f"ms, busy {busy:.3f} ms ({busy / wall:.3f}){extra}")
+            del eng
+            torch.cuda.empty_cache()
+
+
+def ssm_megastep(res, device, max_new=17):
+    """On precise and the most approximate rung: the per-step paged engine
+    and the megastep engine (K ``MEGA_K``, a replayed CUDA graph whose
+    Mamba rows update in place) serve the same ``SSM_SLOTS`` prompts of
+    ``SSM_MEGA_LEN`` tokens with equal greedy streams; dispatches a token
+    and the graphs' replays, the median per-step decode and the megastep's
+    median flight wall a token."""
+    import numpy as np
+    src = res["engine"]
+    prompts = ssm_prompts(src.cfg.vocab_size, SSM_SLOTS, 4, SSM_MEGA_LEN)
+    for rung in (0, len(res["names"]) - 1):
+        name = res["names"][rung]
+        drop_int8_weights()
+        per = ssm_engine(src, device, rung)
+        a = serve_streams(per, prompts, max_new)
+        mega = ssm_engine(src, device, rung, k=MEGA_K)
+        b = serve_streams(mega, prompts, max_new)
+        assert a == b, (name, [sum(x != y for x, y in zip(p, q))
+                               for p, q in zip(a, b)])
+        # a full batch's steps: past admission (the first decode) and, on
+        # the megastep, its K-token flights past the capture
+        step_ms = 1e3 * float(np.median(per.step_latencies[1:]))
+        tok_ms = 1e3 * float(np.median(mega.step_latencies[1:])) / MEGA_K
+        print(f"serve-ssm megastep {name}: streams equal "
+              f"({sum(map(len, b))} tokens), median per-step decode "
+              f"{step_ms:.3f} ms, megastep {tok_ms:.3f} ms a token (flight "
+              f"wall / {MEGA_K}), dispatches/token "
+              f"{mega.row_dispatches / mega.row_tokens:.3f}, graphs "
+              f"{len(mega.graph_log)}, replays "
+              f"{sum(g['replays'] for g in mega.graph_log)}, launches a "
+              f"replay {[g['launches'] for g in mega.graph_log]}")
+        del mega
+
+
+def ssm_prefix_hit(res, device, max_new=16):
+    """A prefix hit that restores an SSM snapshot: on a one-slot paged
+    engine a request of ``SSM_PREFIX_LEN`` tokens registers its 16-token
+    boundaries (each with a snapshot of the slot's Mamba rows), then a
+    second request sharing its first three quarters maps those pages,
+    starts from that boundary's snapshot and skips those chunks; its
+    greedy stream equals the same request's on a fresh engine (cold)."""
+    src = res["engine"]
+    first, tail = ssm_prompts(src.cfg.vocab_size, 2, 7, SSM_PREFIX_LEN)
+    shared = 3 * SSM_PREFIX_LEN // 4
+    second = first[:shared] + tail[shared:]
+    drop_int8_weights()
+    cold_eng = ssm_engine(src, device, 0, slots=1)
+    cold = serve_streams(cold_eng, [second], max_new)
+    eng = ssm_engine(src, device, 0, slots=1)
+    serve_streams(eng, [first], max_new)
+    c0 = ssm_chunks(eng)
+    warm = serve_streams(eng, [second], max_new)
+    s = eng.pool.stats
+    assert s["prefix_hits"] == 1 and s["tokens_skipped"] == shared, s
+    assert warm == cold, (warm, cold)
+    print(f"serve-ssm prefix hit: {shared} of {SSM_PREFIX_LEN} tokens "
+          f"skipped from an SSM snapshot, {ssm_chunks(eng) - c0} chunks "
+          f"(cold {ssm_chunks(cold_eng)}), stream equal to the cold run's "
+          f"({max_new} tokens)")
+
+
+def ssm_handoff(res, device):
+    """``prefill_with_cache`` on one prompt of ``SSM_HANDOFF_LEN`` tokens at
+    the cell's width (bf16, precise): 45 ``ssd_scan`` calls with the final
+    state out and 9 ``flash_attention`` calls (hd 80: design simple), its
+    first-token logits against chunked admission's (the dense engine's
+    ``_chunked_prefill``) within ``SSM_LOGIT_TOL`` of their rms; the Mamba
+    states each hands to decode are reported beside each other (the
+    largest |diff| over the rms, and the relative Frobenius norm, worst
+    layer), not gated: bf16 rounding over 54 layers and 2048 tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.models.mamba2 import MambaCache
+    from repro_torch.serve import prefill as prefill_mod
+    from repro_torch.serve.engine import ServeEngine
+    src = res["engine"]
+    cfg, params = src.cfg, src.params
+    drop_int8_weights()
+    prompt = list(map(int, np.random.default_rng(13).integers(
+        1, cfg.vocab_size, SSM_HANDOFF_LEN)))
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits_pf, caches_pf = prefill_mod.prefill_with_cache(
+        params, torch.tensor([prompt], device=device), cfg, SSM_CTX)
+    torch.cuda.synchronize()
+    pf_s = time.perf_counter() - t0
+    launches = read_launches()
+    designs = {k: n for k, n in fa.design_launches.items() if n}
+    assert launches["ssd_scan"] == ssd_scan.FWD_PASSES * 45, launches
+    assert launches["flash_attention"] == 9 and designs == {"simple": 9}, \
+        (launches, designs)
+    eng = ServeEngine(cfg, batch_slots=1, max_len=SSM_CTX, params=params,
+                      prefill_chunk=SSM_CHUNK, cache_dtype=src.cache_dtype,
+                      device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits_ck, caches_ck = eng._chunked_prefill(prompt)
+    torch.cuda.synchronize()
+    ck_s = time.perf_counter() - t0
+
+    def rel(a, b):
+        a, b = a.float(), b.float()
+        return float((a - b).abs().max() / b.pow(2).mean().sqrt())
+    gate = rel(logits_pf, logits_ck)
+    assert gate <= SSM_LOGIT_TOL, gate
+    pairs = [(a.state, b.state) for a, b in zip(caches_pf, caches_ck)
+             if isinstance(a, MambaCache)]
+    state = max(rel(a, b) for a, b in pairs)
+    frob = max(float((a - b).norm() / b.norm()) for a, b in pairs)
+    print(f"serve-ssm prefill_with_cache: {SSM_HANDOFF_LEN} tokens in "
+          f"{1e3 * pf_s:.1f} ms (chunked admission {1e3 * ck_s:.1f} ms), "
+          f"launches ssd_scan {launches['ssd_scan']} flash_attention "
+          f"{launches['flash_attention']} by design {designs}; first-token "
+          f"logits max |diff| {gate:.4f} of their rms (tol "
+          f"{SSM_LOGIT_TOL}), Mamba states max |diff| {state:.4f} of their "
+          f"rms, relative Frobenius {frob:.4f} (worst layer); greedy first "
+          f"tokens equal "
+          f"{int(logits_pf.argmax(-1) == logits_ck.argmax(-1))}")
+
+
+def ssm_cell(device):
+    """Phase ``serve-ssm``: ``ssd_scan`` with the state in and out at the
+    path's shapes, small-config parity, the cell's serve run, the rung
+    walk, the megastep, a prefix hit and the ``prefill_with_cache``
+    handoff; device memory before, at peak and after. Returns (the serve
+    run's launches, the ``ssd_scan`` rows)."""
+    import gc
+
+    import torch
+    drop_int8_weights()
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    secs, t = {}, time.perf_counter()
+
+    def done(name):
+        nonlocal t
+        secs[name] = round(time.perf_counter() - t, 1)
+        t = time.perf_counter()
+    rows = check_ssd_state(device, ssd_state_cases())
+    done("ssd_scan")
+    ssm_parity(device)
+    done("parity")
+    res, launches = ssm_serve(device)
+    done("serve")
+    ssm_walk(res, device)
+    done("walk")
+    ssm_megastep(res, device)
+    done("megastep")
+    ssm_prefix_hit(res, device)
+    done("prefix")
+    ssm_handoff(res, device)
+    done("handoff")
+    print(f"serve-ssm seconds: {secs}")
+    del res                  # the engine and its runtime hold a cycle
+    drop_int8_weights()
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated()
+    after = torch.cuda.memory_allocated()
+    print(f"serve-ssm memory: before {before / 2 ** 30:.2f} GiB, peak "
+          f"{peak / 2 ** 30:.2f} GiB, after {after / 2 ** 30:.2f} GiB")
+    return launches, rows
+
+
 # ------------------------------------------------------------------ main --
 
 def main():
@@ -3580,11 +4096,12 @@ def main():
         ["precise", "int8", "int8+kvstride2", "int8+drop50%"],
         attn_launches, remat="full")
     phase_done("train-attn")
-    # 3 steps a rung (median of the last 2): cut from 4 to keep the whole
-    # script near half its time limit with the serve-ring phase added
-    train_rung_walk(ares, device, steps=3, per_step=attn_launches)
+    # 2 steps a rung (the second timed): cut from 4 with the serve-ring
+    # phase added and from 3 with serve-ssm, to keep the whole script
+    # under 1100 s
+    train_rung_walk(ares, device, steps=2, per_step=attn_launches)
     with chunked_causal_attention():
-        train_rung_walk(ares, device, steps=3, rungs=["int8"],
+        train_rung_walk(ares, device, steps=2, rungs=["int8"],
                         tag=" (attention chunked, stride 1)",
                         per_step=lambda cfg, knobs: {
                             **attn_launches(cfg, knobs),
@@ -3599,6 +4116,8 @@ def main():
     phase_done("colocate")
     dense_launches = dense_cell(device)
     phase_done("serve-dense")
+    ssm_launches, ssm_rows = ssm_cell(device)
+    phase_done("serve-ssm")
 
     src_of = {"flash_attention": (
                   "src/repro_torch/csrc/flash_attention.cu",
@@ -3624,8 +4143,15 @@ def main():
                       "train-attn": attn_train_launches[name],
                       "serve-ring": ring_launches[name],
                       "colocate": colo_launches[name],
-                      "serve-dense": dense_launches[name]}
+                      "serve-dense": dense_launches[name],
+                      "serve-ssm": ssm_launches[name]}
                for name in kernels}
+    # ssd_scan with the state in and out at zamba2's admission chunk
+    ssm_row = next(r for r in ssm_rows if r["shape"] == (1, 128, 80, 64, 64)
+                   and r["dtype"] == "bf16")
+    ssd_state = {"serve_ssm": {k: ssm_row[k] for k in (
+        "shape", "dtype", "ms", "plain_ms", "bound_ms", "bound_by",
+        "max_abs_err", "state_err")}}
     ring_row = next(r for r in pa_rows if r["name"] == "ring-decode")
     tc_row = next(r for r in fa_rows if r["name"] == "cell-bf16")
     paged_ring = {"ring_decode_ms": ring_row["ms"],
@@ -3646,6 +4172,7 @@ def main():
                             if name == "ring_hop" else {}),
                          **(paged_ring if name == "paged_attention"
                             else {}),
+                         **(ssd_state if name == "ssd_scan" else {}),
                          **({"design": r["design"], "tc": {
                              k: tc_row[k] for k in (
                                  "name", "ms", "plain_ms", "library_ms",

@@ -8,8 +8,9 @@
 // for i <= t, 0 above the diagonal:
 //   y     = (G o L).u + exp(cum) o (C.S_in^T)
 //   S_out = exp(total) S_in + (exp(total - cum) o u)^T.B
-// every product and the state in fp32 from a zero state, y stored in x's
-// dtype. The backward is the closed chunked VJP of the same function
+// every product and the state in fp32 from a zero state (or, on the
+// serving path, the caller's initial state, with the final state written
+// out by pass 3), y stored in x's dtype. The backward is the closed chunked VJP of the same function
 // (ssd_scan_backward_plain in kernels/ssd_scan.py spells it out).
 //
 // Bound on the H100: fp32 operations. Forward at Q = N = 128, P = 64: per
@@ -31,7 +32,8 @@
 //                  local state cotangent (exp(cum) o gy)^T.C), chunks in
 //                  parallel, into a (B, nc, H, N, P) fp32 scratch
 //   3 state_pass   an elementwise walk over the chunks, in place: the state
-//                  entering each chunk (in reverse: the cotangent leaving it)
+//                  entering each chunk (in reverse: the cotangent leaving it),
+//                  from an optional initial state, the final state out
 //   4 out          y per (batch, head, chunk, 64 rows, 64 columns of P)
 // and for the backward, after 1-3, 2 (mode 1) and 3 (reverse):
 //   dg      the head-summed dG = L o (gy.u^T) per (batch, chunk, lower
@@ -465,11 +467,15 @@ __global__ void __launch_bounds__(UNIT)
 // in[c], chunks in order (states entering) or in reverse (cotangents
 // leaving). A thread per float4 of a (batch, head) state; the loads of
 // SP_BATCH chunks are issued before any is used, so that the walk waits on
-// memory once a batch, not once a chunk.
+// memory once a batch, not once a chunk. ``init`` (B, H, N*P), when not
+// null, is the state entering chunk 0 (else zero); ``fin`` (B, H, N*P),
+// when not null, receives run after the last chunk (the final state).
 constexpr int SP_BATCH = 8;
 
 __global__ void state_pass_kernel(float* __restrict__ s,
-                                  const float* __restrict__ cum, int B, int S,
+                                  const float* __restrict__ cum,
+                                  const float* __restrict__ init,
+                                  float* __restrict__ fin, int B, int S,
                                   int H, int NP4, int Q, int reverse) {
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (size_t)B * H * NP4) return;
@@ -479,7 +485,9 @@ __global__ void state_pass_kernel(float* __restrict__ s,
   float4* base = reinterpret_cast<float4*>(s) + ((size_t)b * nc * H + h) *
                                                     NP4 + e;
   const size_t cstride = (size_t)H * NP4;   // float4s from chunk to chunk
-  float4 run = make_float4(0.f, 0.f, 0.f, 0.f);
+  const size_t own = ((size_t)b * H + h) * NP4 + e;   // (B, H, N*P) index
+  float4 run = init ? reinterpret_cast<const float4*>(init)[own]
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
   for (int j0 = 0; j0 < nc; j0 += SP_BATCH) {
     float4 loc[SP_BATCH];
     float d[SP_BATCH];
@@ -503,6 +511,7 @@ __global__ void state_pass_kernel(float* __restrict__ s,
       }
     }
   }
+  if (fin) reinterpret_cast<float4*>(fin)[own] = run;
 }
 
 // ------------------------------------------------------------ 4: out --
@@ -1261,15 +1270,18 @@ extern "C" int ssd_chunk_state(const void* src, const void* mat,
                                             (cudaStream_t)stream))
 }
 
-extern "C" int ssd_state_pass(void* s, const void* cum, int B, int S, int H,
-                              int P, int N, int Q, int reverse,
-                              void* stream) {
+// init / fin: (B, H, N, P) fp32 or null (a zero initial state; no final
+// state written).
+extern "C" int ssd_state_pass(void* s, const void* cum, const void* init,
+                              void* fin, int B, int S, int H, int P, int N,
+                              int Q, int reverse, void* stream) {
   if (bad_shape(B, S, H, P, N, Q)) return (int)cudaErrorInvalidValue;
   const int np4 = N * P / 4;
   const size_t n = (size_t)B * H * np4;
   state_pass_kernel<<<(unsigned)((n + 255) / 256), 256, 0,
-                      (cudaStream_t)stream>>>((float*)s, (const float*)cum, B,
-                                              S, H, np4, Q, reverse);
+                      (cudaStream_t)stream>>>(
+      (float*)s, (const float*)cum, (const float*)init, (float*)fin, B, S, H,
+      np4, Q, reverse);
   return (int)cudaGetLastError();
 }
 

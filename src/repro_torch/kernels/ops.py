@@ -19,7 +19,7 @@ from repro_torch.kernels.int8_matmul import int8_matmul_t
 from repro_torch.kernels.paged_attention import paged_attention  # noqa: F401
 from repro_torch.kernels.quantize_rows import (quantize_rows,
                                                quantize_rows_backward)
-from repro_torch.kernels.ssd_scan import SSDScan
+from repro_torch.kernels.ssd_scan import SSDScan, ssd_scan_state
 
 
 def int8_acc(x_q, w_t):
@@ -150,13 +150,35 @@ def flash(q, k, v, *, causal=True, window=0, cap=0.0, kv_keep_stride=1):
                                 kv_keep_stride)
 
 
-def ssd(x, dt, a, b, c, *, chunk=128, d_skip=None):
+def ssd(x, dt, a, b, c, *, chunk=128, d_skip=None, init_state=None,
+        return_state=False):
     """Mamba2 SSD scan through the ``ssd_scan`` kernel (its plain version
     for CPU tensors), differentiable through ``SSDScan``. The D-skip is
-    added outside the kernel in fp32, as the JAX package's TPU branch does."""
+    added outside the kernel in fp32, as the JAX package's TPU branch does.
+
+    With ``init_state`` (B,H,P,N) fp32 or ``return_state`` (the serving
+    path: chunked admission, the prefill handoff) the scan continues from
+    that state (else zero) at any length (``ssd_scan_state`` pads to the
+    kernel's chunks) and returns (y, final state); that form is forward
+    only and raises where autograd would need its gradient."""
+    if init_state is not None or return_state:
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad
+                for t in (x, dt, a, b, c, d_skip, init_state)):
+            raise NotImplementedError(
+                "ops.ssd: the scan with a state in or out has no backward")
+        y, state = ssd_scan_state(
+            x.contiguous(), dt.float().contiguous(), a.float().contiguous(),
+            b.contiguous(), c.contiguous(), chunk=chunk,
+            init_state=init_state)
+        return _d_skip(y, x, d_skip), state
     y = SSDScan.apply(x.contiguous(), dt.float().contiguous(),
                       a.float().contiguous(), b.contiguous(), c.contiguous(),
                       chunk)
+    return _d_skip(y, x, d_skip)
+
+
+def _d_skip(y, x, d_skip):
     if d_skip is not None:
         y = (y.float() + d_skip.float()[None, None, :, None]
              * x.float()).to(x.dtype)

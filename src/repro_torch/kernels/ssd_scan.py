@@ -17,16 +17,20 @@ launch each (``FWD_PASSES``): (1) ``cum`` by a warp scan and G once per
 (batch, chunk) for every head, B and C being one group; (2) each chunk's
 local state ``(exp(total − cum)·u)ᵀ·B`` in parallel; (3) the state passing,
 an elementwise walk over the chunks that turns the local states into the
-states entering each chunk; (4) y. The backward (``BWD_PASSES``) is the
-closed chunked VJP of the same function (``ssd_scan_backward_plain`` says
-it in PyTorch): passes 1-3 again, the local state cotangents
-``(exp(cum)·gy)ᵀ·C``, a reverse state pass for the cotangent leaving each
-chunk, the head-summed ``L ∘ (gy·uᵀ)``, dx and each row's decay terms per
-(batch, head, chunk), their reverse cumsum into ddt, dB and dC as products
-summed over heads, and one ordered reduction of the partial sums. No float
-atomics: the gradients on the card repeat from run to run. Every product
-is a 64 x 64 tile of fp32 FMAs fed by ``cp.async`` chunks (the source
-says more).
+states entering each chunk; (4) y. The serving path's calls (``init_state``,
+``return_state``; ``ssd_scan_state`` pads any length to the kernels'
+chunks) start pass 3 from the caller's state and write the state after the
+last chunk out, the twin of ``ssd_chunked_ref(init_state=,
+return_state=True)`` that the JAX package's prefill calls. The backward
+(``BWD_PASSES``) is the closed chunked VJP of the same function
+(``ssd_scan_backward_plain`` says it in PyTorch): passes 1-3 again, the
+local state cotangents ``(exp(cum)·gy)ᵀ·C``, a reverse state pass for
+the cotangent leaving each chunk, the head-summed ``L ∘ (gy·uᵀ)``, dx and
+each row's decay terms per (batch, head, chunk), their reverse cumsum into
+ddt, dB and dC as products summed over heads, and one ordered reduction of
+the partial sums. No float atomics: the gradients on the card repeat from
+run to run. Every product is a 64 x 64 tile of fp32 FMAs fed by
+``cp.async`` chunks (the source says more).
 
 ``ssd_scan`` and ``ssd_scan_backward`` run the plain version for a CPU
 tensor and launch the kernels for a CUDA tensor, raising on anything else;
@@ -57,7 +61,7 @@ _I = ctypes.c_int
 _SIGS = {
     "ssd_cum_g": [_P] * 7 + [_I] * 6 + [_P],
     "ssd_chunk_state": [_P] * 5 + [_I] * 8 + [_P],
-    "ssd_state_pass": [_P] * 2 + [_I] * 7 + [_P],
+    "ssd_state_pass": [_P] * 4 + [_I] * 7 + [_P],
     "ssd_out": [_P] * 7 + [_I] * 7 + [_P],
     "ssd_bwd_dg": [_P] * 5 + [_I] * 8 + [_P],
     "ssd_bwd_dx": [_P] * 13 + [_I] * 7 + [_P],
@@ -71,11 +75,12 @@ def _f32(x):
     return torch.promote_types(x.dtype, torch.float32)
 
 
-def ssd_scan_plain(x, dt, a, b, c, *, chunk: int = 128):
+def ssd_scan_plain(x, dt, a, b, c, *, chunk: int = 128, init_state=None,
+                   return_state: bool = False):
     """What the Pallas ``_kernel`` computes, in plain PyTorch: chunk by
     chunk, every product and the carried state in fp32, only y cast to x's
     dtype (an fp64 input is computed in fp64, for gradient checks). Shapes
-    as ``ssd_scan``."""
+    and the state arguments as ``ssd_scan``."""
     B, S, H, P = x.shape
     N = b.shape[-1]
     Q = min(chunk, S)
@@ -86,7 +91,8 @@ def ssd_scan_plain(x, dt, a, b, c, *, chunk: int = 128):
     dth = dt.to(f32).permute(0, 2, 1)                      # (B,H,S)
     bf, cf, a = b.to(f32), c.to(f32), a.to(f32)
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=dev))
-    state = torch.zeros((B, H, P, N), dtype=f32, device=dev)
+    state = (torch.zeros((B, H, P, N), dtype=f32, device=dev)
+             if init_state is None else init_state.to(f32))
     ys = []
     for s0 in range(0, S, Q):
         xq = xh[:, :, s0:s0 + Q]                           # (B,H,Q,P)
@@ -103,7 +109,8 @@ def ssd_scan_plain(x, dt, a, b, c, *, chunk: int = 128):
         wi = (torch.exp(total - cum) * dq)[..., None]      # (B,H,Q,1)
         state = state * torch.exp(total)[..., None] \
             + (wi * xq).transpose(-1, -2) @ bq
-    return torch.cat(ys, dim=2).permute(0, 2, 1, 3).to(x.dtype)
+    y = torch.cat(ys, dim=2).permute(0, 2, 1, 3).to(x.dtype)
+    return (y, state) if return_state else y
 
 
 class _Chunks:
@@ -111,9 +118,10 @@ class _Chunks:
     per (batch, chunk) the chunk's inputs in fp32 (fp64 stays fp64) and
     ``cum``, ``L`` (B,nc,Q,Q,H: t, i, head, exp taken of kept entries
     only), ``G`` (B,nc,Q,Q), ``u = dt·x`` and ``s_in``, the state entering
-    each chunk (B,nc,H,P,N)."""
+    each chunk (B,nc,H,P,N), from ``init_state`` (B,H,P,N) or zero, and
+    ``s_out``, the state after the last chunk (B,H,P,N)."""
 
-    def __init__(self, x, dt, a, b, c, chunk):
+    def __init__(self, x, dt, a, b, c, chunk, init_state=None):
         B, S, H, P = x.shape
         N = b.shape[-1]
         Q = min(chunk, S)
@@ -141,16 +149,20 @@ class _Chunks:
         # pass 2: each chunk's own state; pass 3: the states entering
         s_loc = torch.einsum("bcih,bcihp,bcin->bchpn", self.wdec, self.u,
                              self.b)
-        self.s_in = _state_pass(s_loc, self.total, reverse=False)
+        self.s_in = _state_pass(s_loc, self.total, reverse=False,
+                                init=init_state)
+        self.s_out = self.s_in[:, -1] * torch.exp(
+            self.total[:, -1])[..., None, None] + s_loc[:, -1]
 
 
-def _state_pass(loc, total, reverse):
+def _state_pass(loc, total, reverse, init=None):
     """Pass 3 and its reverse: ``out[c] = run`` before chunk c is folded
     in, ``run = exp(total[c])·run + loc[c]``, over c in order (the state
-    entering each chunk) or in reverse (the cotangent leaving each
-    chunk)."""
+    entering each chunk) or in reverse (the cotangent leaving each chunk),
+    ``run`` starting from ``init`` or zero."""
     nc = loc.shape[1]
-    run = torch.zeros_like(loc[:, 0])
+    run = (torch.zeros_like(loc[:, 0]) if init is None
+           else init.to(loc.dtype))
     out = [None] * nc
     for c in (reversed(range(nc)) if reverse else range(nc)):
         out[c] = run
@@ -158,15 +170,17 @@ def _state_pass(loc, total, reverse):
     return torch.stack(out, dim=1)
 
 
-def ssd_passes_plain(x, dt, a, b, c, *, chunk: int = 128):
+def ssd_passes_plain(x, dt, a, b, c, *, chunk: int = 128, init_state=None,
+                     return_state: bool = False):
     """The forward as the kernels run it, passes 1-4 in plain PyTorch: the
     same function as ``ssd_scan_plain``, summed in the passes' order."""
-    k = _Chunks(x, dt, a, b, c, chunk)
+    k = _Chunks(x, dt, a, b, c, chunk, init_state)
     B, S, H, P, N, Q, nc = k.shape
     y = torch.einsum("bcti,bctih,bcihp->bcthp", k.g, k.L, k.u) \
         + torch.exp(k.cum)[..., None] \
         * torch.einsum("bctn,bchpn->bcthp", k.c, k.s_in)
-    return y.reshape(B, S, H, P).to(x.dtype)
+    y = y.reshape(B, S, H, P).to(x.dtype)
+    return (y, k.s_out) if return_state else y
 
 
 def ssd_scan_backward_plain(x, dt, a, b, c, gy, *, chunk: int = 128):
@@ -217,14 +231,54 @@ def ssd_scan_backward_plain(x, dt, a, b, c, gy, *, chunk: int = 128):
             dc.reshape(B, S, N).to(c.dtype))
 
 
-def ssd_scan(x, dt, a, b, c, *, chunk: int = 128):
+def ssd_scan(x, dt, a, b, c, *, chunk: int = 128, init_state=None,
+             return_state: bool = False):
     """x: (B,S,H,P); dt: (B,S,H) fp32 (already softplus'd); a: (H,) fp32,
     negative; b, c: (B,S,N) in x's dtype (one group, broadcast over heads).
     Returns y (B,S,H,P) in x's dtype, without the D-skip (the caller adds
-    it, as ``ops.ssd`` does)."""
+    it, as ``ops.ssd`` does). ``init_state`` (B,H,P,N) fp32 seeds the
+    recurrence in place of zero; with ``return_state`` the call returns
+    (y, the (B,H,P,N) fp32 state after the last token), the serving path's
+    handoff (forward only: ``SSDScan`` never passes a state)."""
     if x.device.type == "cpu":
-        return ssd_scan_plain(x, dt, a, b, c, chunk=chunk)
-    return _launch(x, dt, a, b, c, chunk)
+        return ssd_scan_plain(x, dt, a, b, c, chunk=chunk,
+                              init_state=init_state,
+                              return_state=return_state)
+    return _launch(x, dt, a, b, c, chunk, init_state, return_state)
+
+
+def state_chunk(S: int, chunk: int):
+    """(Q, S_pad) of a call with a state: the chunk length the kernel runs
+    ``S`` tokens at, and ``S`` padded up to a multiple of it. ``chunk`` is
+    rounded down to a multiple of 4 within [4, 128]; a shorter sequence is
+    one chunk of its length rounded up to a multiple of 4. The JAX
+    package's ``mamba_prefill`` chunks at the largest divisor of S that is
+    at most ``chunk`` (1 for a prime S), which the kernel's tiles refuse."""
+    q = max(4, min(chunk, _Q_MAX) // 4 * 4)
+    if S <= q:
+        q = max(4, -(-S // 4) * 4)
+    return q, -(-S // q) * q
+
+
+def ssd_scan_state(x, dt, a, b, c, *, chunk: int = 128, init_state=None):
+    """``ssd_scan`` from ``init_state`` (or zero) with the final state out,
+    at any length S: the tokens are padded at the end to ``state_chunk``'s
+    length with x = 0, dt = 0 and b = c = 0. A padded token decays the
+    state by exp(0) = 1 and adds nothing to it, so the final state and
+    every real token's y are those of the unpadded sequence (chunked
+    otherwise, so equal within fp32 rounding). Returns (y (B,S,H,P), state
+    (B,H,P,N) fp32)."""
+    S = x.shape[1]
+    Q, S_pad = state_chunk(S, chunk)
+    if S_pad != S:
+        pad = S_pad - S
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+        b = torch.nn.functional.pad(b, (0, 0, 0, pad))
+        c = torch.nn.functional.pad(c, (0, 0, 0, pad))
+    y, state = ssd_scan(x, dt, a, b, c, chunk=Q, init_state=init_state,
+                        return_state=True)
+    return y[:, :S], state
 
 
 def ssd_scan_backward(x, dt, a, b, c, gy, *, chunk: int = 128):
@@ -298,9 +352,10 @@ def _lib():
     return lib
 
 
-def _prologue(lib, x, dt, a, b, c, shape, code, st):
+def _prologue(lib, x, dt, a, b, c, shape, code, st, init=None, fin=None):
     """Passes 1-3: returns (cum, G, Gᵀ, S_in); adds 3 to the caller's
-    count of launches."""
+    count of launches. ``init`` / ``fin``: (B,H,N,P) fp32, the state
+    entering chunk 0 and the buffer for the final state, or None."""
     B, S, H, P, N, Q = shape
     nc = S // Q
     f32 = dict(device=x.device, dtype=torch.float32)
@@ -315,25 +370,43 @@ def _prologue(lib, x, dt, a, b, c, shape, code, st):
           dt.data_ptr(), cum.data_ptr(), s.data_ptr(),
           B, S, H, P, N, Q, 0, code, st)
     _call(lib, "ssd_state_pass", s.data_ptr(), cum.data_ptr(),
-          B, S, H, P, N, Q, 0, st)
+          None if init is None else init.data_ptr(),
+          None if fin is None else fin.data_ptr(), B, S, H, P, N, Q, 0, st)
     return cum, g, gt, s
 
 
-def _launch(x, dt, a, b, c, chunk):
+def _launch(x, dt, a, b, c, chunk, init_state=None, return_state=False):
+    """The forward passes. The state arguments cross the boundary
+    transposed: the kernels keep a state as (N, P) a (batch, head), the
+    callers as (P, N)."""
     global launches
     shape = _check(x, dt, a, b, c, chunk)
     B, S, H, P, N, Q = shape
+    f32 = dict(device=x.device, dtype=torch.float32)
+    init = fin = None
+    if init_state is not None:
+        if tuple(init_state.shape) != (B, H, P, N) or \
+                init_state.dtype != torch.float32 or \
+                init_state.device != x.device:
+            raise ValueError(
+                f"ssd_scan: init_state must be fp32 {(B, H, P, N)} on "
+                f"{x.device}, got {init_state.dtype} "
+                f"{tuple(init_state.shape)} on {init_state.device}")
+        init = init_state.transpose(-1, -2).contiguous()
+    if return_state:
+        fin = torch.empty((B, H, N, P), **f32)
     y = torch.empty_like(x)
-    if y.numel() == 0:
+    if y.numel() == 0 and not return_state:
         return y
     lib, code, st = _lib(), _CODES[x.dtype], _stream(x.device)
-    cum, g, _, s = _prologue(lib, x, dt, a, b, c, shape, code, st)
+    cum, g, _, s = _prologue(lib, x, dt, a, b, c, shape, code, st, init,
+                             fin)
     launches += 3
     _call(lib, "ssd_out", x.data_ptr(), dt.data_ptr(), c.data_ptr(),
           cum.data_ptr(), g.data_ptr(), s.data_ptr(), y.data_ptr(),
           B, S, H, P, N, Q, code, st)
     launches += 1
-    return y
+    return (y, fin.transpose(-1, -2)) if return_state else y
 
 
 def _launch_backward(x, dt, a, b, c, gy, chunk):
@@ -355,7 +428,7 @@ def _launch_backward(x, dt, a, b, c, gy, chunk):
           dt.data_ptr(), cum.data_ptr(), ds.data_ptr(),
           B, S, H, P, N, Q, 1, code, st)
     backward_launches += 1
-    _call(lib, "ssd_state_pass", ds.data_ptr(), cum.data_ptr(),
+    _call(lib, "ssd_state_pass", ds.data_ptr(), cum.data_ptr(), None, None,
           B, S, H, P, N, Q, 1, st)
     backward_launches += 1
     hpg, n_groups, hps, n_splits = splits(B, nc, H, Q, N)

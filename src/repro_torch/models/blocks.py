@@ -1,9 +1,10 @@
 """Pre-norm residual blocks. Counterpart of the JAX package's
-``models/blocks.py``: the ATTN and LOCAL_ATTN kinds with an MLP, on the
-serving paths (decode on dense rings or the paged pool, chunked prefill
-into either) and in the full-sequence forward of the training path, and
-the MAMBA kind's full-sequence forward. MoE and cross-attention blocks are
-not ported; Mamba serving is ROADMAP.md queue 1 item 4."""
+``models/blocks.py``: the ATTN, LOCAL_ATTN and SHARED_ATTN kinds (an
+attention block with an MLP; zamba2's shared block runs as full
+attention) and the MAMBA kind, on the serving paths (decode on dense rings
+or the paged pool with per-slot Mamba rows, chunked prefill into either)
+and in the full-sequence forward of the training path. MoE and
+cross-attention blocks are not ported."""
 from __future__ import annotations
 
 import torch
@@ -22,7 +23,8 @@ def block_specs(kind: str, cfg: ModelConfig):
     if kind == MAMBA:
         return {"norm": ParamSpec((d,), ("embed",), init="ones"),
                 "mixer": mamba_mod.mamba_specs(cfg)}
-    assert kind in (ATTN, LOCAL_ATTN), f"the port has no {kind} block"
+    assert kind in (ATTN, LOCAL_ATTN, SHARED_ATTN), \
+        f"the port has no {kind} block"
     return {"norm_attn": ParamSpec((d,), ("embed",), init="ones"),
             "attn": attn_mod.attn_specs(cfg),
             "norm_mlp": ParamSpec((d,), ("embed",), init="ones"),
@@ -58,19 +60,17 @@ def _kv_args(kind: str, cfg: ModelConfig, knobs: ApproxKnobs):
     return window, kv_scale
 
 
-def refuse_unported(kind: str) -> None:
-    if kind in (MAMBA, SHARED_ATTN):
-        raise NotImplementedError(
-            f"serving a {kind} block is not ported (ROADMAP.md queue 1, "
-            "item 4 'Mamba serving and hybrids')")
-
-
 def block_prefill(kind: str, params, h, positions, cache, cfg: ModelConfig,
                   knobs: ApproxKnobs = PRECISE, *, mesh=None):
-    """A C-token prompt chunk against a dense ring (chunked admission).
-    h: (B,C,D); positions: (B,C) absolute. Under ``mesh`` the attention may
-    run the sequence ring. Returns (h, cache)."""
-    refuse_unported(kind)
+    """A C-token prompt chunk against a dense ring or a ``MambaCache``
+    (chunked admission). h: (B,C,D); positions: (B,C) absolute. Under
+    ``mesh`` the attention may run the sequence ring. Returns (h, cache),
+    the cache updated in place."""
+    if kind == MAMBA:
+        y, cache = mamba_mod.mamba_prefill(
+            params.mixer, rms_norm(h, params.norm, cfg.norm_eps), cache,
+            cfg, precision=knobs.matmul_precision)
+        return h + y, cache
     window, kv_scale = _kv_args(kind, cfg, knobs)
     y, cache = attn_mod.chunk_decode_attention(
         params.attn, rms_norm(h, params.norm_attn, cfg.norm_eps),
@@ -84,9 +84,16 @@ def block_prefill(kind: str, params, h, positions, cache, cfg: ModelConfig,
 def block_prefill_paged(kind: str, params, h, positions, cache,
                         cfg: ModelConfig, knobs: ApproxKnobs = PRECISE, *,
                         slot: int, mesh=None):
-    """One slot's prompt chunk against the shared page pool. h: (1,C,D).
-    Under ``mesh`` the attention may run the sequence ring. Returns (h,
-    cache)."""
+    """One slot's prompt chunk against the shared page pool, or against
+    the slot's row of the per-slot Mamba rows (taken out, advanced, put
+    back). h: (1,C,D). Under ``mesh`` the attention may run the sequence
+    ring. Returns (h, cache), the cache updated in place."""
+    if kind == MAMBA:
+        row = mamba_mod.MambaCache(*(x[slot:slot + 1] for x in cache))
+        y, _ = mamba_mod.mamba_prefill(
+            params.mixer, rms_norm(h, params.norm, cfg.norm_eps), row,
+            cfg, precision=knobs.matmul_precision)
+        return h + y, cache
     window, kv_scale = _kv_args(kind, cfg, knobs)
     y, cache = attn_mod.paged_chunk_attention(
         params.attn, rms_norm(h, params.norm_attn, cfg.norm_eps),
@@ -100,15 +107,21 @@ def block_prefill_paged(kind: str, params, h, positions, cache,
 
 def block_decode(kind: str, params, h, position, cache, cfg: ModelConfig,
                  knobs: ApproxKnobs = PRECISE, *, active=None):
-    """Single-token decode on a ``PagedKVCache`` or a dense ``KVCache``
-    ring, chosen by the cache's type. Returns (h, cache).
+    """Single-token decode on a ``PagedKVCache``, a dense ``KVCache`` ring
+    or a ``MambaCache``, chosen by the kind and the cache's type. Returns
+    (h, cache), the cache updated in place.
 
-    On the paged pool ``active`` (B,) bool masks per-slot cache writes;
-    None = all rows live. The FREEZE contract: for a row with
-    ``active=False`` every page the row owns comes back bit-identical,
-    because its write is redirected to the never-read null page. A dense
+    On the paged pool and the Mamba rows ``active`` (B,) bool masks
+    per-slot cache writes; None = all rows live. The FREEZE contract: for
+    a row with ``active=False`` every page and Mamba row the row owns
+    comes back bit-identical, because its page write is redirected to the
+    never-read null page and its Mamba update is where-masked. A dense
     ring takes no mask: every row writes at the shared cursor."""
-    refuse_unported(kind)
+    if kind == MAMBA:
+        y, cache = mamba_mod.mamba_decode(
+            params.mixer, rms_norm(h, params.norm, cfg.norm_eps), cache,
+            cfg, precision=knobs.matmul_precision, active=active)
+        return h + y, cache
     window, kv_scale = _kv_args(kind, cfg, knobs)
     hn = rms_norm(h, params.norm_attn, cfg.norm_eps)
     if isinstance(cache, attn_mod.PagedKVCache):

@@ -15,11 +15,14 @@ one body that updates its carry and the caches in place (the engine
 replays that body as a CUDA graph on the card).
 
 Parameters are a ``ParamTree`` with ``embed``, ``final_norm`` (and
-``unembed`` when untied) and ``layers``: one block per layer in
-``cfg.kinds()`` order. Caches keep the JAX layout: one ``KVCache`` or
-``PagedKVCache`` per pattern position whose leaves are stacked over layer
-groups (axis 0; a ring's cursor is a (n_groups,) tensor), and layer ``g *
-period + j`` works on group ``g`` of cache ``j`` in place.
+``unembed`` when untied), ``layers``: one block per layer in
+``cfg.kinds()`` order (an empty one at a SHARED_ATTN position), and, for a
+pattern with SHARED_ATTN (zamba2), ``shared``: the one attention block
+every SHARED_ATTN layer runs (``layer_params``). Caches keep the JAX
+layout: one ``KVCache``, ``PagedKVCache`` or ``MambaCache`` per pattern
+position whose leaves are stacked over layer groups (axis 0; a ring's
+cursor is a (n_groups,) tensor), and layer ``g * period + j`` works on
+group ``g`` of cache ``j`` in place.
 """
 from __future__ import annotations
 
@@ -29,8 +32,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.approx.knobs import PRECISE, ApproxKnobs, keep_groups
-from repro_torch.configs.base import LOCAL_ATTN, MAMBA, ModelConfig
+from repro_torch.configs.base import (ATTN, LOCAL_ATTN, MAMBA, SHARED_ATTN,
+                                      ModelConfig)
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mamba2 as mamba_mod
 from repro_torch.models.blocks import block_decode, block_forward, block_specs
 from repro_torch.models import threefry
 from repro_torch.models.common import (ParamSpec, ParamTree, init_params,
@@ -51,8 +56,18 @@ def lm_specs(cfg: ModelConfig) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         specs["unembed"] = ParamSpec((d, cfg.vocab_size), ("embed", "vocab"))
-    specs["layers"] = [block_specs(kind, cfg) for kind in cfg.kinds()]
+    specs["layers"] = [{} if kind == SHARED_ATTN else block_specs(kind, cfg)
+                       for kind in cfg.kinds()]
+    if SHARED_ATTN in cfg.pattern:
+        specs["shared"] = block_specs(ATTN, cfg)
     return specs
+
+
+def layer_params(params, cfg: ModelConfig, i: int):
+    """Layer ``i``'s block: the shared block at a SHARED_ATTN position."""
+    if cfg.pattern[i % len(cfg.pattern)] == SHARED_ATTN:
+        return params.shared
+    return params.layers[i]
 
 
 def init_lm(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
@@ -97,8 +112,9 @@ def forward_hidden(params, tokens, cfg: ModelConfig,
 
     def group_body(h, aux, g):
         for j, kind in enumerate(cfg.pattern):
-            h, a = block_forward(kind, params.layers[g * period + j], h,
-                                 positions, cfg, knobs)
+            h, a = block_forward(kind,
+                                 layer_params(params, cfg, g * period + j),
+                                 h, positions, cfg, knobs)
             aux = aux + a
         return h, aux
 
@@ -171,15 +187,13 @@ def _stack_groups(cache, cfg: ModelConfig):
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 dtype=torch.bfloat16, quantized: bool = False, device="cpu"):
-    """One dense ``KVCache`` per pattern position, stacked over the layer
-    groups: a local layer's ring is ``min(window, max_len)`` wide, a global
-    layer's ``max_len``. Mamba state caches are not ported (ROADMAP.md
-    queue 1, item 4)."""
+    """One dense ``KVCache`` (a ``MambaCache`` at a MAMBA position) per
+    pattern position, stacked over the layer groups: a local layer's ring
+    is ``min(window, max_len)`` wide, a global layer's ``max_len``."""
     def one(kind):
         if kind == MAMBA:
-            raise NotImplementedError(
-                f"{cfg.name}: Mamba serving caches are not ported "
-                "(ROADMAP.md queue 1, item 4 'Mamba serving and hybrids')")
+            return _stack_groups(mamba_mod.init_mamba_cache(
+                cfg, batch, dtype, device=device), cfg)
         length = min(cfg.window, max_len) if kind == LOCAL_ATTN else max_len
         return _stack_groups(attn_mod.init_cache(
             cfg, batch, length, dtype, quantized=quantized, device=device),
@@ -190,14 +204,18 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
 def init_paged_caches(cfg: ModelConfig, batch: int, n_pages: int,
                       page_size: int, max_pages: int, dtype=torch.bfloat16,
                       quantized: bool = False, device="cpu"):
-    """One ``PagedKVCache`` per pattern position, every leaf stacked over
-    the layer groups (the block table is replicated per group, as in the
-    JAX package)."""
-    def one():
+    """One ``PagedKVCache`` per attention position of the pattern, every
+    leaf stacked over the layer groups (the block table is replicated per
+    group, as in the JAX package); a MAMBA position keeps one
+    ``MambaCache`` row per slot."""
+    def one(kind):
+        if kind == MAMBA:
+            return _stack_groups(mamba_mod.init_mamba_cache(
+                cfg, batch, dtype, device=device), cfg)
         return _stack_groups(attn_mod.init_paged_cache(
             cfg, batch, n_pages, page_size, max_pages, dtype,
             quantized=quantized, device=device), cfg)
-    return tuple(one() for _ in cfg.pattern)
+    return tuple(one(kind) for kind in cfg.pattern)
 
 
 def layer_cache(caches, cfg: ModelConfig, layer: int):
@@ -214,10 +232,10 @@ def decode_step(params, tokens, position, caches, cfg: ModelConfig,
     Returns (logits (B,V) fp32, caches), the caches updated in place.
     ``caches`` are dense rings (``init_caches``) or the page pool
     (``init_paged_caches``); on the pool ``active`` (B,) bool masks
-    per-slot cache writes."""
+    per-slot cache writes (attention pages and Mamba rows)."""
     h = params.embed[tokens[:, 0]][:, None, :]
     for i, kind in enumerate(cfg.kinds()):
-        h, _ = block_decode(kind, params.layers[i], h, position,
+        h, _ = block_decode(kind, layer_params(params, cfg, i), h, position,
                             layer_cache(caches, cfg, i), cfg, knobs,
                             active=active)
     h = rms_norm(h, params.final_norm, cfg.norm_eps)

@@ -41,6 +41,17 @@ hand-written kernels, on the CPU their plain versions. Dense decode
 attention is ``_sdpa`` over the ring in plain PyTorch on both, as the JAX
 package computes it outside any Pallas kernel. Caches update in place.
 
+Mamba layers (mamba2, zamba2's hybrid) keep one ``MambaCache`` row a slot
+(conv histories and the fp32 SSD state) beside the rings or the pool
+(``pages.MambaSlotStore``). Admission runs each chunk's scan through the
+``ssd_scan`` kernel with the state in and out; decode updates the rows in
+plain PyTorch (the JAX package's ``mamba_decode`` is outside any Pallas
+kernel), where-masked for inactive rows. On the paged engine a fresh
+admission zeroes the slot's rows, or seeds them from the prefix entry's
+snapshot on a hit, and prefill pauses at every boundary it registers so
+that the boundary's snapshot (device clones of the slot's rows: taking one
+makes no host sync) matches the prefix it is registered under.
+
 With ``megastep_k`` > 0 the paged engine decodes in megasteps, the twin
 of the JAX package's megastep pipeline: one dispatch fuses up to K decode
 steps with on-device sampling (greedy, or threefry keyed by (seed, uid,
@@ -75,7 +86,7 @@ import numpy as np
 import torch
 
 from repro_torch.approx.knobs import PRECISE, ApproxKnobs
-from repro_torch.configs.base import LOCAL_ATTN, ModelConfig
+from repro_torch.configs.base import LOCAL_ATTN, MAMBA, ModelConfig
 from repro_torch.core import tenant as tenant_mod
 from repro_torch.core.controller import headroom_burst
 from repro_torch.core.runtime import PliantRuntime
@@ -86,6 +97,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import lm
 from repro_torch.models.common import resolve_device
+from repro_torch.models.mamba2 import MambaCache
 from repro_torch.serve import pages as pages_mod
 from repro_torch.serve import prefill as prefill_mod
 from repro_torch.serve import slots as slots_mod
@@ -135,6 +147,8 @@ class _Admission:
     req: Request
     slot: int
     next: int                    # next prompt index to prefill
+    stops: List[int]             # ascending pause points; last == len(prompt)
+    mamba_register: List[int]    # boundaries registered WITH an SSM snapshot
     tail_register: List[int]     # prefix boundaries registered on completion
     logits: object = None
     compute_s: float = 0.0
@@ -224,6 +238,11 @@ class ServeEngine:
             self._page_spec = pages_mod.spec_for(
                 self.batch_slots, self.max_len, self.page_size, self.n_pages)
             self.pool = pages_mod.PagePool(self._page_spec, self.batch_slots)
+            # one store per cache kind: the page pool for attention state,
+            # the per-slot store for SSM rows (freeing is uniform)
+            self.stores: List[pages_mod.CacheStore] = [self.pool]
+            if MAMBA in self.cfg.pattern:
+                self.stores.append(pages_mod.MambaSlotStore())
         # greedy paged engines take argmax on the device: the step returns
         # (B,) token ids, so the host never pulls (B, V) logits
         self._fused_sample = self.paged and self.temperature <= 0.0
@@ -237,9 +256,10 @@ class ServeEngine:
         # sampled: that happens at the step's single drain point
         self._await_admit: Dict[int, _Admission] = {}
         self._head_skips = 0           # consecutive pool-blocked head skips
-        # window-exit page freeing is sound only when EVERY layer is banded
+        # window-exit page freeing is sound only when EVERY attention layer
+        # is banded (Mamba layers hold no pages)
         self._window_free = (self.cfg.window if self.paged and self.cfg.window
-                             and set(self.cfg.pattern) <= {LOCAL_ATTN}
+                             and set(self.cfg.pattern) <= {LOCAL_ATTN, MAMBA}
                              else 0)
         self.cur_tokens = np.zeros(self.batch_slots, np.int32)
         # ---- megastep pipeline state (megastep_k > 0) ----
@@ -311,6 +331,11 @@ class ServeEngine:
         where = (f"{self.device}, single device (decode is not sharded "
                  "over the mesh)" if self.mesh is not None
                  else f"{self.device}")
+        if MAMBA in self.cfg.pattern:
+            where += (", Mamba rows updated in plain PyTorch (admission "
+                      "scans through ssd_scan"
+                      + ("" if self.device.type == "cuda"
+                         else "'s plain version") + ")")
         if not self.paged:
             mm = ("int8_matmul on int8 rungs" if self.device.type == "cuda"
                   else "int8_matmul's plain version on int8 rungs")
@@ -486,9 +511,12 @@ class ServeEngine:
     # ------------------------------------------------------ paged plumbing --
 
     def _free_slot(self, slot: int) -> bool:
-        """Release a finished request's pages. Returns True when the block
-        tables changed."""
-        return self.pool.free_slot(slot)
+        """Release a finished request's residency in every store. Returns
+        True when the block tables changed."""
+        dirty = False
+        for store in self.stores:
+            dirty |= store.free_slot(slot)
+        return dirty
 
     def _push_blocks(self) -> None:
         """Mirror the host block tables into the device caches and scrub
@@ -498,9 +526,35 @@ class ServeEngine:
         pids = (self._to_device(np.asarray(scrub, np.int64)) if scrub
                 else None)
         for c in self.caches:
+            if isinstance(c, MambaCache):
+                continue
             if pids is not None:
                 c.ppos[:, pids] = -1
             c.block.copy_(bt.expand_as(c.block))
+
+    def _mamba_snapshot(self, slot: int):
+        """The slot's SSM rows at a prefix boundary, carried by the prefix
+        index entry: {cache index: MambaCache of (n_groups, ...) clones},
+        None for an attention-only arch. The clones stay on the device, so
+        taking one makes no host sync."""
+        snap = {ci: MambaCache(*(x[:, slot].clone() for x in c))
+                for ci, c in enumerate(self.caches)
+                if isinstance(c, MambaCache)}
+        return snap or None
+
+    def _set_mamba_rows(self, slot: int, snap) -> None:
+        """Seed the slot's SSM rows for a fresh admission in place: the
+        prefix entry's snapshot on a hit, zeros otherwise (the previous
+        tenant's state must never leak into a new request)."""
+        for ci, c in enumerate(self.caches):
+            if not isinstance(c, MambaCache):
+                continue
+            row = snap.get(ci) if snap else None
+            for j, x in enumerate(c):
+                if row is None:
+                    x[:, slot].zero_()
+                else:
+                    x[:, slot].copy_(row[j])
 
     # ----------------------------------------------------------- admission --
 
@@ -624,8 +678,21 @@ class ServeEngine:
                 if qi == 0:
                     self._head_skips = 0
                 del self.pending[qi]
+                self._set_mamba_rows(slot, plan.entry.mamba if (
+                    plan.shared_tokens and plan.entry) else None)
+                S = len(req.prompt)
+                if MAMBA in self.cfg.pattern:
+                    # prefill pauses at each boundary so that its SSM
+                    # snapshot matches the prefix it is registered under
+                    stops = sorted(set(plan.register) | {S})
+                    mamba_reg, tail_reg = list(plan.register), []
+                else:
+                    # attention only: pages are position-addressed, and
+                    # registering is bookkeeping after the last chunk
+                    stops, mamba_reg, tail_reg = [S], [], list(plan.register)
                 self._admissions[slot] = _Admission(
-                    req, slot, plan.shared_tokens, list(plan.register))
+                    req, slot, plan.shared_tokens, stops, mamba_reg,
+                    tail_reg)
                 started = started_any = True
                 break
             if not started:
@@ -671,7 +738,8 @@ class ServeEngine:
             adm.started = True
             req.t_admit_start = time.perf_counter()
         S = len(req.prompt)
-        C = min(self.prefill_chunk, S - adm.next)
+        end = next(b for b in adm.stops if b > adm.next)
+        C = min(self.prefill_chunk, end - adm.next)
         toks = torch.tensor([req.prompt[adm.next:adm.next + C]],
                             dtype=torch.long, device=self.device)
         t0 = time.perf_counter()
@@ -680,6 +748,10 @@ class ServeEngine:
             self.active_knobs, mesh=self.mesh)
         adm.next += C
         adm.compute_s += time.perf_counter() - t0
+        if adm.next in adm.mamba_register:
+            self.pool.register_prefix(adm.slot, req.prompt,
+                                      self.active_knobs, adm.next,
+                                      mamba=self._mamba_snapshot(adm.slot))
         if adm.next < S:
             return
         for b in adm.tail_register:

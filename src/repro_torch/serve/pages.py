@@ -3,7 +3,8 @@ copy-on-write prefix sharing, and the Pliant-reclaimable page budget.
 
 A verbatim copy of the JAX package's ``serve/pages.py`` (numpy only): the
 port keeps its own copy so that it imports nothing of that package. "Jitted
-step" below reads as the port's decode / admission step.
+step" below reads as the port's decode / admission step, and a "host"
+SSM-state snapshot as the port engine's device snapshot.
 
 The pool replaces the dense per-slot rings of the serving engine: KV entries
 live in a shared physical page pool (``models.attention.PagedKVCache``) and

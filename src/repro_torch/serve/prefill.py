@@ -3,21 +3,21 @@
 engine's admission into a fresh single-request cache),
 ``paged_prefill_chunk`` one chunk of one slot into the page pool, and
 ``prefill_with_cache`` runs the full-sequence forward once and hands dense
-rings to decode. Attention kinds only: a Mamba or shared-attention block
-raises until ROADMAP.md queue 1 item 4."""
+rings and Mamba states to decode. A Mamba block's scan runs through
+``ops.ssd`` with the state in and out (the ``ssd_scan`` kernel on the
+card); zamba2's SHARED_ATTN layers run the one ``shared`` block."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.approx.knobs import PRECISE, ApproxKnobs
-from repro_torch.configs.base import LOCAL_ATTN, ModelConfig
+from repro_torch.configs.base import LOCAL_ATTN, MAMBA, ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mamba2 as mamba_mod
 from repro_torch.models import mlp as mlp_mod
-from repro_torch.models.attention import KVCache
-from repro_torch.models.blocks import (block_prefill, block_prefill_paged,
-                                       refuse_unported)
+from repro_torch.models.blocks import block_prefill, block_prefill_paged
 from repro_torch.models.common import apply_rope, rms_norm
-from repro_torch.models.lm import layer_cache, logits_fn
+from repro_torch.models.lm import layer_cache, layer_params, logits_fn
 
 
 def _attn_block_with_kv(params, h, positions, cfg: ModelConfig, kind: str,
@@ -47,6 +47,15 @@ def _attn_block_with_kv(params, h, positions, cfg: ModelConfig, kind: str,
     return h, cache
 
 
+def _mamba_block_with_state(params, h, cfg: ModelConfig, knobs: ApproxKnobs):
+    """A Mamba block over the whole sequence from a zero state that also
+    returns its ``MambaCache`` for decode. h: (B,S,D)."""
+    y, cache = mamba_mod.mamba_with_state(
+        params.mixer, rms_norm(h, params.norm, cfg.norm_eps), cfg,
+        precision=knobs.matmul_precision)
+    return h + y, cache
+
+
 def prefill_chunk(params, tokens, start: int, caches, cfg: ModelConfig,
                   knobs: ApproxKnobs = PRECISE, *, mesh=None):
     """One prompt chunk against dense decode rings (chunked admission).
@@ -60,9 +69,9 @@ def prefill_chunk(params, tokens, start: int, caches, cfg: ModelConfig,
     B, C, _ = h.shape
     positions = start + torch.arange(C, device=h.device).expand(B, C)
     for i, kind in enumerate(cfg.kinds()):
-        h, _ = block_prefill(kind, params.layers[i], h, positions,
-                             layer_cache(caches, cfg, i), cfg, knobs,
-                             mesh=mesh)
+        h, _ = block_prefill(kind, layer_params(params, cfg, i), h,
+                             positions, layer_cache(caches, cfg, i), cfg,
+                             knobs, mesh=mesh)
     h = rms_norm(h, params.final_norm, cfg.norm_eps)
     return logits_fn(params, h[:, -1], cfg), caches
 
@@ -81,9 +90,9 @@ def paged_prefill_chunk(params, tokens, start: int, caches, slot: int,
     B, C, _ = h.shape
     positions = start + torch.arange(C, device=h.device).expand(B, C)
     for i, kind in enumerate(cfg.kinds()):
-        h, _ = block_prefill_paged(kind, params.layers[i], h, positions,
-                                   layer_cache(caches, cfg, i), cfg, knobs,
-                                   slot=slot, mesh=mesh)
+        h, _ = block_prefill_paged(kind, layer_params(params, cfg, i), h,
+                                   positions, layer_cache(caches, cfg, i),
+                                   cfg, knobs, slot=slot, mesh=mesh)
     h = rms_norm(h, params.final_norm, cfg.norm_eps)
     return logits_fn(params, h[:, -1], cfg), caches
 
@@ -92,23 +101,28 @@ def prefill_with_cache(params, tokens, cfg: ModelConfig, max_len: int,
                        knobs: ApproxKnobs = PRECISE):
     """tokens: (B, S) -> (last-token logits (B,V) fp32, decode caches).
 
-    One full-sequence forward (its attention through ``ops.flash``); the
-    caches come back in the ``lm.init_caches`` layout with the last
-    ``min(S, W)`` positions of each ring filled, and ``lm.decode_step``
-    continues from position S."""
+    One full-sequence forward (its attention through ``ops.flash``, its
+    Mamba scans through ``ops.ssd`` with the final state out); the caches
+    come back in the ``lm.init_caches`` layout with the last ``min(S, W)``
+    positions of each ring filled and each Mamba layer's state and conv
+    histories after token S - 1, and ``lm.decode_step`` continues from
+    position S."""
     h = params.embed[tokens]
     B, S, _ = h.shape
     positions = torch.arange(S, device=h.device).expand(B, S)
     period = len(cfg.pattern)
     per_layer = []
     for i, kind in enumerate(cfg.kinds()):
-        refuse_unported(kind)
-        h, cache = _attn_block_with_kv(params.layers[i], h, positions, cfg,
-                                       kind, knobs, max_len)
+        p = layer_params(params, cfg, i)
+        if kind == MAMBA:
+            h, cache = _mamba_block_with_state(p, h, cfg, knobs)
+        else:
+            h, cache = _attn_block_with_kv(p, h, positions, cfg, kind, knobs,
+                                           max_len)
         per_layer.append(cache)
     h = rms_norm(h, params.final_norm, cfg.norm_eps)
     caches = tuple(
-        KVCache(*(torch.stack(leaves) for leaves in
-                  zip(*per_layer[j::period])))
+        type(per_layer[j])(*(torch.stack(leaves) for leaves in
+                             zip(*per_layer[j::period])))
         for j in range(period))
     return logits_fn(params, h[:, -1], cfg), caches

@@ -1,13 +1,13 @@
 """Slot insert for the dense engine's chunked admission, and cache
 re-encoding across a ``kv_quant`` variant hot-swap. Counterpart of the JAX
-package's ``serve/slots.py``, on the attention caches (Mamba state rows are
-ROADMAP.md queue 1 item 4)."""
+package's ``serve/slots.py``: attention rings and Mamba state rows."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models.attention import (KVCache, PagedKVCache,
                                           dequantize_kv, quantize_kv)
+from repro_torch.models.mamba2 import MambaCache
 
 
 def insert_request(batched, single, slot: int):
@@ -19,13 +19,15 @@ def insert_request(batched, single, slot: int):
     token-by-token warmup ending at the engine's cursor would have filled:
     later decode writes land after them and reach a prompt entry only when
     the ring wraps. The batched cursor, shared by every slot, is kept. The
-    rotation index is made on the device (no host sync). Updates
-    ``batched`` in place and returns it."""
+    rotation index is made on the device (no host sync). A ``MambaCache``'s
+    rows (conv histories and state) are copied into row ``slot`` as they
+    are. Updates ``batched`` in place and returns it."""
     for bc, sc in zip(batched, single):
-        if not isinstance(bc, KVCache):
-            raise NotImplementedError(
-                f"insert_request: a {type(bc).__name__} is not a dense ring "
-                "(Mamba serving is ROADMAP.md queue 1, item 4)")
+        if isinstance(bc, MambaCache):
+            for b, s in zip(bc, sc):
+                b[:, slot].copy_(s[:, 0])
+            continue
+        assert isinstance(bc, KVCache), type(bc)
         W = bc.k.shape[2]
         shift = (bc.cursor[0].long() - sc.cursor[0].long()) % W
         # rolled[w] = x[(w - shift) % W], as jnp.roll(x, shift)
@@ -40,8 +42,8 @@ def convert_caches(caches, kv_quant: bool, dtype=torch.float32):
     when entering one (the shared static ``KV_SCALE``, the same rounding
     decode and chunked prefill apply). Dense rings convert whole; in the
     page pool every physical page converts, shared prefix pages included.
-    Positions, cursors and block tables carry over, so decode continues
-    mid-request across the swap."""
+    Positions, cursors, block tables and Mamba rows carry over unchanged,
+    so decode continues mid-request across the swap."""
     def one(c):
         if isinstance(c, KVCache):
             k, v = c.k, c.v

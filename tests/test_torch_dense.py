@@ -239,8 +239,3 @@ def test_decode_matches_full_forward(arch):
     full = t_lm.logits_fn(tparams, h[:, -1], tcfg)
     np.testing.assert_allclose(got.numpy(), full.numpy(), rtol=3e-3,
                                atol=3e-3)
-
-
-def test_init_caches_refuse_mamba():
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        t_lm.init_caches(t_configs.get_config("mamba2-780m-smoke"), 1, 8)

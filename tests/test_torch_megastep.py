@@ -14,8 +14,9 @@ replayed CUDA graph (``chip_smoke.py``'s megastep phase holds that path).
 JAX's two donation cases have no torch meaning: the port updates the page
 pool in place, so no buffer is donated or consumed. One case here asserts
 that instead: the pool tensors keep their storage across megasteps. The
-zamba2, mamba2 and gemma2 cases of the JAX file wait for the port's Mamba
-serving, hybrid and dense paths (ROADMAP queue 1 items 3-4).
+zamba2 and mamba2 cases of the JAX file are twinned in
+``tests/test_torch_hybrid_serve.py`` and ``tests/test_torch_mamba_serve.py``;
+its gemma2 cases are not twinned.
 """
 import contextlib
 import io

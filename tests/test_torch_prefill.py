@@ -153,15 +153,6 @@ def test_jax_prefill_with_cache_needs_a_window_multiple():
     np.testing.assert_allclose(o1.numpy(), o2.numpy(), rtol=3e-3, atol=3e-3)
 
 
-def test_prefill_refuses_mamba():
-    cfg = t_configs.get_config("mamba2-780m-smoke")
-    params = t_lm.init_lm(cfg, 0, torch.float32, "cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        t_prefill.prefill_with_cache(params, torch.zeros((1, 4),
-                                                         dtype=torch.long),
-                                     cfg, 8)
-
-
 # --------------------------------------------------------- insert_request --
 
 def _dense_fill(cfg, batch, max_len, rng, cursor, quantized=False):
