@@ -169,12 +169,19 @@ Phases, each reported on its own line:
 
 11. serve-ssm  Mamba serving and the zamba2 hybrid: ``ssd_scan`` with the
              state in and out (``ssd_scan_state``: a ragged length padded
-             to the kernels' chunks) at zamba2-2.7b's admission chunk (H
-             80, P 64, N 64; 128 tokens, a ragged 44 and 45) and its
-             2048-token ``prefill_with_cache``, and at mamba2-780m's (H
-             48, N 128), fp32 and bf16, against the plain version unpadded
-             at the JAX package's chunk, y and the final state, timed
-             beside the plain version and the bound; zamba2-2.7b-smoke and
+             to the kernels' chunks) at zamba2-2.7b's admission chunks (H
+             80, P 64, N 64; 128 tokens, the 16 between two registered
+             boundaries, a ragged 44 and 45) and its 2048-token
+             ``prefill_with_cache``, and at mamba2-780m's (H 48, N 128),
+             fp32 and bf16, against the plain version unpadded at the JAX
+             package's chunk, y and the final state, timed beside the
+             plain version and the bound; ``paged_attention`` at zamba2's
+             shared-attention decode (MHA, R 1, hd 80, page 16, M 256, bf16
+             and int8 K/V), ``int8_matmul`` and ``quantize_rows`` at its
+             int8 products (2560 -> 5120, 5120 -> 2560, 2560 -> 10240,
+             10240 -> 2560 at M 8, 16 and 128, and the weights' rows),
+             each against its plain version as in the kernels phase;
+             zamba2-2.7b-smoke and
              mamba2-780m-smoke in fp32 on every serving rung, the card's
              dense, paged and megastep streams equal to the CPU's; then
              ``repro_torch.launch.serve --paged`` on zamba2-2.7b at full
@@ -185,7 +192,11 @@ Phases, each reported on its own line:
              tight enough that the runtime swaps variants, launch counters
              zeroed just before and read just after (``ssd_scan`` 4 a
              Mamba layer an admission chunk, ``paged_attention``, and
-             ``int8_matmul`` on an int8 rung); a ``request_variant`` walk,
+             ``int8_matmul`` on an int8 rung); its prompts register more
+             SSM snapshots than the engine's byte budget holds: the prefix
+             index evicts to stay under it, and the snapshots, in pinned
+             host memory, keep the card's peak under ``SSM_PEAK_GIB``; a
+             ``request_variant`` walk,
              the dense and the paged engine on each rung serving 8 prompts
              of 64 tokens: admission ms a chunk and a token, the mean
              decode step, a profiled window's busy share, on precise the
@@ -194,10 +205,15 @@ Phases, each reported on its own line:
              int8+kvq8 (8 prompts of 64 tokens), streams equal to the
              per-step engine's, the decode step beside the megastep's wall
              a token; a prefix hit (256 tokens, 192 shared) that restores
-             an SSM snapshot, its stream equal to a cold run's;
-             ``prefill_with_cache`` on a 2048-token prompt, its first-token
-             logits and Mamba states within 0.5 of their rms against
-             chunked admission's; device memory before, at peak and after.
+             an SSM snapshot, its stream equal to a cold run's, no host
+             sync in taking a snapshot; ``prefill_with_cache`` on a
+             2048-token prompt against chunked admission: in bf16 the
+             first-token logits within 0.5 of their rms and the Mamba
+             states within 0.1 (relative Frobenius norm, worst layer), and
+             on the same weights in fp32 logits within 1e-3 of their rms
+             and states within 1e-4 (worst layer and worst head: the
+             handoff is exact up to fp32 sums); device memory before, at
+             peak and after.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``. Any
@@ -3154,24 +3170,21 @@ def busy_window(eng, steps):
     return wall, busy
 
 
-def dense_decode_window(eng, steps, attn_fn, mod=None):
-    """Two profiled windows of ``steps`` decode steps: the card's activity
+def fn_share(eng, steps, module, fn):
+    """Two profiled windows of ``steps`` engine steps: the card's activity
     alone (wall and device busy a step, its busy share), then host and
-    card with every call of ``<mod>.<attn_fn>`` (``models.attention``
-    unless ``mod`` names another module) in a ``record_function`` range
-    (that function's share of the device time). Returns (wall ms, busy ms,
-    share)."""
+    card with every call of ``module.<fn>`` in a ``record_function`` range
+    of that name (the function's share of the device time). Returns (wall
+    ms, busy ms, share)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
-    from repro_torch.models import attention as attn_mod
-    attn_mod = mod or attn_mod
     wall, busy = busy_window(eng, steps)
-    orig = getattr(attn_mod, attn_fn)
+    orig = getattr(module, fn)
 
     def ranged(*a, **kw):
-        with record_function(attn_fn):
+        with record_function(fn):
             return orig(*a, **kw)
-    setattr(attn_mod, attn_fn, ranged)
+    setattr(module, fn, ranged)
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -3179,13 +3192,13 @@ def dense_decode_window(eng, steps, attn_fn, mod=None):
                 eng.step()
             torch.cuda.synchronize()
     finally:
-        setattr(attn_mod, attn_fn, orig)
+        setattr(module, fn, orig)
     total = sum(dev_us(e) for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA
-                and e.key != attn_fn)
-    attn = range_device_us(prof, attn_fn)
-    assert 0 < attn < total, (attn, total)
-    return wall, busy, attn / total
+                and e.key != fn)
+    share = range_device_us(prof, fn)
+    assert 0 < share < total, (fn, share, total)
+    return wall, busy, share / total
 
 
 def dense_walk(res, device, decode_steps=8, prof_steps=4):
@@ -3199,6 +3212,7 @@ def dense_walk(res, device, decode_steps=8, prof_steps=4):
     ``paged_decode_attention``, the ``paged_attention`` kernel). The dense
     decode step makes no host sync."""
     import torch
+    from repro_torch.models import attention as attn_mod
     from repro_torch.models import lm
     from repro_torch.serve.engine import Request, ServeEngine
     src = res["engine"]
@@ -3229,8 +3243,8 @@ def dense_walk(res, device, decode_steps=8, prof_steps=4):
             for _ in range(decode_steps):
                 eng.step()
             step = 1e3 * sum(eng.step_latencies[n0:]) / decode_steps
-            wall, busy, share = dense_decode_window(
-                eng, prof_steps,
+            wall, busy, share = fn_share(
+                eng, prof_steps, attn_mod,
                 "paged_decode_attention" if paged else "decode_attention")
             kind = "paged" if paged else "dense"
             syncs = ""
@@ -3514,6 +3528,19 @@ SSM_HANDOFF_LEN = 2048        # prefill_with_cache's prompt
 # sums in other orders and other chunkings over 54 layers): max |diff| over
 # the rms of the chunked logits, as the serve-dense phase's gate
 SSM_LOGIT_TOL = 0.5
+# the Mamba states the two handoffs give decode, relative Frobenius norm of
+# the worst layer: in bf16 (0.049 on an H100 80GB, 700 W), and on the same
+# weights in fp32, where only fp32 sums in other orders part them, also the
+# worst head (1.6e-5 and 2.7e-5 there); and the fp32 first-token logits,
+# max |diff| over their rms (4.5e-5 there)
+SSM_STATE_BF16 = 0.1
+# the serve run's device peak: bf16 weights 5.0 GiB, the int8 weights, the
+# page pool (2,305 pages) 3.2 GiB, 8 slots' Mamba rows 0.5 GiB and the
+# activations of 16-token chunks: 14.8 GiB on an H100 (54.0 GiB with the
+# snapshots on the card)
+SSM_PEAK_GIB = 20.0
+SSM_STATE_FP32 = 1e-4
+SSM_LOGIT_FP32 = 1e-3
 
 
 def jax_chunk(S, chunk=128):
@@ -3528,10 +3555,13 @@ def jax_chunk(S, chunk=128):
 def ssd_state_cases():
     """(B, S, H, P, N) of ``ssd_scan`` with a state in and out on the
     serve-ssm path: zamba2-2.7b's admission chunk (H 80, P 64, N 64) of 128
-    tokens, a ragged 44 (one chunk of 44) and 45 (padded to 48), and its
-    ``prefill_with_cache`` at ``SSM_HANDOFF_LEN`` tokens; mamba2-780m's (H
-    48, P 64, N 128) chunk of 128 and ragged 44 and 45."""
-    return [(1, 128, 80, 64, 64), (1, 44, 80, 64, 64), (1, 45, 80, 64, 64),
+    tokens, the 16 tokens between two registered boundaries (most of the
+    paged engine's chunks), a ragged 44 (one chunk of 44) and 45 (padded
+    to 48), and its ``prefill_with_cache`` at ``SSM_HANDOFF_LEN`` tokens;
+    mamba2-780m's (H 48, P 64, N 128) chunk of 128 and ragged 44 and
+    45."""
+    return [(1, 128, 80, 64, 64), (1, SSM_PAGE, 80, 64, 64),
+            (1, 44, 80, 64, 64), (1, 45, 80, 64, 64),
             (1, SSM_HANDOFF_LEN, 80, 64, 64), (1, 128, 48, 64, 128),
             (1, 44, 48, 64, 128), (1, 45, 48, 64, 128)]
 
@@ -3611,6 +3641,42 @@ def check_ssd_state(device, cases, iters=10):
     return rows
 
 
+def zamba2_paged_cases():
+    """``paged_attention`` at zamba2-2.7b's shared-attention decode on the
+    cell: MHA (G 32, R 1), hd 80, page 16, M 256 of a 4096-token max_len,
+    6 ragged live slots up to the longest prompt and its new tokens plus
+    the two inactive rows (8 slots), bf16 and int8 K/V."""
+    import torch
+    base = dict(G=32, R=1, hd=80, P=SSM_PAGE, M=SSM_CTX // SSM_PAGE,
+                lengths=[15, 16, 17, 700, 2047, SSM_PROMPTS[1] + SSM_NEW - 1],
+                dtype=torch.bfloat16, blind=True)
+    return [dict(base, name="zamba2-bf16", int8=False),
+            dict(base, name="zamba2-int8", int8=True)]
+
+
+ZAMBA2_PRODUCTS = ((2560, 5120), (5120, 2560), (2560, 10240), (10240, 2560))
+
+
+def zamba2_int8_shapes():
+    """zamba2-2.7b's int8 products on the serve-ssm path: a Mamba layer's
+    ``in_z`` and ``in_x`` (K 2560 -> N 5120) and ``out_proj`` (5120 ->
+    2560), the shared block's MLP (2560 -> 10240, 10240 -> 2560), at
+    decode (M 8), the paged engine's 16-token chunks and the dense
+    engine's 128-token ones."""
+    return [(m, k, n) for m in (SSM_SLOTS, SSM_PAGE, SSM_CHUNK)
+            for k, n in ZAMBA2_PRODUCTS]
+
+
+def zamba2_quantize_shapes():
+    """What zamba2-2.7b's int8 rungs quantise on that path, bf16: the
+    products' activations (8, 16 and 128 rows of 2560, 5120 and 10240)
+    and their weights as rows of ``w.t()``."""
+    import torch
+    acts = [(m, k, torch.bfloat16) for m in (SSM_SLOTS, SSM_PAGE, SSM_CHUNK)
+            for k in (2560, 5120, 10240)]
+    return acts + [(n, k, torch.bfloat16) for k, n in ZAMBA2_PRODUCTS]
+
+
 def ssm_parity(device):
     """zamba2-2.7b-smoke and mamba2-780m-smoke in fp32 on every serving
     rung, prompts sharing an 8-token prefix (later ones restore its SSM
@@ -3649,6 +3715,14 @@ def ssm_parity(device):
                   f"({sum(map(len, cpu))} tokens)")
 
 
+def host_rss_gib():
+    """The process's resident host memory (pinned pages included)."""
+    with open("/proc/self/status") as f:
+        kb = next(int(line.split()[1]) for line in f
+                  if line.startswith("VmRSS:"))
+    return kb / 2 ** 20
+
+
 def ssm_prompts(vocab, n, seed, length=None):
     import numpy as np
     rng = np.random.default_rng(seed)
@@ -3670,10 +3744,17 @@ def ssm_serve(device):
     launch counters zeroed just before and read just after: every
     admission chunk launches ``ssd_scan`` (``FWD_PASSES`` a Mamba layer),
     decode ``paged_attention`` (the shared-attention layers) and an int8
-    rung ``int8_matmul``. Returns (``serve.main``'s result, launches)."""
+    rung ``int8_matmul``. The prompts register more SSM snapshots (60 MB a
+    16-token boundary) than the engine's ``snapshot_budget`` holds: the
+    prefix index evicts to stay under it, and the snapshots, held in
+    pinned host memory, leave the card's peak at the engine's own tensors
+    (below ``SSM_PEAK_GIB``). Returns (``serve.main``'s result,
+    launches)."""
+    import torch
     from repro_torch.configs.base import MAMBA
     from repro_torch.kernels import ssd_scan
     from repro_torch.launch import serve
+    from repro_torch.models.mamba2 import MambaCache
     lo, hi = SSM_PROMPTS
     argv = ["--arch", SSM_ARCH, "--paged", "--dtype", "bf16",
             "--device", str(device), "--slots", str(SSM_SLOTS),
@@ -3685,9 +3766,13 @@ def ssm_serve(device):
             "--min-samples", "4"]
     tag = f"serve-ssm {SSM_ARCH}"
     drop_int8_weights()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rss0 = host_rss_gib()
     reset_launches()
     res = serve.main(argv)
     launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     int8_designs(tag)
     eng, reqs, names = res["engine"], res["requests"], res["names"]
     cfg = eng.cfg
@@ -3708,7 +3793,20 @@ def ssm_serve(device):
     if visited - {0}:       # every rung past precise runs the int8 matmuls
         assert launches["int8_matmul"] > 0 and \
             launches["quantize_rows"] > 0, launches
-    s = eng.pool.stats
+    pool, s = eng.pool, eng.pool.stats
+    assert pool.snapshot_evicted > 0 and \
+        pool.peak_snapshot_bytes <= pool.snapshot_budget, \
+        (pool.snapshot_evicted, pool.peak_snapshot_bytes)
+    assert peak <= SSM_PEAK_GIB, peak
+    snap = sum(x[:, 0].nbytes for c in eng.caches
+               if isinstance(c, MambaCache) for x in c)
+    print(f"{tag} memory: SSM snapshots registered "
+          f"{s['prefix_registered']} of {snap / 2 ** 20:.1f} MiB "
+          f"({s['prefix_registered'] * snap / 2 ** 30:.2f} GiB), budget {pool.snapshot_budget / 2 ** 30:.2f} GiB, held at most "
+          f"{pool.peak_snapshot_bytes / 2 ** 30:.2f} GiB, "
+          f"{pool.snapshot_evicted} evicted by the budget; device peak "
+          f"{peak:.2f} GiB (tol {SSM_PEAK_GIB}); host resident "
+          f"{rss0:.2f} -> {host_rss_gib():.2f} GiB")
     print(f"{tag}: {res['tokens']} tokens, tok_s={res['tok_s']:.2f} "
           f"p50_ms={1e3 * res['p50_s']:.3f} p99_ms={1e3 * res['p99_s']:.3f} "
           f"wall={res['wall_s']:.2f}s swaps={eng.swaps} admission chunks "
@@ -3750,6 +3848,7 @@ def ssm_walk(res, device, decode_steps=4, prof_steps=2):
     (host and card profiled: slow at this op count), and that the paged
     decode step makes no host sync."""
     import torch
+    from repro_torch.models import attention as attn_mod
     from repro_torch.models import lm
     from repro_torch.models import mamba2 as mamba_mod
     from repro_torch.serve.engine import Request
@@ -3782,9 +3881,9 @@ def ssm_walk(res, device, decode_steps=4, prof_steps=2):
             if rung == 0:
                 attn_fn = "paged_decode_attention" if paged else \
                     "decode_attention"
-                _, _, attn = dense_decode_window(eng, prof_steps, attn_fn)
-                _, _, mamba = dense_decode_window(eng, prof_steps,
-                                                  "mamba_decode", mamba_mod)
+                _, _, attn = fn_share(eng, prof_steps, attn_mod, attn_fn)
+                _, _, mamba = fn_share(eng, prof_steps, mamba_mod,
+                                       "mamba_decode")
                 extra = (f", Mamba decode {mamba:.3f} and attention "
                          f"{attn:.3f} of the device time")
             if paged and rung == 0:
@@ -3847,7 +3946,9 @@ def ssm_prefix_hit(res, device, max_new=16):
     boundaries (each with a snapshot of the slot's Mamba rows), then a
     second request sharing its first three quarters maps those pages,
     starts from that boundary's snapshot and skips those chunks; its
-    greedy stream equals the same request's on a fresh engine (cold)."""
+    greedy stream equals the same request's on a fresh engine (cold).
+    Taking a snapshot (copies into pinned host memory) makes no host
+    sync."""
     src = res["engine"]
     first, tail = ssm_prompts(src.cfg.vocab_size, 2, 7, SSM_PREFIX_LEN)
     shared = 3 * SSM_PREFIX_LEN // 4
@@ -3862,80 +3963,121 @@ def ssm_prefix_hit(res, device, max_new=16):
     s = eng.pool.stats
     assert s["prefix_hits"] == 1 and s["tokens_skipped"] == shared, s
     assert warm == cold, (warm, cold)
+    syncs = host_syncs(lambda: eng._mamba_snapshot(0))
+    assert syncs == 0, syncs
     print(f"serve-ssm prefix hit: {shared} of {SSM_PREFIX_LEN} tokens "
           f"skipped from an SSM snapshot, {ssm_chunks(eng) - c0} chunks "
           f"(cold {ssm_chunks(cold_eng)}), stream equal to the cold run's "
-          f"({max_new} tokens)")
+          f"({max_new} tokens); host syncs in taking a snapshot {syncs}")
+
+
+def state_gaps(caches_a, caches_b):
+    """The Mamba states two handoffs give decode, layer by layer (each
+    cache's n_groups rows): the largest |diff| over the layer's rms and
+    over its largest |entry|, the relative Frobenius norm, and the worst
+    head's relative Frobenius norm. Returns the worst layer's of each."""
+    from repro_torch.models.mamba2 import MambaCache
+    worst = [0.0, 0.0, 0.0, 0.0]
+    for a, b in zip(caches_a, caches_b):
+        if not isinstance(a, MambaCache):
+            continue
+        for x, y in zip(a.state.float(), b.state.float()):   # a layer
+            d = (x - y).abs()
+            head = ((x - y).pow(2).sum((-1, -2)).sqrt()
+                    / y.pow(2).sum((-1, -2)).sqrt())
+            got = (float(d.max() / y.pow(2).mean().sqrt()),
+                   float(d.max() / y.abs().max()),
+                   float((x - y).norm() / y.norm()), float(head.max()))
+            worst = [max(w, g) for w, g in zip(worst, got)]
+    return worst
 
 
 def ssm_handoff(res, device):
     """``prefill_with_cache`` on one prompt of ``SSM_HANDOFF_LEN`` tokens at
-    the cell's width (bf16, precise): 45 ``ssd_scan`` calls with the final
-    state out and 9 ``flash_attention`` calls (hd 80: design simple), its
-    first-token logits against chunked admission's (the dense engine's
-    ``_chunked_prefill``) within ``SSM_LOGIT_TOL`` of their rms; the Mamba
-    states each hands to decode are reported beside each other (the
-    largest |diff| over the rms, and the relative Frobenius norm, worst
-    layer), not gated: bf16 rounding over 54 layers and 2048 tokens."""
+    the cell's width (precise): 45 ``ssd_scan`` calls with the final state
+    out and 9 ``flash_attention`` calls (hd 80: design simple), against
+    chunked admission (the dense engine's ``_chunked_prefill``). In bf16
+    (the cell's weights): the first-token logits within ``SSM_LOGIT_TOL``
+    of their rms, the Mamba states each hands to decode within
+    ``SSM_STATE_BF16`` (relative Frobenius norm, worst layer). The same
+    weights in fp32 are the witness that the handoff itself is exact,
+    that bf16 rounding over 54 layers makes the bf16 gap: states within
+    ``SSM_STATE_FP32`` (relative Frobenius, worst layer and worst head)
+    and logits within ``SSM_LOGIT_FP32`` of their rms. ``state_gaps``'
+    other readings are printed beside them."""
+    import copy
+
     import numpy as np
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan
-    from repro_torch.models.mamba2 import MambaCache
     from repro_torch.serve import prefill as prefill_mod
     from repro_torch.serve.engine import ServeEngine
     src = res["engine"]
-    cfg, params = src.cfg, src.params
+    cfg = src.cfg
     drop_int8_weights()
     prompt = list(map(int, np.random.default_rng(13).integers(
         1, cfg.vocab_size, SSM_HANDOFF_LEN)))
-    reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    logits_pf, caches_pf = prefill_mod.prefill_with_cache(
-        params, torch.tensor([prompt], device=device), cfg, SSM_CTX)
-    torch.cuda.synchronize()
-    pf_s = time.perf_counter() - t0
-    launches = read_launches()
-    designs = {k: n for k, n in fa.design_launches.items() if n}
-    assert launches["ssd_scan"] == ssd_scan.FWD_PASSES * 45, launches
-    assert launches["flash_attention"] == 9 and designs == {"simple": 9}, \
-        (launches, designs)
-    eng = ServeEngine(cfg, batch_slots=1, max_len=SSM_CTX, params=params,
-                      prefill_chunk=SSM_CHUNK, cache_dtype=src.cache_dtype,
-                      device=device)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    logits_ck, caches_ck = eng._chunked_prefill(prompt)
-    torch.cuda.synchronize()
-    ck_s = time.perf_counter() - t0
 
     def rel(a, b):
         a, b = a.float(), b.float()
         return float((a - b).abs().max() / b.pow(2).mean().sqrt())
-    gate = rel(logits_pf, logits_ck)
-    assert gate <= SSM_LOGIT_TOL, gate
-    pairs = [(a.state, b.state) for a, b in zip(caches_pf, caches_ck)
-             if isinstance(a, MambaCache)]
-    state = max(rel(a, b) for a, b in pairs)
-    frob = max(float((a - b).norm() / b.norm()) for a, b in pairs)
-    print(f"serve-ssm prefill_with_cache: {SSM_HANDOFF_LEN} tokens in "
-          f"{1e3 * pf_s:.1f} ms (chunked admission {1e3 * ck_s:.1f} ms), "
-          f"launches ssd_scan {launches['ssd_scan']} flash_attention "
-          f"{launches['flash_attention']} by design {designs}; first-token "
-          f"logits max |diff| {gate:.4f} of their rms (tol "
-          f"{SSM_LOGIT_TOL}), Mamba states max |diff| {state:.4f} of their "
-          f"rms, relative Frobenius {frob:.4f} (worst layer); greedy first "
-          f"tokens equal "
-          f"{int(logits_pf.argmax(-1) == logits_ck.argmax(-1))}")
+
+    def handoffs(params, cache_dtype, tag):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits_pf, caches_pf = prefill_mod.prefill_with_cache(
+            params, torch.tensor([prompt], device=device), cfg, SSM_CTX)
+        torch.cuda.synchronize()
+        pf_s = time.perf_counter() - t0
+        launches = read_launches()
+        designs = {k: n for k, n in fa.design_launches.items() if n}
+        assert launches["ssd_scan"] == ssd_scan.FWD_PASSES * 45, launches
+        assert launches["flash_attention"] == 9 \
+            and designs == {"simple": 9}, (launches, designs)
+        eng = ServeEngine(cfg, batch_slots=1, max_len=SSM_CTX,
+                          params=params, prefill_chunk=SSM_CHUNK,
+                          cache_dtype=cache_dtype, device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits_ck, caches_ck = eng._chunked_prefill(prompt)
+        torch.cuda.synchronize()
+        ck_s = time.perf_counter() - t0
+        logit = rel(logits_pf, logits_ck)
+        gaps = state_gaps(caches_pf, caches_ck)
+        print(f"serve-ssm prefill_with_cache {tag}: {SSM_HANDOFF_LEN} "
+              f"tokens in {1e3 * pf_s:.1f} ms (chunked admission "
+              f"{1e3 * ck_s:.1f} ms), launches ssd_scan "
+              f"{launches['ssd_scan']} flash_attention "
+              f"{launches['flash_attention']} by design {designs}; "
+              f"first-token logits max |diff| {logit:.4g} of their rms; "
+              f"Mamba states, worst layer: max |diff| {gaps[0]:.4g} of its "
+              f"rms, {gaps[1]:.4g} of its largest |entry|, relative "
+              f"Frobenius {gaps[2]:.4g} (worst head {gaps[3]:.4g}); greedy "
+              f"first tokens equal "
+              f"{int(logits_pf.argmax(-1) == logits_ck.argmax(-1))}")
+        del eng, caches_pf, caches_ck
+        return logit, gaps
+    logit16, gaps16 = handoffs(src.params, src.cache_dtype, "bf16")
+    params32 = copy.deepcopy(src.params).float()
+    logit32, gaps32 = handoffs(params32, torch.float32, "fp32")
+    del params32
+    torch.cuda.empty_cache()
+    assert logit16 <= SSM_LOGIT_TOL, logit16
+    assert gaps16[2] <= SSM_STATE_BF16, gaps16
+    assert logit32 <= SSM_LOGIT_FP32, logit32
+    assert max(gaps32[2], gaps32[3]) <= SSM_STATE_FP32, gaps32
 
 
 def ssm_cell(device):
-    """Phase ``serve-ssm``: ``ssd_scan`` with the state in and out at the
-    path's shapes, small-config parity, the cell's serve run, the rung
-    walk, the megastep, a prefix hit and the ``prefill_with_cache``
-    handoff; device memory before, at peak and after. Returns (the serve
-    run's launches, the ``ssd_scan`` rows)."""
+    """Phase ``serve-ssm``: ``ssd_scan`` with the state in and out,
+    ``paged_attention``, ``int8_matmul`` and ``quantize_rows`` at the
+    path's zamba2-2.7b shapes, small-config parity, the cell's serve run,
+    the rung walk, the megastep, a prefix hit and the
+    ``prefill_with_cache`` handoff; device memory before, at peak and
+    after. Returns (the serve run's launches, the ``ssd_scan`` rows, the
+    ``paged_attention`` rows)."""
     import gc
 
     import torch
@@ -3951,7 +4093,10 @@ def ssm_cell(device):
         secs[name] = round(time.perf_counter() - t, 1)
         t = time.perf_counter()
     rows = check_ssd_state(device, ssd_state_cases())
-    done("ssd_scan")
+    pa_rows = check_paged(device, zamba2_paged_cases())
+    check_int8(device, zamba2_int8_shapes())
+    check_quantize(device, zamba2_quantize_shapes())
+    done("kernels")
     ssm_parity(device)
     done("parity")
     res, launches = ssm_serve(device)
@@ -3973,7 +4118,7 @@ def ssm_cell(device):
     after = torch.cuda.memory_allocated()
     print(f"serve-ssm memory: before {before / 2 ** 30:.2f} GiB, peak "
           f"{peak / 2 ** 30:.2f} GiB, after {after / 2 ** 30:.2f} GiB")
-    return launches, rows
+    return launches, rows, pa_rows
 
 
 # ------------------------------------------------------------------ main --
@@ -4116,7 +4261,7 @@ def main():
     phase_done("colocate")
     dense_launches = dense_cell(device)
     phase_done("serve-dense")
-    ssm_launches, ssm_rows = ssm_cell(device)
+    ssm_launches, ssm_rows, ssm_pa_rows = ssm_cell(device)
     phase_done("serve-ssm")
 
     src_of = {"flash_attention": (
@@ -4152,11 +4297,15 @@ def main():
     ssd_state = {"serve_ssm": {k: ssm_row[k] for k in (
         "shape", "dtype", "ms", "plain_ms", "bound_ms", "bound_by",
         "max_abs_err", "state_err")}}
+    zamba_row = next(r for r in ssm_pa_rows if r["name"] == "zamba2-bf16")
     ring_row = next(r for r in pa_rows if r["name"] == "ring-decode")
     tc_row = next(r for r in fa_rows if r["name"] == "cell-bf16")
     paged_ring = {"ring_decode_ms": ring_row["ms"],
                   "ring_decode_plain_ms": ring_row["plain_ms"],
-                  "ring_decode_bound_ms": ring_row["bound_ms"]}
+                  "ring_decode_bound_ms": ring_row["bound_ms"],
+                  "serve_ssm": {k: zamba_row[k] for k in (
+                      "name", "ms", "plain_ms", "bound_ms", "bound_by",
+                      "max_abs_err")}}
     line = []
     for name, r in kernels.items():
         line.append(dict(name=name, route="cuda", source=src_of[name][0],

@@ -42,15 +42,18 @@ attention is ``_sdpa`` over the ring in plain PyTorch on both, as the JAX
 package computes it outside any Pallas kernel. Caches update in place.
 
 Mamba layers (mamba2, zamba2's hybrid) keep one ``MambaCache`` row a slot
-(conv histories and the fp32 SSD state) beside the rings or the pool
-(``pages.MambaSlotStore``). Admission runs each chunk's scan through the
-``ssd_scan`` kernel with the state in and out; decode updates the rows in
-plain PyTorch (the JAX package's ``mamba_decode`` is outside any Pallas
-kernel), where-masked for inactive rows. On the paged engine a fresh
+(conv histories and the fp32 SSD state) beside the rings or the pool.
+Admission runs each chunk's scan through the ``ssd_scan`` kernel with the
+state in and out; decode updates the rows in plain PyTorch (the JAX
+package's ``mamba_decode`` is outside any Pallas kernel), where-masked for
+inactive rows. On the paged engine a fresh
 admission zeroes the slot's rows, or seeds them from the prefix entry's
 snapshot on a hit, and prefill pauses at every boundary it registers so
-that the boundary's snapshot (device clones of the slot's rows: taking one
-makes no host sync) matches the prefix it is registered under.
+that the boundary's snapshot matches the prefix it is registered under. A
+snapshot is a host copy of the slot's rows (on the card into pinned memory
+without blocking: taking one makes no host sync and holds no device
+memory); the prefix index evicts LRU entries past ``SNAPSHOT_BUDGET``
+bytes of them (60 MB a boundary at zamba2-2.7b width).
 
 With ``megastep_k`` > 0 the paged engine decodes in megasteps, the twin
 of the JAX package's megastep pipeline: one dispatch fuses up to K decode
@@ -111,6 +114,11 @@ _DECODE_KERNELS = {"paged_attention": paged_attention,
 
 def _decode_launches() -> Dict[str, int]:
     return {name: mod.launches for name, mod in _DECODE_KERNELS.items()}
+
+
+# bytes of SSM snapshots (host memory) the paged engine's prefix index
+# holds: ~140 boundaries at zamba2-2.7b width, two prompts' worth
+SNAPSHOT_BUDGET = 8 << 30
 
 
 @dataclass
@@ -237,12 +245,9 @@ class ServeEngine:
         if self.paged:
             self._page_spec = pages_mod.spec_for(
                 self.batch_slots, self.max_len, self.page_size, self.n_pages)
-            self.pool = pages_mod.PagePool(self._page_spec, self.batch_slots)
-            # one store per cache kind: the page pool for attention state,
-            # the per-slot store for SSM rows (freeing is uniform)
-            self.stores: List[pages_mod.CacheStore] = [self.pool]
-            if MAMBA in self.cfg.pattern:
-                self.stores.append(pages_mod.MambaSlotStore())
+            self.pool = pages_mod.PagePool(
+                self._page_spec, self.batch_slots,
+                snapshot_budget=SNAPSHOT_BUDGET)
         # greedy paged engines take argmax on the device: the step returns
         # (B,) token ids, so the host never pulls (B, V) logits
         self._fused_sample = self.paged and self.temperature <= 0.0
@@ -511,12 +516,10 @@ class ServeEngine:
     # ------------------------------------------------------ paged plumbing --
 
     def _free_slot(self, slot: int) -> bool:
-        """Release a finished request's residency in every store. Returns
-        True when the block tables changed."""
-        dirty = False
-        for store in self.stores:
-            dirty |= store.free_slot(slot)
-        return dirty
+        """Release a finished request's pages (its Mamba rows stay: the
+        next admission overwrites them). Returns True when the block
+        tables changed."""
+        return self.pool.free_slot(slot)
 
     def _push_blocks(self) -> None:
         """Mirror the host block tables into the device caches and scrub
@@ -534,13 +537,26 @@ class ServeEngine:
 
     def _mamba_snapshot(self, slot: int):
         """The slot's SSM rows at a prefix boundary, carried by the prefix
-        index entry: {cache index: MambaCache of (n_groups, ...) clones},
-        None for an attention-only arch. The clones stay on the device, so
-        taking one makes no host sync."""
-        snap = {ci: MambaCache(*(x[:, slot].clone() for x in c))
-                for ci, c in enumerate(self.caches)
-                if isinstance(c, MambaCache)}
-        return snap or None
+        index entry: ({cache index: MambaCache of (n_groups, ...) host
+        copies}, their bytes); (None, 0) for an attention-only arch. On
+        the card the copies land in pinned memory without blocking: the
+        stream orders them before any later write to the rows and before
+        a restore (``_set_mamba_rows``), so taking one makes no host
+        sync."""
+        pin = self.device.type == "cuda"
+        snap, nbytes = {}, 0
+        for ci, c in enumerate(self.caches):
+            if not isinstance(c, MambaCache):
+                continue
+            rows = []
+            for x in c:
+                h = torch.empty(x[:, slot].shape, dtype=x.dtype,
+                                pin_memory=pin)
+                h.copy_(x[:, slot], non_blocking=pin)
+                rows.append(h)
+                nbytes += h.nbytes
+            snap[ci] = MambaCache(*rows)
+        return snap or None, nbytes
 
     def _set_mamba_rows(self, slot: int, snap) -> None:
         """Seed the slot's SSM rows for a fresh admission in place: the
@@ -554,7 +570,7 @@ class ServeEngine:
                 if row is None:
                     x[:, slot].zero_()
                 else:
-                    x[:, slot].copy_(row[j])
+                    x[:, slot].copy_(row[j], non_blocking=True)
 
     # ----------------------------------------------------------- admission --
 
@@ -749,9 +765,10 @@ class ServeEngine:
         adm.next += C
         adm.compute_s += time.perf_counter() - t0
         if adm.next in adm.mamba_register:
+            snap, nbytes = self._mamba_snapshot(adm.slot)
             self.pool.register_prefix(adm.slot, req.prompt,
                                       self.active_knobs, adm.next,
-                                      mamba=self._mamba_snapshot(adm.slot))
+                                      mamba=snap, mamba_bytes=nbytes)
         if adm.next < S:
             return
         for b in adm.tail_register:

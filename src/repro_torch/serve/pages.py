@@ -3,8 +3,10 @@ copy-on-write prefix sharing, and the Pliant-reclaimable page budget.
 
 A verbatim copy of the JAX package's ``serve/pages.py`` (numpy only): the
 port keeps its own copy so that it imports nothing of that package. "Jitted
-step" below reads as the port's decode / admission step, and a "host"
-SSM-state snapshot as the port engine's device snapshot.
+step" below reads as the port's decode / admission step. One addition: the
+SSM snapshots the prefix index carries are bounded in bytes
+(``snapshot_budget``; LRU entries are evicted past it), where the JAX
+package holds them without a bound.
 
 The pool replaces the dense per-slot rings of the serving engine: KV entries
 live in a shared physical page pool (``models.attention.PagedKVCache``) and
@@ -139,6 +141,7 @@ class PrefixEntry:
     pages: Tuple[int, ...]       # physical pages of the shared prefix
     n_tokens: int                # page-aligned prefix length
     mamba: Any = None            # host SSM-state snapshot at the boundary
+    mamba_bytes: int = 0         # its size, charged to ``snapshot_budget``
     last_use: int = 0
     hits: int = 0
 
@@ -153,7 +156,8 @@ class AdmitPlan:
 
 class PagePool(CacheStore):
     def __init__(self, spec: PageSpec, batch_slots: int,
-                 reclaim_quantum: int = 0, max_register_pages: int = 64):
+                 reclaim_quantum: int = 0, max_register_pages: int = 64,
+                 snapshot_budget: int = 0):
         self.spec = spec
         self.batch_slots = batch_slots
         # bound on registered boundaries per prompt: caps index growth, the
@@ -161,6 +165,14 @@ class PagePool(CacheStore):
         # snapshots an admission pauses for — prompts share at most this
         # many leading pages (stats["register_capped"] counts the overflow)
         self.max_register_pages = max_register_pages
+        # bound on the bytes of the SSM snapshots the index carries (0 =
+        # none): a snapshot is held off the page pool, so page pressure
+        # alone would never evict it. Its counters stay out of ``stats``,
+        # which keeps the JAX package's keys
+        self.snapshot_budget = snapshot_budget
+        self.snapshot_bytes = 0
+        self.peak_snapshot_bytes = 0
+        self.snapshot_evicted = 0      # entries this bound evicted
         assert spec.n_pages % spec.n_shards == 0, spec
         assert batch_slots % spec.n_shards == 0, \
             (batch_slots, spec.n_shards, "slot affinity needs an even split")
@@ -334,10 +346,13 @@ class PagePool(CacheStore):
         return best
 
     def register_prefix(self, slot: int, prompt: Sequence[int], tag,
-                        n_tokens: int, mamba=None) -> None:
+                        n_tokens: int, mamba=None, mamba_bytes: int = 0
+                        ) -> None:
         """Pin the slot's first ``n_tokens // page_size`` pages as a shared
         prefix (idempotent per key; boundaries past ``max_register_pages``
-        are not indexed)."""
+        are not indexed). ``mamba_bytes`` of snapshot count against
+        ``snapshot_budget``: LRU entries (the new one last) are evicted
+        until the index is back under it."""
         P = self.spec.page_size
         assert n_tokens % P == 0 and n_tokens > 0, n_tokens
         if n_tokens // P > self.max_register_pages:
@@ -351,9 +366,18 @@ class PagePool(CacheStore):
         assert all(p != 0 for p in pages), (slot, pages)
         for p in pages:
             self.ref[p] += 1
-        self.index[key] = PrefixEntry(pages, n_tokens, mamba,
+        self.index[key] = PrefixEntry(pages, n_tokens, mamba, mamba_bytes,
                                       last_use=self._tick())
         self.stats["prefix_registered"] += 1
+        self.snapshot_bytes += mamba_bytes
+        while (self.snapshot_budget
+               and self.snapshot_bytes > self.snapshot_budget
+               and self._evict_lru()):
+            self.snapshot_evicted += 1
+        # what the index holds between registrations (the caller held one
+        # snapshot more while this one was being charged)
+        self.peak_snapshot_bytes = max(self.peak_snapshot_bytes,
+                                       self.snapshot_bytes)
 
     def _evict_lru(self, shard: Optional[int] = None) -> bool:
         """Evict the LRU prefix entry (``shard`` filters to entries whose
@@ -366,8 +390,10 @@ class PagePool(CacheStore):
         if not keys:
             return False
         key = min(keys, key=lambda k: self.index[k].last_use)
-        for p in self.index.pop(key).pages:
+        entry = self.index.pop(key)
+        for p in entry.pages:
             self._deref(p)
+        self.snapshot_bytes -= entry.mamba_bytes
         self.stats["prefix_evicted"] += 1
         return True
 
@@ -692,7 +718,8 @@ class PagePool(CacheStore):
         assert spec.page_size == self.spec.page_size \
             and spec.max_pages == self.spec.max_pages, (spec, self.spec)
         new = PagePool(spec, self.batch_slots, reclaim_quantum=self.quantum,
-                       max_register_pages=self.max_register_pages)
+                       max_register_pages=self.max_register_pages,
+                       snapshot_budget=self.snapshot_budget)
         carried = {k: v for k, v in self.stats.items()}
         carried["elastic_migrations"] = \
             self.stats["elastic_migrations"] + 1

@@ -204,6 +204,28 @@ def check_engine_case(arch, rung, kind):
     return eng
 
 
+def check_snapshot_budget(arch, fit=2):
+    """The prefix index's SSM snapshots stay within ``snapshot_budget``:
+    a paged engine with room for ``fit`` snapshots serves the prefix
+    workload (its prompts register 3 boundaries each, more than fit), and
+    evicts LRU entries to stay under the budget, every entry's bytes
+    accounted, with the JAX dense engine's streams."""
+    _, tcfg, _, _ = model(arch)
+    eng = port_engine(arch, paged=True)
+    _, size = eng._mamba_snapshot(0)
+    assert size > 0
+    eng.pool.snapshot_budget = fit * size
+    got = port_serve(eng, prefix_workload(tcfg.vocab_size), 5)
+    assert got == jax_runs(arch)["prefix"]
+    pool = eng.pool
+    assert pool.snapshot_evicted > 0
+    assert pool.peak_snapshot_bytes <= fit * size
+    assert pool.snapshot_bytes == sum(e.mamba_bytes
+                                      for e in pool.index.values())
+    assert 0 < len(pool.index) <= fit
+    pool.assert_consistent()
+
+
 def assert_caches(tcaches, jcaches, atol=ATOL):
     """Leaf by leaf: fp32 within ``atol``, every other dtype equal."""
     for t, j in zip(caches_to_numpy(tcaches), jcaches):

@@ -86,7 +86,7 @@ def test_prefix_reuse_skips_chunks():
     """Shared-prefix traffic on the port's paged engine: later requests map
     the registered prefix pages and start from the boundary's SSM snapshot,
     skipping those chunks, with the JAX dense engine's streams; the
-    snapshots are the device rows at the boundary."""
+    snapshots are host copies of the rows at the boundary."""
     _, tcfg, _, _ = tw.model(ARCH)
     eng = tw.port_engine(ARCH, paged=True)
     got = tw.port_serve(eng, tw.prefix_workload(tcfg.vocab_size), 5)
@@ -97,6 +97,11 @@ def test_prefix_reuse_skips_chunks():
     snaps = [e.mamba for e in eng.pool.index.values()]
     assert snaps and all(set(m) == {0, 1, 2, 3, 4} for m in snaps)
     assert all(isinstance(r, MambaCache) for m in snaps for r in m.values())
+
+
+@pytest.mark.parametrize("fit", [1, 2])
+def test_snapshot_budget_bounds_prefix_snapshots(fit):
+    tw.check_snapshot_budget(ARCH, fit)
 
 
 def test_midrun_admission_interleaves_and_matches_dense():

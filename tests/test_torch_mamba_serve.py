@@ -253,6 +253,10 @@ def test_admission_matches_tokenwise_warmup():
     assert got == [tw.warmup_ref(ARCH, p, 5) for p in prompts]
 
 
+def test_snapshot_budget_bounds_prefix_snapshots():
+    tw.check_snapshot_budget(ARCH)
+
+
 def test_midrun_admission_interleaves_and_matches_dense():
     tw.check_midrun(ARCH)
 
