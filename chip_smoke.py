@@ -113,9 +113,9 @@ Phases, each reported on its own line:
 
 9. colocate  the colocation harness at full width,
              ``repro_torch.launch.colocate``: phi4-mini-3.8b serving (32
-             layers, bf16, 8 slots, max_len 1024, page 16, 12 requests of
+             layers, bf16, 8 slots, max_len 1024, page 16, 6 requests of
              128 prompt and 32 new tokens, Poisson arrivals at 1.0 req/s;
-             16 before serve-ssm was added)
+             16 before serve-ssm was added, 12 before serve-moe)
              and mamba2-780m training (48 layers, fp32 params and AdamW,
              1 x 512 tokens, 8 duty-cycle quanta, a decision every 1 s)
              on the one card, serially on one stream; first each training
@@ -142,7 +142,7 @@ Phases, each reported on its own line:
              gemma2-27b-smoke in fp32 on every serving rung, prompts past
              its 32-token window, the greedy streams on the card equal to
              the CPU's and to the paged engine's on the card; then
-             ``repro_torch.launch.serve`` on gemma2-27b cut to 16 of its
+             ``repro_torch.launch.serve`` on gemma2-27b cut to 8 of its
              46 layers (bf16, random weights, 8 slots, max_len 8192, chunks
              of 512, 12 requests of 4200-7600 prompt tokens, so every local
              ring wraps, 32 new tokens, greedy) under a QoS target tight
@@ -160,7 +160,7 @@ Phases, each reported on its own line:
              both handoffs' rings holding the same positions with their
              cursors at the next slot and K/V within 0.5 of their rms, then
              32 decode steps teacher-forced through both, each step's
-             logits within 0.15 of their rms, its 16 ``flash_attention``
+             logits within 0.15 of their rms, its 8 ``flash_attention``
              launches all of design tc, its time beside the 614.6 ms the
              simple design took on an H100; ``flash_attention`` at that shape
              (causal and window 4096, softcap 50, and causal without it)
@@ -187,7 +187,7 @@ Phases, each reported on its own line:
              ``repro_torch.launch.serve --paged`` on zamba2-2.7b at full
              width and depth (54 layers: 45 Mamba2 and 9 calls of the one
              shared attention block; bf16, random weights, 8 slots,
-             max_len 4096, page 16, chunk 128, 12 requests of 512-3072
+             max_len 4096, page 16, chunk 128, 6 requests of 512-3072
              prompt tokens, 32 new tokens, greedy) under a QoS target
              tight enough that the runtime swaps variants, launch counters
              zeroed just before and read just after (``ssd_scan`` 4 a
@@ -198,7 +198,7 @@ Phases, each reported on its own line:
              host memory, keep the card's peak under ``SSM_PEAK_GIB``; a
              ``request_variant`` walk,
              the dense and the paged engine on each rung serving 8 prompts
-             of 64 tokens: admission ms a chunk and a token, the mean
+             of 32 tokens: admission ms a chunk and a token, the mean
              decode step, a profiled window's busy share, on precise the
              shares of Mamba decode and attention decode and no host sync
              in the paged decode step; the megastep (K 8) on precise and
@@ -214,6 +214,44 @@ Phases, each reported on its own line:
              and states within 1e-4 (worst layer and worst head: the
              handoff is exact up to fp32 sums); device memory before, at
              peak and after.
+
+12. serve-moe  MoE serving: ``int8_matmul`` with the experts on its grid
+             (one launch for 64 experts) at olmoe-1b-7b's expert products
+             (K 2048 -> N 1024 for ``wi_gate`` and ``wi_up``, 1024 -> 2048
+             for ``wo``) at decode's capacity (8 rows an expert, design B,
+             the weights L2 cold) and a 128-token chunk's (24 rows, design
+             A), bit for bit against its plain version, timed beside it and
+             the bound (library null: no single PyTorch call computes the
+             batched product); ``quantize_rows`` at the stacked weights'
+             rows and the experts' activations; ``paged_attention`` at
+             olmoe's decode (MHA, hd 128, page 16, bf16 and int8 K/V); the
+             precise gate product's fp32 output against the fp32 upcast;
+             olmoe-1b-7b-smoke in fp32 on precise, int8, int8+kvq8 and a
+             topk1 rung, the card's dense, paged and megastep streams
+             equal to the CPU's; then ``repro_torch.launch.serve --paged``
+             on olmoe-1b-7b at full width and depth (16 layers, d_model
+             2048, 16 heads of 128, 64 experts of d_ff 1024, top-8; bf16,
+             random weights, 8 slots, max_len 4096, page 16, chunk 128, 12
+             requests of 256-2048 prompt tokens, 32 new tokens, greedy)
+             under a QoS target tight enough that the runtime swaps
+             variants, launch counters zeroed just before and read just
+             after (3 ``int8_matmul`` launches a MoE layer a forward on an
+             int8 rung); a ``request_variant`` walk over precise, int8,
+             int8+kvq8 and topk4 (the explorer's table with that rung
+             appended), the dense and the paged engine serving the same 8
+             prompts of 128 tokens: admission ms a chunk, the mean decode
+             step, a profiled window's busy share, on precise MoE's share
+             of the device time, no host sync in the paged decode step, and
+             topk4's decode step beside precise's next to the explorer's
+             price; the megastep (K 8) on precise and int8+kvq8, streams
+             equal to the per-step engine's, no host sync in a replay;
+             ``prefill_with_cache`` on a 2048-token prompt at capacity
+             factor 16 against chunked admission: in bf16 the first-token
+             logits and 16 teacher-forced decode steps within 0.5 of their
+             rms, the tokens routed to another expert set counted; on the
+             same weights in fp32, logits, steps and ring K/V within 1e-3
+             (the handoff is exact up to fp32 sums); device memory before,
+             at peak and after.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``. Any
@@ -2692,7 +2730,7 @@ def ring_cell(device, rungs=("precise", "int8+kvq8")):
 # a train step), so a lower rate only lengthens the runs.
 COLO_SERVE = ["--serve-arch", "phi4-mini-3.8b", "--dtype", "bf16",
               "--slots", "8", "--max-len", "1024", "--page-size", "16",
-              "--prompt-len", "128", "--max-new", "32", "--requests", "12"]
+              "--prompt-len", "128", "--max-new", "32", "--requests", "6"]
 COLO_RATE = 1.0
 # A loop turn with a train step takes ~0.3-0.4 s, so a decision every
 # 0.1 s consumes the monitor's window every turn, before it holds
@@ -3020,10 +3058,11 @@ def colocate_cell(device):
 # ------------------------------------------------------------ serve-dense --
 
 DENSE_ARCH = "gemma2-27b"
-# 16 of its 46 layers (8 local/global pairs): at 46 the bf16 weights (54.4
+# 8 of its 46 layers (4 local/global pairs): at 46 the bf16 weights (54.4
 # GB), the int8 rungs' MLP weight cache (23.4 GB) and the rings (~18.5 GB)
-# do not fit in 80 GB; at 16 they take ~20.5, ~8.2 and ~6.4 GB
-DENSE_LAYERS = 16
+# do not fit in 80 GB; 16 until serve-moe was added, cut to keep the whole
+# script under 1100 s
+DENSE_LAYERS = 8
 DENSE_SLOTS = 8
 DENSE_CTX = 8192              # max_len: a global layer's ring
 DENSE_CHUNK = 512             # prefill chunk
@@ -3031,7 +3070,7 @@ DENSE_PROMPTS = (4200, 7600)  # prompt lengths, drawn uniformly: past the
 DENSE_NEW = 32                # 4096 window, so every local ring wraps
 DENSE_REQUESTS = 12
 # first-token logits, prefill_with_cache against chunked admission (bf16
-# sums in other orders over 16 layers): max |diff| over the rms of the
+# sums in other orders over its layers): max |diff| over the rms of the
 # chunked logits, the ring phase's gate
 DENSE_LOGIT_TOL = 0.5
 # each teacher-forced decode step's logits from the two handoffs' rings, the
@@ -3399,8 +3438,9 @@ def dense_handoff(res, device):
     kv_after = ring_kv_err(caches_pf, caches_ck, S + DENSE_NEW)
     assert kv_after <= DENSE_LOGIT_TOL, kv_after
     print(f"serve-dense prefill_with_cache: {S} tokens in {1e3 * pf_s:.1f} "
-          f"ms (614.6 ms through bf16 flash \"simple\" on an H100 80GB "
-          f"HBM3 at 700 W; chunked admission "
+          f"ms (at 16 layers 614.6 ms through bf16 flash \"simple\", "
+          f"265.0 through tc, on an H100 80GB HBM3 at 700 W; chunked "
+          f"admission "
           f"{1e3 * ck_s:.1f} ms), flash_attention "
           f"launches {launches['flash_attention']} by design {designs}; "
           f"first-token logits max |diff| {gate:.4f} of their rms (tol "
@@ -3516,11 +3556,12 @@ SSM_PAGE = 16
 SSM_CHUNK = 128               # prefill chunk
 SSM_PROMPTS = (512, 3072)     # prompt lengths, drawn uniformly
 SSM_NEW = 32
-SSM_REQUESTS = 12
+SSM_REQUESTS = 6               # 12 until serve-moe was added: cut to keep
+                              # the whole script under 1100 s
 # the walk's, the megastep's and the prefix hit's prompts: admission is
 # host-bound (~100-150 ms a chunk at this depth on an H100) and pauses
 # at every registered 16-token boundary, so they are short
-SSM_WALK_LEN = 64
+SSM_WALK_LEN = 32             # 64 until serve-moe was added
 SSM_MEGA_LEN = 64
 SSM_PREFIX_LEN = 256
 SSM_HANDOFF_LEN = 2048        # prefill_with_cache's prompt
@@ -4121,6 +4162,643 @@ def ssm_cell(device):
     return launches, rows, pa_rows
 
 
+# -------------------------------------------------------------- serve-moe --
+
+MOE_ARCH = "olmoe-1b-7b"      # full width and depth: 16 layers, 64 experts
+MOE_SLOTS = 8
+MOE_CTX = 4096                # max_len
+MOE_PAGE = 16
+MOE_CHUNK = 128               # prefill chunk
+MOE_PROMPTS = (256, 2048)     # prompt lengths, drawn uniformly
+MOE_NEW = 32
+MOE_REQUESTS = 12
+MOE_WALK_LEN = 128            # the walk's and the megastep's prompts
+MOE_WALK_TOPK = 4             # the walk's expert-perforation rung
+MOE_HANDOFF_LEN = 2048        # prefill_with_cache's prompt
+# routing 2048 tokens at once drops other entries than 128-token chunks
+# do at the config's capacity factor 1.25; at 16 neither drops
+# (tests/test_prefill.py's olmoe case)
+MOE_HANDOFF_CF = 16.0
+MOE_HANDOFF_STEPS = 16        # teacher-forced decode steps after it
+# bf16 first-token logits and each teacher-forced step's, max |diff| over
+# their rms (the serve-dense phase's first-token gate); and in fp32 on the
+# same weights, logits, steps and ring K/V
+MOE_LOGIT_TOL = 0.5
+MOE_FP32_TOL = 1e-3
+# the experts' products: wi_gate and wi_up (K 2048 -> N 1024), wo (1024 ->
+# 2048), 64 experts
+OLMOE_EXPERTS = 64
+OLMOE_PRODUCTS = ((2048, 1024), (1024, 2048))
+
+
+def moe_capacity(tokens, cfg_top_k=8, n_experts=OLMOE_EXPERTS, cf=1.25):
+    """Rows an expert takes from a call of ``tokens`` tokens
+    (``models/moe.py`` ``_capacity``)."""
+    from repro_torch.models.moe import _capacity
+    return _capacity(tokens, cfg_top_k, n_experts, cf)
+
+
+def olmoe_int8_shapes():
+    """(E, M, K, N) of olmoe-1b-7b's batched expert products on the
+    serve-moe path: decode (8 slots route 8 tokens: capacity 8 rows an
+    expert, design B) and a 128-token admission chunk (capacity 24, design
+    A)."""
+    return [(OLMOE_EXPERTS, m, k, n)
+            for m in (moe_capacity(MOE_SLOTS), moe_capacity(MOE_CHUNK))
+            for k, n in OLMOE_PRODUCTS]
+
+
+def check_int8_batched(device, shapes, iters=20):
+    """The batched ``int8_matmul`` (the experts on the grid, one launch)
+    against its plain version at each (E, M, K, N): ``int8_matmul_t`` on
+    ``w_t`` (E, N, K) and ``int8_matmul`` on ``w_q`` (E, K, N) must both
+    equal ``int8_matmul_plain`` bit for bit (tolerance 0), in bf16 and
+    fp32, each ONE launch of the design ``select_design(M, N, K)`` names.
+    Timed (bf16 out) beside the plain version and the bound: E times one
+    expert's ``int8_bound_ms``. The experts' weights (134 MB at olmoe's
+    widths) are more than twice L2, so every call reads them cold. No
+    single PyTorch call computes the batched product (``torch._int_mm`` is
+    2-D): the library column is null."""
+    import torch
+    from repro_torch.kernels import int8_matmul as mod
+    rows = []
+    for E, M, K, N in shapes:
+        g = torch.Generator(device="cpu").manual_seed(E + M + K)
+        x_q = torch.randint(-127, 128, (E, M, K), generator=g,
+                            dtype=torch.int8)
+        w_t = torch.randint(-127, 128, (E, N, K), generator=g,
+                            dtype=torch.int8)
+        xs = torch.rand((E, M, 1), generator=g) * 1e-2 + 1e-4
+        ws = torch.rand((E, N, 1), generator=g) * 1e-2 + 1e-4
+        x_q, w_t, xs, ws = (t.to(device) for t in (x_q, w_t, xs, ws))
+        w_q = w_t.transpose(1, 2).contiguous()
+        ws_row = ws.transpose(1, 2).contiguous()
+        design = mod.select_design(M, N, K)
+        err = 0.0
+        for dt in (torch.bfloat16, torch.float32):
+            ref = mod.int8_matmul_plain(x_q, xs, w_q, ws_row, dt)
+            n0, d0 = mod.launches, mod.design_launches[design]
+            outs = (mod.int8_matmul_t(x_q, xs, w_t, ws, out_dtype=dt),
+                    mod.int8_matmul(x_q, xs, w_q, ws_row, out_dtype=dt))
+            torch.cuda.synchronize()
+            assert mod.launches == n0 + 2 and \
+                mod.design_launches[design] == d0 + 2, \
+                (E, M, K, N, design, mod.design_launches)
+            for out in outs:
+                assert out.shape == (E, M, N), out.shape
+                err = max(err, max_err(out, ref))
+                assert torch.equal(out, ref), (E, M, K, N, dt, design, err)
+        kern = timed(lambda: mod.int8_matmul_t(x_q, xs, w_t, ws), device,
+                     iters)
+        plain = timed(lambda: mod.int8_matmul_plain(
+            x_q, xs, w_q, ws_row, torch.bfloat16), device, iters)
+        bound, by = int8_bound_ms(M, K, N)
+        bound *= E
+        rows.append(dict(E=E, M=M, K=K, N=N, design=design,
+                         max_abs_err=err, ms=kern, plain_ms=plain,
+                         library_ms=None, bound_ms=bound, bound_by=by))
+        print(f"int8_matmul batched E={E} M={M} K={K} N={N} design {design}"
+              f" (one launch, weights {E * K * N / 1e6:.0f} MB, L2 cold): "
+              f"max_abs_err={err} ms={kern:.4f} plain_ms={plain:.4f} "
+              f"library_ms=null (torch._int_mm is 2-D: no single PyTorch "
+              f"call computes the batched product) bound_ms={bound:.4f} "
+              f"({by}) share of bound {bound / kern:.3f}")
+        del x_q, w_t, w_q
+    return rows
+
+
+def olmoe_quantize_shapes():
+    """What olmoe-1b-7b's int8 rungs quantise on that path, bf16: the
+    experts' activations (64 experts x 8 or 24 rows of 2048 and 1024) and
+    the stacked weights as rows of ``w.transpose(1, 2)`` (64 x 1024 rows of
+    2048 for ``wi_gate`` and ``wi_up``, 64 x 2048 rows of 1024 for
+    ``wo``)."""
+    import torch
+    acts = [(OLMOE_EXPERTS * m, k, torch.bfloat16)
+            for m in (moe_capacity(MOE_SLOTS), moe_capacity(MOE_CHUNK))
+            for k, _ in OLMOE_PRODUCTS]
+    return acts + [(OLMOE_EXPERTS * n, k, torch.bfloat16)
+                   for k, n in OLMOE_PRODUCTS]
+
+
+def olmoe_paged_cases():
+    """``paged_attention`` at olmoe-1b-7b's decode on the cell: MHA (G 16,
+    R 1), hd 128, page 16, M 256 of a 4096-token max_len, 6 ragged live
+    slots up to the longest prompt and its new tokens plus the two
+    inactive rows (8 slots), bf16 and int8 K/V."""
+    import torch
+    base = dict(G=16, R=1, hd=128, P=MOE_PAGE, M=MOE_CTX // MOE_PAGE,
+                lengths=[255, 256, 257, 700, 1500,
+                         MOE_PROMPTS[1] + MOE_NEW - 1],
+                dtype=torch.bfloat16, blind=True)
+    return [dict(base, name="olmoe-bf16", int8=False),
+            dict(base, name="olmoe-int8", int8=True)]
+
+
+def check_moe_gate(device, iters=10):
+    """The precise gate product at olmoe's widths in bf16 (64 experts, the
+    24 rows a 128-token chunk gives each, 2048 x 1024): ``moe._bmm_f32``
+    must write the fp32 sums unrounded, as the JAX package's
+    ``preferred_element_type=float32`` does. Against the fp32 product of
+    the exactly upcast operands on the card: within 2^-16 of its largest
+    |entry| (fp32 sums in another order), where a bf16 output cast to fp32
+    is off by about 2^-9 of it (printed, and asserted to be 8 times
+    larger). Timed beside the bf16-out product."""
+    import torch
+    from repro_torch.models import moe as moe_mod
+    g = torch.Generator(device="cpu").manual_seed(2)
+    E, C = OLMOE_EXPERTS, moe_capacity(MOE_CHUNK)
+    K, N = OLMOE_PRODUCTS[0]
+    xe = torch.randn((E, C, K), generator=g).to(device, torch.bfloat16)
+    w = (torch.randn((E, K, N), generator=g) / K ** 0.5).to(
+        device, torch.bfloat16)
+    got = moe_mod._bmm_f32(xe, w)
+    ref = torch.bmm(xe.float(), w.float())
+    rounded = torch.bmm(xe, w).float()
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (E, C, N)
+    scale = float(ref.abs().max())
+    err, err_bf16 = max_err(got, ref), max_err(rounded, ref)
+    assert err <= 2 ** -16 * scale and err_bf16 > 8 * err, \
+        (err, err_bf16, scale)
+    ms = timed(lambda: moe_mod._bmm_f32(xe, w), device, iters)
+    ms16 = timed(lambda: torch.bmm(xe, w), device, iters)
+    print(f"serve-moe precise gate product E={E} C={C} K={K} N={N} bf16 in, "
+          f"fp32 out: max |diff| {err:.3g} against the fp32 upcast "
+          f"({err / scale:.3g} of its largest |entry|; a bf16 output would "
+          f"be off by {err_bf16:.3g}, {err_bf16 / scale:.3g}); {ms:.4f} ms "
+          f"(bf16 out {ms16:.4f} ms)")
+
+
+def moe_table(cfg, slots, max_len, topk, occupancy=None):
+    """The explorer's serving table for ``cfg`` with a ``topk<topk>`` rung
+    (expert perforation) appended at the explorer's own price for it (the
+    explorer's table for olmoe holds precise, int8 and int8+kvq8 only)."""
+    from repro_torch.approx.knobs import ApproxKnobs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.explorer import analytic_cost, analytic_quality_loss
+    from repro_torch.core.variants import Variant, VariantTable
+    from repro_torch.launch.serve import serving_table
+    table = serving_table(cfg, slots=slots, max_len=max_len,
+                          page_occupancy=occupancy)
+    knobs = ApproxKnobs(topk_override=topk)
+    rel, pressure = analytic_cost(
+        cfg, ShapeConfig("serve", max_len, slots, "decode"), knobs,
+        page_occupancy=occupancy)
+    return VariantTable(table.variants + [Variant(
+        knobs, rel, analytic_quality_loss(cfg, knobs), pressure)])
+
+
+def moe_parity(device):
+    """olmoe-1b-7b-smoke in fp32 on precise, int8, int8+kvq8 and a topk1
+    rung, prompts sharing an 8-token prefix: the greedy streams of the
+    dense engine, the paged engine and the paged engine under a 4-step
+    megastep (a replayed CUDA graph of the decode step, routing included)
+    on the card all equal the CPU's dense engine's."""
+    import copy
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import init_lm
+    cfg = get_config("olmoe-1b-7b-smoke")
+    cpu_params = init_lm(cfg, 0, torch.float32, "cpu")
+    dev_params = copy.deepcopy(cpu_params).to(device)
+    table = moe_table(cfg, 2, 64, 1)
+    assert [v.name for v in table.variants] == \
+        ["precise", "int8", "int8+kvq8", "topk1"], table.variants
+    rng = np.random.default_rng(3)
+    prefix = list(rng.integers(1, cfg.vocab_size, 8))
+    prompts = [prefix + list(rng.integers(1, cfg.vocab_size, n))
+               for n in (3, 9, 5, 13)]
+    for rung, v in enumerate(table.variants):
+        cpu = engine_streams(cfg, cpu_params, table, torch.device("cpu"),
+                             rung, prompts, 6, paged=False)
+        runs = {kind: engine_streams(cfg, dev_params, table, device, rung,
+                                     prompts, 6, **kw)
+                for kind, kw in (("dense", dict(paged=False)),
+                                 ("paged", {}),
+                                 ("megastep", dict(megastep_k=4)))}
+        assert all(r == cpu for r in runs.values()), (v.name, cpu, runs)
+        print(f"serve-moe parity olmoe-1b-7b-smoke {v.name}: {device} dense "
+              f"== paged == megastep 4 == cpu dense streams "
+              f"({sum(map(len, cpu))} tokens)")
+
+
+@contextlib.contextmanager
+def expert_calls():
+    """Count ``models.moe._expert_ffn`` calls by precision: each is one MoE
+    layer's experts in one forward (a decode step or an admission
+    chunk)."""
+    from repro_torch.models import moe as moe_mod
+    calls = {"bf16": 0, "int8": 0}
+    orig = moe_mod._expert_ffn
+
+    def counted(xe, *a):
+        calls[a[-1]] += 1
+        return orig(xe, *a)
+    moe_mod._expert_ffn = counted
+    try:
+        yield calls
+    finally:
+        moe_mod._expert_ffn = orig
+
+
+def moe_serve(device):
+    """The cell through ``launch/serve.py``: olmoe-1b-7b at full width and
+    depth, bf16, the paged engine, ``MOE_REQUESTS`` requests at t = 0 under
+    a QoS target tight enough that the runtime swaps variants; launch
+    counters zeroed just before and read just after: decode launches
+    ``paged_attention``, and every MoE layer of a forward on an int8 rung
+    exactly 3 ``int8_matmul`` (one for each of the three products, all 64
+    experts in it; a host loop over the experts would show 192) and 3
+    ``quantize_rows`` for its activations, beside one ``quantize_rows``
+    for each stacked weight the cache quantised. Returns
+    (``serve.main``'s result, launches)."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import serve
+    lo, hi = MOE_PROMPTS
+    argv = ["--arch", MOE_ARCH, "--paged", "--dtype", "bf16",
+            "--device", str(device), "--slots", str(MOE_SLOTS),
+            "--max-len", str(MOE_CTX), "--page-size", str(MOE_PAGE),
+            "--prefill-chunk", str(MOE_CHUNK),
+            "--requests", str(MOE_REQUESTS), "--prompt-len", str(lo),
+            "--prompt-len-max", str(hi), "--max-new", str(MOE_NEW),
+            "--qos-target", "0.001", "--decision-interval", "0",
+            "--min-samples", "4"]
+    tag = f"serve-moe {MOE_ARCH}"
+    drop_int8_weights()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    misses = kops.weight_cache_misses
+    reset_launches()
+    with expert_calls() as calls:
+        res = serve.main(argv)
+    launches = read_launches()
+    quantised = kops.weight_cache_misses - misses
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    designs = int8_designs(tag)
+    eng, reqs, names = res["engine"], res["requests"], res["names"]
+    cfg = eng.cfg
+    assert eng.paged and cfg.n_layers == 16 and cfg.d_model == 2048 \
+        and cfg.moe.n_experts == 64 and cfg.moe.top_k == 8, cfg
+    assert all(r.done and len(r.out) == MOE_NEW for r in reqs), \
+        [(r.uid, r.done, len(r.out)) for r in reqs]
+    assert all(0 <= t < cfg.vocab_size for r in reqs for t in r.out)
+    assert names == ["precise", "int8", "int8+kvq8"], names
+    visited = {0} | {v for _, v in eng.swaps}
+    assert len(visited) > 1, eng.swaps
+    assert calls["int8"] > 0 and calls["int8"] % cfg.n_layers == 0 \
+        and calls["bf16"] % cfg.n_layers == 0, calls
+    assert launches["int8_matmul"] == 3 * calls["int8"], (launches, calls)
+    assert launches["quantize_rows"] == 3 * calls["int8"] + quantised, \
+        (launches, calls, quantised)
+    assert launches["paged_attention"] > 0, launches
+    assert launches["ring_hop"] == launches["ssd_scan"] \
+        == launches["ssd_scan_backward"] == 0, launches
+    print(f"{tag}: {res['tokens']} tokens, tok_s={res['tok_s']:.2f} "
+          f"p50_ms={1e3 * res['p50_s']:.3f} p99_ms={1e3 * res['p99_s']:.3f} "
+          f"wall={res['wall_s']:.2f}s swaps={eng.swaps}; MoE forwards: "
+          f"{calls['bf16'] // cfg.n_layers} bf16, "
+          f"{calls['int8'] // cfg.n_layers} int8 (decode steps and "
+          f"admission chunks); int8_matmul launches "
+          f"{launches['int8_matmul'] / calls['int8']:.1f} a MoE layer a "
+          f"forward on an int8 rung (by design {designs}); quantize_rows "
+          f"{launches['quantize_rows']} ({quantised} stacked weights); mean "
+          f"decode step "
+          f"{1e3 * sum(eng.step_latencies) / len(eng.step_latencies):.3f} "
+          f"ms ({len(eng.step_latencies)} steps); device peak {peak:.2f} "
+          f"GiB; launches={launches}")
+    return res, launches
+
+
+def moe_engine(src, device, rung, table, paged=True, k=0):
+    """An engine on the cell's weights (``MOE_SLOTS`` slots, max_len
+    ``MOE_CTX``, page ``MOE_PAGE``, chunk ``MOE_CHUNK``, every admission in
+    one step) on rung ``rung`` of ``table``; megastep K ``k``."""
+    from repro_torch.serve.engine import ServeEngine
+    eng = ServeEngine(src.cfg, batch_slots=MOE_SLOTS,
+                      max_len=MOE_CTX, params=src.params, table=table,
+                      prefill_chunk=MOE_CHUNK, paged=paged,
+                      page_size=MOE_PAGE, max_admission_chunks=1 << 20,
+                      cache_dtype=src.cache_dtype, device=device,
+                      megastep_k=k)
+    if table is not None:
+        eng.request_variant(rung)
+    return eng
+
+
+def moe_walk(res, device, decode_steps=4, prof_steps=2):
+    """``request_variant`` walk over precise, int8, int8+kvq8 and
+    ``topk<MOE_WALK_TOPK>`` (the explorer's table with that rung appended)
+    on the cell's weights: on each rung the dense engine, then the paged
+    engine serve the same ``MOE_SLOTS`` prompts of ``MOE_WALK_LEN``
+    tokens. Each reports admission ms a chunk, the mean decode step over
+    ``decode_steps`` steps with every slot live and a profiled window's
+    busy share; on precise also MoE's share of the device time (every
+    ``models.moe.moe`` call in a ``record_function`` range); the paged
+    decode step makes no host sync on any rung. Then the topk rung's
+    decode step beside precise's, next to the explorer's price for the
+    rung (printed, not gated)."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.serve.engine import Request
+    src = res["engine"]
+    table = moe_table(src.cfg, MOE_SLOTS, MOE_CTX, MOE_WALK_TOPK)
+    names = [v.name for v in table.variants]
+    prompts = ssm_prompts(src.cfg.vocab_size, MOE_SLOTS, 11, MOE_WALK_LEN)
+    chunks = MOE_SLOTS * -(-MOE_WALK_LEN // MOE_CHUNK)
+    steps = {}
+    for rung, name in enumerate(names):
+        for paged in (False, True):
+            drop_int8_weights()
+            eng = moe_engine(src, device, rung, table, paged)
+            for i, p in enumerate(prompts):
+                eng.submit(Request(i, prompt=p, max_new=4 * prof_steps
+                                   + decode_steps + 4))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            while not all(s is not None for s in eng.slots):
+                eng.step()
+            torch.cuda.synchronize()
+            admit = (sum(eng.admit_latencies) if not paged
+                     else time.perf_counter() - t0)
+            eng.step()
+            n0 = len(eng.step_latencies)
+            for _ in range(decode_steps):
+                eng.step()
+            step = 1e3 * sum(eng.step_latencies[n0:]) / decode_steps
+            steps[name, paged] = step
+            kind = "paged" if paged else "dense"
+            if rung == 0:
+                wall, busy, share = fn_share(eng, prof_steps, moe_mod, "moe")
+                extra = f", MoE {share:.3f} of the device time"
+            else:
+                wall, busy = busy_window(eng, prof_steps)
+                extra = ""
+            if paged:
+                toks = torch.tensor(eng.cur_tokens, dtype=torch.long,
+                                    device=device)[:, None]
+                pos = torch.tensor(eng.positions, device=device)
+                act = torch.ones(MOE_SLOTS, dtype=torch.bool, device=device)
+                n = host_syncs(lambda: lm.decode_step(
+                    eng.params, toks, pos, eng.caches, eng.cfg,
+                    eng.active_knobs, active=act))
+                assert n == 0, (name, n)
+                extra += ", host syncs in a decode step 0"
+            print(f"serve-moe walk {name} {kind}: admission "
+                  f"{1e3 * admit / chunks:.2f} ms a {MOE_CHUNK}-token chunk "
+                  f"({chunks} chunks); mean decode step {step:.3f} ms "
+                  f"({MOE_SLOTS} slots, {decode_steps} steps); profiled "
+                  f"{prof_steps} steps: wall {wall:.3f} ms, busy {busy:.3f} "
+                  f"ms ({busy / wall:.3f}){extra}")
+            del eng
+            torch.cuda.empty_cache()
+    topk = names[-1]
+    price = table.variants[-1].rel_time
+    for paged in (False, True):
+        kind = "paged" if paged else "dense"
+        print(f"serve-moe walk {topk} against precise ({kind}): decode step "
+              f"{steps[topk, paged]:.3f} / {steps['precise', paged]:.3f} ms "
+              f"= {steps[topk, paged] / steps['precise', paged]:.3f}; the "
+              f"explorer prices the rung at {price:.3f} of precise")
+    return table
+
+
+def moe_megastep(res, device, max_new=17):
+    """On precise and int8+kvq8: the per-step paged engine and the
+    megastep engine (K ``MEGA_K``, a replayed CUDA graph with the routing
+    in it) serve the same ``MOE_SLOTS`` prompts of ``MOE_WALK_LEN`` tokens
+    with equal greedy streams; the median per-step decode and the
+    megastep's median flight wall a token; then, on a full batch of a
+    fresh megastep engine, no host sync in a replay, in the body run
+    eagerly or in a steady round (``check_megastep_syncs``)."""
+    import numpy as np
+    from repro_torch.serve.engine import Request
+    src = res["engine"]
+    prompts = ssm_prompts(src.cfg.vocab_size, MOE_SLOTS, 4, MOE_WALK_LEN)
+    for rung in (0, len(res["names"]) - 1):
+        name = res["names"][rung]
+        drop_int8_weights()
+        per = moe_engine(src, device, rung, src.table)
+        a = serve_streams(per, prompts, max_new)
+        mega = moe_engine(src, device, rung, src.table, k=MEGA_K)
+        b = serve_streams(mega, prompts, max_new)
+        assert a == b, (name, [sum(x != y for x, y in zip(p, q))
+                               for p, q in zip(a, b)])
+        step_ms = 1e3 * float(np.median(per.step_latencies[1:]))
+        tok_ms = 1e3 * float(np.median(mega.step_latencies[1:])) / MEGA_K
+        print(f"serve-moe megastep {name}: streams equal "
+              f"({sum(map(len, b))} tokens), median per-step decode "
+              f"{step_ms:.3f} ms, megastep {tok_ms:.3f} ms a token (flight "
+              f"wall / {MEGA_K}), dispatches/token "
+              f"{mega.row_dispatches / mega.row_tokens:.3f}, graphs "
+              f"{len(mega.graph_log)}, capture "
+              f"{sum(g['capture_s'] for g in mega.graph_log):.3f} s, "
+              f"launches a replay {[g['launches'] for g in mega.graph_log]}")
+        del per, mega
+        if rung == 0:
+            eng = moe_engine(src, device, rung, src.table, k=MEGA_K)
+            for i, p in enumerate(prompts):
+                eng.submit(Request(i, prompt=list(p), max_new=4 * MEGA_K))
+            while not (all(s is not None for s in eng.slots)
+                       and eng._inflight is not None):
+                eng.step()
+            eng.step()
+            check_megastep_syncs(eng)
+            del eng
+
+
+@contextlib.contextmanager
+def expert_choices():
+    """Record each ``models.moe._top_k`` call's expert ids (T, k), in call
+    order."""
+    from repro_torch.models import moe as moe_mod
+    ids = []
+    orig = moe_mod._top_k
+
+    def recorded(probs, k):
+        out = orig(probs, k)
+        ids.append(out[1])
+        return out
+    moe_mod._top_k = recorded
+    try:
+        yield ids
+    finally:
+        moe_mod._top_k = orig
+
+
+def routing_flips(whole, chunked, n_layers):
+    """Tokens whose expert set differs between one call a layer over the
+    whole prompt (``whole``: n_layers calls) and the chunked calls
+    (``chunked``: n_layers calls a chunk, chunk by chunk): per layer, and
+    in any layer."""
+    import torch
+    flips, any_flip = [], None
+    for layer in range(n_layers):
+        a = whole[layer].sort(-1).values
+        b = torch.cat(chunked[layer::n_layers]).sort(-1).values
+        d = (a != b).any(-1)
+        flips.append(int(d.sum()))
+        any_flip = d if any_flip is None else any_flip | d
+    return flips, int(any_flip.sum())
+
+
+def moe_handoff(res, device):
+    """``prefill_with_cache`` on one prompt of ``MOE_HANDOFF_LEN`` tokens at
+    the cell's width (precise, capacity factor ``MOE_HANDOFF_CF`` on both
+    sides, so neither drops): every MoE layer routes the 2048 tokens at
+    once, each layer's attention one ``flash_attention`` launch of design
+    tc; against chunked admission (``_chunked_prefill``, chunks of
+    ``MOE_CHUNK``): the first-token logits, the rings in ``ring_order``
+    and their K/V, then ``MOE_HANDOFF_STEPS`` decode steps teacher-forced
+    with chunked admission's greedy tokens through both, each step's
+    logits against the other's; and the tokens whose expert set differs
+    between the two in some layer. In bf16 (the cell's weights) the
+    first-token logits and every step within ``MOE_LOGIT_TOL`` of their
+    rms: router logits rounded to bf16 flip near-tied experts between the
+    two paths' roundings, and a flipped token's K/V differ by O(1) from
+    there on. The same weights in fp32 are the witness that the handoff
+    itself is exact: logits, steps and K/V within ``MOE_FP32_TOL`` of
+    their rms."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import lm
+    from repro_torch.serve import prefill as prefill_mod
+    from repro_torch.serve.engine import ServeEngine
+    src = res["engine"]
+    m = src.cfg.moe
+    cfg = dataclasses.replace(src.cfg, moe=MoEConfig(
+        m.n_experts, m.top_k, capacity_factor=MOE_HANDOFF_CF))
+    drop_int8_weights()
+    S = MOE_HANDOFF_LEN
+    prompt = list(map(int, np.random.default_rng(13).integers(
+        1, cfg.vocab_size, S)))
+
+    def rel(a, b):
+        a, b = a.float(), b.float()
+        return float((a - b).abs().max() / b.pow(2).mean().sqrt())
+
+    def handoffs(params, cache_dtype, tag):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with expert_choices() as whole:
+            logits_pf, caches_pf = prefill_mod.prefill_with_cache(
+                params, torch.tensor([prompt], device=device), cfg, MOE_CTX)
+        torch.cuda.synchronize()
+        pf_s = time.perf_counter() - t0
+        launches = read_launches()
+        designs = {k: n for k, n in fa.design_launches.items() if n}
+        assert launches["flash_attention"] == cfg.n_layers, launches
+        want = "tc" if cache_dtype == torch.bfloat16 else "tiled"
+        assert designs == {want: cfg.n_layers}, designs
+        eng = ServeEngine(cfg, batch_slots=1, max_len=MOE_CTX,
+                          params=params, prefill_chunk=MOE_CHUNK,
+                          cache_dtype=cache_dtype, device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with expert_choices() as chunked:
+            logits_ck, caches_ck = eng._chunked_prefill(prompt)
+        torch.cuda.synchronize()
+        ck_s = time.perf_counter() - t0
+        flips, flipped = routing_flips(whole, chunked, cfg.n_layers)
+        logit = rel(logits_pf, logits_ck)
+        kv = ring_kv_err(caches_pf, caches_ck, S)
+        steps, same = [], 0
+        cur = logits_ck.argmax(-1)
+        pos = torch.full((1,), S, dtype=torch.int32, device=device)
+        for _ in range(MOE_HANDOFF_STEPS):
+            same += int(logits_pf.argmax(-1) == cur)
+            logits_pf, caches_pf = lm.decode_step(params, cur[:, None], pos,
+                                                  caches_pf, cfg)
+            logits_ck, caches_ck = lm.decode_step(params, cur[:, None], pos,
+                                                  caches_ck, cfg)
+            assert torch.isfinite(logits_pf).all()
+            steps.append(rel(logits_pf, logits_ck))
+            cur = logits_ck.argmax(-1)
+            assert 0 <= int(cur) < cfg.vocab_size
+            pos += 1
+        print(f"serve-moe prefill_with_cache {tag} (capacity factor "
+              f"{MOE_HANDOFF_CF}): {S} tokens in {1e3 * pf_s:.1f} ms "
+              f"(chunked admission {1e3 * ck_s:.1f} ms), flash_attention "
+              f"launches {launches['flash_attention']} by design {designs};"
+              f" first-token logits max |diff| {logit:.4g} of their rms; "
+              f"ring K/V max |diff| {kv:.4g} of their rms; "
+              f"{MOE_HANDOFF_STEPS} teacher-forced decode steps: logits "
+              f"max |diff| worst {max(steps):.4g} of their rms, mean "
+              f"{sum(steps) / len(steps):.4g}; greedy tokens equal "
+              f"{same}/{MOE_HANDOFF_STEPS}; tokens routed to another "
+              f"expert set: {flipped} of {S} in some layer, by layer "
+              f"{flips}")
+        del eng, caches_pf, caches_ck
+        return logit, kv, max(steps)
+    logit16, _, step16 = handoffs(src.params, src.cache_dtype, "bf16")
+    params32 = copy.deepcopy(src.params).float()
+    got32 = handoffs(params32, torch.float32, "fp32")
+    del params32
+    torch.cuda.empty_cache()
+    assert logit16 <= MOE_LOGIT_TOL and step16 <= MOE_LOGIT_TOL, \
+        (logit16, step16)
+    assert max(got32) <= MOE_FP32_TOL, got32
+
+
+def moe_cell(device):
+    """Phase ``serve-moe``: the batched ``int8_matmul``, ``quantize_rows``
+    and ``paged_attention`` at the path's olmoe-1b-7b shapes, the precise
+    gate product's fp32 output, small-config parity, the cell's serve run,
+    the rung walk, the megastep and the ``prefill_with_cache`` handoff;
+    device memory before, at peak and after. Returns (the serve run's
+    launches, the batched ``int8_matmul`` rows)."""
+    import gc
+
+    import torch
+    drop_int8_weights()
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    secs, t = {}, time.perf_counter()
+
+    def done(name):
+        nonlocal t
+        secs[name] = round(time.perf_counter() - t, 1)
+        t = time.perf_counter()
+    i8_rows = check_int8_batched(device, olmoe_int8_shapes())
+    assert [r["design"] for r in i8_rows] == ["B", "B", "A", "A"], i8_rows
+    check_quantize(device, olmoe_quantize_shapes())
+    check_paged(device, olmoe_paged_cases())
+    check_moe_gate(device)
+    done("kernels")
+    moe_parity(device)
+    done("parity")
+    res, launches = moe_serve(device)
+    done("serve")
+    moe_walk(res, device)
+    done("walk")
+    moe_megastep(res, device)
+    done("megastep")
+    moe_handoff(res, device)
+    done("handoff")
+    print(f"serve-moe seconds: {secs}")
+    del res                  # the engine and its runtime hold a cycle
+    drop_int8_weights()
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated()
+    after = torch.cuda.memory_allocated()
+    print(f"serve-moe memory: before {before / 2 ** 30:.2f} GiB, peak "
+          f"{peak / 2 ** 30:.2f} GiB, after {after / 2 ** 30:.2f} GiB")
+    return launches, i8_rows
+
+
 # ------------------------------------------------------------------ main --
 
 def main():
@@ -4263,6 +4941,8 @@ def main():
     phase_done("serve-dense")
     ssm_launches, ssm_rows, ssm_pa_rows = ssm_cell(device)
     phase_done("serve-ssm")
+    moe_launches, moe_i8_rows = moe_cell(device)
+    phase_done("serve-moe")
 
     src_of = {"flash_attention": (
                   "src/repro_torch/csrc/flash_attention.cu",
@@ -4289,8 +4969,13 @@ def main():
                       "serve-ring": ring_launches[name],
                       "colocate": colo_launches[name],
                       "serve-dense": dense_launches[name],
-                      "serve-ssm": ssm_launches[name]}
+                      "serve-ssm": ssm_launches[name],
+                      "serve-moe": moe_launches[name]}
                for name in kernels}
+    # the experts' batched product (one launch for 64 experts) at decode
+    i8_batched = {"serve_moe": [{k: r[k] for k in (
+        "E", "M", "K", "N", "design", "ms", "plain_ms", "library_ms",
+        "bound_ms", "bound_by", "max_abs_err")} for r in moe_i8_rows]}
     # ssd_scan with the state in and out at zamba2's admission chunk
     ssm_row = next(r for r in ssm_rows if r["shape"] == (1, 128, 80, 64, 64)
                    and r["dtype"] == "bf16")
@@ -4315,7 +5000,9 @@ def main():
                          plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                          bound_by=r["bound_by"], library_ms=r["library_ms"],
                          launches_by_path=by_path[name],
-                         **({k: r[k] for k in ("design", "library_layout")}
+                         **({**{k: r[k] for k in ("design",
+                                                   "library_layout")},
+                             "batched": i8_batched}
                             if name == "int8_matmul" else {}),
                          **({k: r[k] for k in ("design", "step_ms")}
                             if name == "ring_hop" else {}),

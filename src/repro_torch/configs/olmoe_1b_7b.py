@@ -1,8 +1,9 @@
 """olmoe-1b-7b [moe]: 64 experts, top-8.
 
 16L d_model=2048 16H (GQA kv=16 = MHA) d_ff=1024 (per expert) vocab=50304,
-MoE 64e top-8 [arXiv:2409.02060; hf]. The port prices it (explorer,
-colocation simulator) but builds no model of it until MoE is ported.
+MoE 64e top-8 [arXiv:2409.02060; hf]. The port serves it
+(``models/moe.py``: top-k routing with capacity, the experts' int8
+products in one ``int8_matmul`` launch).
 """
 from repro_torch.configs.base import ATTN, ModelConfig, MoEConfig
 

@@ -40,6 +40,15 @@
 //
 // All three share the epilogue float(acc) * x_scale[m] * w_scale[n] (two
 // fp32 multiplies in that order, rounded to nearest), as the oracle does.
+//
+// Experts. The JAX package's MoE layer applies jax.vmap to the Pallas call
+// over its experts (src/repro/models/moe.py _expert_ffn): one call with the
+// experts on its grid. Here one launch computes E independent products,
+// x (E, M, K) by w_t (E, N, K) into out (E, M, N), the expert on the grid's
+// last dimension (A: blockIdx.z, B: blockIdx.y, fallback: blockIdx.z). A's
+// tensor maps are 3-D (K, rows, E), so a tile's loads stop at its expert's
+// last row and fill the rest with zeros; B and the fallback offset their
+// pointers by the expert's strides. E = 1 is the 2-D product.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -202,6 +211,10 @@ __global__ void __launch_bounds__(THREADS, 1)
                  const float* __restrict__ xs, const float* __restrict__ ws,
                  T* __restrict__ out, int M, int N, int K) {
   extern __shared__ uint8_t smem_raw[];
+  const int e = blockIdx.z;  // the expert: its rows of x, w_t and out
+  if (xs) xs += (size_t)e * M;
+  if (ws) ws += (size_t)e * N;
+  out += (size_t)e * M * N;
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t a_s = raw + ((1024 - (raw & 1023)) & 1023);  // 1024-aligned
   const uint32_t b_s = a_s + STAGES * BM * BK;
@@ -229,8 +242,8 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int kt = 0; kt < KT; ++kt) {
         mbar_wait(bars + 8 * (STAGES + s), ph ^ 1);
         mbar_expect_tx(bars + 8 * s, (BM + BN) * BK);
-        tma_load(a_s + s * BM * BK, &map_x, bars + 8 * s, kt * BK, m0);
-        tma_load(b_s + s * BN * BK, &map_w, bars + 8 * s, kt * BK, n0);
+        tma_load(a_s + s * BM * BK, &map_x, bars + 8 * s, kt * BK, m0, e);
+        tma_load(b_s + s * BN * BK, &map_w, bars + 8 * s, kt * BK, n0, e);
         if (++s == STAGES) { s = 0; ph ^= 1; }
       }
     }
@@ -306,15 +319,16 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-// A (rows, K) int8 matrix, K contiguous, loaded in boxes of box_rows x 128
-// bytes with the 128-byte swizzle; out-of-range elements read as 0.
+// E stacked (rows, K) int8 matrices, K contiguous, loaded in boxes of
+// box_rows x 128 bytes of one matrix with the 128-byte swizzle; elements
+// out of a matrix's range read as 0.
 bool tensor_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
-                int rows, int K, int box_rows) {
-  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)K};
-  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr),
+                int E, int rows, int K, int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)K, (cuuint64_t)rows, (cuuint64_t)E};
+  const cuuint64_t strides[2] = {(cuuint64_t)K, (cuuint64_t)rows * K};
+  const cuuint32_t box[3] = {(cuuint32_t)BK, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(ptr),
                 dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -322,18 +336,18 @@ bool tensor_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
 
 template <typename T, int BN>
 int launch(const void* x, const void* xs, const void* w, const void* ws,
-           void* out, int M, int N, int K, cudaStream_t stream) {
+           void* out, int E, int M, int N, int K, cudaStream_t stream) {
   const EncodeTiled encode = encoder();
   if (!encode) return (int)cudaErrorNotSupported;
   CUtensorMap mx, mw;
-  if (!tensor_map(encode, &mx, x, M, K, BM) ||
-      !tensor_map(encode, &mw, w, N, K, BN))
+  if (!tensor_map(encode, &mx, x, E, M, K, BM) ||
+      !tensor_map(encode, &mw, w, E, N, K, BN))
     return (int)cudaErrorInvalidValue;
   constexpr int smem = smem_bytes<BN>();
   cudaError_t e = cudaFuncSetAttribute(
       wgmma_kernel<T, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, E);
   wgmma_kernel<T, BN><<<grid, THREADS, smem, stream>>>(
       mx, mw, (const float*)xs, (const float*)ws, (T*)out, M, N, K);
   return (int)cudaGetLastError();
@@ -371,6 +385,12 @@ __global__ void __launch_bounds__(THREADS, 2)
                   const int8_t* __restrict__ w, const float* __restrict__ ws,
                   T* __restrict__ out, int M, int N, int K) {
   __shared__ int red[WARPS][ROWS][8 * MT];
+  const int e = blockIdx.y;  // the expert: one weight slab a grid row
+  x += (size_t)e * M * K;
+  w += (size_t)e * N * K;
+  if (xs) xs += (size_t)e * M;
+  if (ws) ws += (size_t)e * N;
+  out += (size_t)e * M * N;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int n0 = blockIdx.x * ROWS;
@@ -438,8 +458,8 @@ __global__ void __launch_bounds__(THREADS, 2)
 
 template <typename T>
 int launch(const void* x, const void* xs, const void* w, const void* ws,
-           void* out, int M, int N, int K, cudaStream_t stream) {
-  const dim3 grid((N + ROWS - 1) / ROWS);
+           void* out, int E, int M, int N, int K, cudaStream_t stream) {
+  const dim3 grid((N + ROWS - 1) / ROWS, E);
   if (M <= 8)
     stream_kernel<T, 1><<<grid, THREADS, 0, stream>>>(
         (const int8_t*)x, (const float*)xs, (const int8_t*)w,
@@ -479,6 +499,12 @@ __global__ void __launch_bounds__(THREADS)
     dp4a_kernel(const int8_t* __restrict__ x, const float* __restrict__ xs,
                 const int8_t* __restrict__ w, const float* __restrict__ ws,
                 T* __restrict__ out, int M, int N, int K) {
+  const int e = blockIdx.z;  // the expert
+  x += (size_t)e * M * K;
+  w += (size_t)e * N * K;
+  if (xs) xs += (size_t)e * M;
+  if (ws) ws += (size_t)e * N;
+  out += (size_t)e * M * N;
   // k-major so that threads of a warp read neighbouring words
   __shared__ int As[BK4][BM];
   __shared__ int Bs[BK4][BN];
@@ -527,8 +553,8 @@ __global__ void __launch_bounds__(THREADS)
 
 template <typename T>
 int launch(const void* x, const void* xs, const void* w, const void* ws,
-           void* out, int M, int N, int K, cudaStream_t stream) {
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+           void* out, int E, int M, int N, int K, cudaStream_t stream) {
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, E);
   dp4a_kernel<T><<<grid, THREADS, 0, stream>>>(
       (const int8_t*)x, (const float*)xs, (const int8_t*)w, (const float*)ws,
       (T*)out, M, N, K);
@@ -539,47 +565,51 @@ int launch(const void* x, const void* xs, const void* w, const void* ws,
 
 template <typename T>
 int dispatch(const void* x, const void* xs, const void* w, const void* ws,
-             void* out, int M, int N, int K, int design, int tile_n,
+             void* out, int E, int M, int N, int K, int design, int tile_n,
              cudaStream_t s) {
   switch (design) {
-    case 0: return dp4a::launch<T>(x, xs, w, ws, out, M, N, K, s);
+    case 0: return dp4a::launch<T>(x, xs, w, ws, out, E, M, N, K, s);
     case 1:
       if (tile_n == 256)
-        return wg::launch<T, 256>(x, xs, w, ws, out, M, N, K, s);
+        return wg::launch<T, 256>(x, xs, w, ws, out, E, M, N, K, s);
       if (tile_n == 128)
-        return wg::launch<T, 128>(x, xs, w, ws, out, M, N, K, s);
+        return wg::launch<T, 128>(x, xs, w, ws, out, E, M, N, K, s);
       return (int)cudaErrorInvalidValue;
     case 2:
       if (M > 16) return (int)cudaErrorInvalidValue;
-      return stream::launch<T>(x, xs, w, ws, out, M, N, K, s);
+      return stream::launch<T>(x, xs, w, ws, out, E, M, N, K, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// x (M, K) int8, xs (M) fp32, w_t (N, K) int8, ws (N) fp32 -> out (M, N);
-// a null xs or ws stands for unit scales.
+// x (E, M, K) int8, xs (E, M) fp32, w_t (E, N, K) int8, ws (E, N) fp32 ->
+// out (E, M, N), each expert's product on its own (E = 1: the 2-D
+// product); a null xs or ws stands for unit scales.
 // design: 0 = __dp4a fallback, 1 = A (wgmma tiles of 128 x tile_n, tile_n
 // 128 or 256), 2 = B (weight streaming, M <= 16); A and B need K % 16 == 0
 // and 16-byte aligned x and w_t. out_dtype: 0 = fp32, 1 = bf16, 2 = fp16.
 // Returns cudaGetLastError() of the launch (or the error that kept it from
 // launching).
 extern "C" int int8_matmul(const void* x, const void* xs, const void* w,
-                           const void* ws, void* out, int M, int N, int K,
-                           int out_dtype, int design, int tile_n,
+                           const void* ws, void* out, int E, int M, int N,
+                           int K, int out_dtype, int design, int tile_n,
                            void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (E < 1 || E > 65535) return (int)cudaErrorInvalidValue;
   if (design != 0 && (K % 16 != 0 || ((uintptr_t)x | (uintptr_t)w) % 16))
     return (int)cudaErrorInvalidValue;
   switch (out_dtype) {
     case 0:
-      return dispatch<float>(x, xs, w, ws, out, M, N, K, design, tile_n, s);
+      return dispatch<float>(x, xs, w, ws, out, E, M, N, K, design, tile_n,
+                             s);
     case 1:
-      return dispatch<__nv_bfloat16>(x, xs, w, ws, out, M, N, K, design,
+      return dispatch<__nv_bfloat16>(x, xs, w, ws, out, E, M, N, K, design,
                                      tile_n, s);
     case 2:
-      return dispatch<__half>(x, xs, w, ws, out, M, N, K, design, tile_n, s);
+      return dispatch<__half>(x, xs, w, ws, out, E, M, N, K, design, tile_n,
+                              s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -10,6 +10,14 @@ and ``w_scale`` (1, N), and transposes the weight on the way to the same
 C entry point. The sums are exact int32, so every design equals
 ``int8_matmul_plain`` bit for bit.
 
+Both wrappers also take a stack of E independent products, the MoE
+layer's experts: x_q (E, M, K) and its scales (E, M, 1) by a weight of
+(E, N, K) (``int8_matmul_t``) or (E, K, N) (``int8_matmul``) into an
+(E, M, N) output, in ONE launch with the expert on the grid (the
+counterpart of the JAX package's ``jax.vmap`` of the Pallas call in
+``src/repro/models/moe.py`` ``_expert_ffn``). The design is chosen from
+(M, N, K) as for one product.
+
 ``select_design`` picks one of three kernels from (M, N, K):
 
 - ``"A"`` (M > 16, bound by operations: chunked admission, training):
@@ -41,7 +49,7 @@ H100_SMS = 132
 
 _DESIGN_CODES = {"fallback": 0, "A": 1, "B": 2}
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def select_design(M: int, N: int, K: int) -> str:
@@ -63,23 +71,25 @@ def tile_n(M: int, N: int, sms: int = H100_SMS) -> int:
 
 
 def int8_matmul(x_q, x_scale, w_q, w_scale, *, out_dtype=torch.bfloat16):
-    """x_q: (M,K) int8; x_scale: (M,1) f32; w_q: (K,N) int8; w_scale: (1,N)
-    f32 -> (M,N) ``out_dtype``."""
+    """x_q: ([E,] M,K) int8; x_scale: ([E,] M,1) f32; w_q: ([E,] K,N) int8;
+    w_scale: ([E,] 1,N) f32 -> ([E,] M,N) ``out_dtype``."""
     if x_q.device.type == "cpu":
         return int8_matmul_plain(x_q, x_scale, w_q, w_scale, out_dtype)
     _check_cuda(x_q)
-    return _launch(x_q, x_scale, w_q.t().contiguous(),
-                   w_scale.reshape(-1, 1), out_dtype)
+    return _launch(x_q, x_scale, w_q.transpose(-1, -2).contiguous(),
+                   w_scale.transpose(-1, -2).contiguous(), out_dtype)
 
 
 def int8_matmul_t(x_q, x_scale, w_t, w_scale, *, out_dtype=torch.bfloat16):
-    """x_q: (M,K) int8; x_scale: (M,1) f32; w_t: (N,K) int8 (the weight
-    K-major); w_scale: (N,1) f32 -> (M,N) ``out_dtype``. A scale of None
-    stands for unit scales (exactly the int32 sums, in ``out_dtype``)."""
+    """x_q: ([E,] M,K) int8; x_scale: ([E,] M,1) f32; w_t: ([E,] N,K) int8
+    (the weight K-major); w_scale: ([E,] N,1) f32 -> ([E,] M,N)
+    ``out_dtype``. A scale of None stands for unit scales (exactly the
+    int32 sums, in ``out_dtype``)."""
     if x_q.device.type == "cpu":
         return int8_matmul_plain(
-            x_q, 1.0 if x_scale is None else x_scale, w_t.t(),
-            1.0 if w_scale is None else w_scale.t(), out_dtype)
+            x_q, 1.0 if x_scale is None else x_scale, w_t.transpose(-1, -2),
+            1.0 if w_scale is None else w_scale.transpose(-1, -2),
+            out_dtype)
     _check_cuda(x_q)
     return _launch(x_q, x_scale, w_t, w_scale, out_dtype)
 
@@ -96,13 +106,18 @@ def _ptr(t):
 
 def _launch(x_q, x_scale, w_t, w_scale, out_dtype):
     global launches
-    M, K = x_q.shape
-    N = w_t.shape[0]
+    if x_q.dim() not in (2, 3):
+        raise ValueError(f"int8_matmul: x_q must be (M, K) or (E, M, K), "
+                         f"got {tuple(x_q.shape)}")
+    lead = tuple(x_q.shape[:-2])          # () or (E,)
+    M, K = x_q.shape[-2:]
+    N = w_t.shape[-2]
     dev = x_q.device
     for name, t, dt, shape in (("x_q", x_q, torch.int8, (M, K)),
                                ("x_scale", x_scale, torch.float32, (M, 1)),
                                ("w_t", w_t, torch.int8, (N, K)),
                                ("w_scale", w_scale, torch.float32, (N, 1))):
+        shape = lead + shape
         if t is None and name.endswith("scale"):
             continue
         if t.device != dev or t.dtype != dt or tuple(t.shape) != shape \
@@ -113,7 +128,7 @@ def _launch(x_q, x_scale, w_t, w_scale, out_dtype):
                 f"(contiguous={t.is_contiguous()})")
     if out_dtype not in _OUT_CODES:
         raise ValueError(f"int8_matmul: unsupported out_dtype {out_dtype}")
-    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    out = torch.empty(lead + (M, N), dtype=out_dtype, device=dev)
     if out.numel() == 0:
         return out
     design = select_design(M, N, K)
@@ -121,7 +136,8 @@ def _launch(x_q, x_scale, w_t, w_scale, out_dtype):
         design = "fallback"      # a view at an offset: no 16-byte loads
     lib = _build.load("int8_matmul", _ARGTYPES)
     rc = lib.int8_matmul(x_q.data_ptr(), _ptr(x_scale), w_t.data_ptr(),
-                         _ptr(w_scale), out.data_ptr(), M, N, K,
+                         _ptr(w_scale), out.data_ptr(),
+                         lead[0] if lead else 1, M, N, K,
                          _OUT_CODES[out_dtype], _DESIGN_CODES[design],
                          tile_n(M, N),
                          torch.cuda.current_stream(dev).cuda_stream)

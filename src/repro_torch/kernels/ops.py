@@ -79,7 +79,15 @@ def quantize_weight(w):
     """``(w_t, w_s)`` of a (K, N) weight: int8 (N, K), K-major, and fp32
     (N, 1), the rows of ``w.t()`` quantised. That takes the same amax over
     the same entries and the same fp32 division as the JAX package's
-    ``quantize_rowwise(w, axis=0)``, so it is that bit for bit, transposed."""
+    ``quantize_rowwise(w, axis=0)``, so it is that bit for bit, transposed.
+    A stack of E experts' weights (E, K, N) gives (E, N, K) and (E, N, 1)
+    from one ``quantize_rows`` over the (E·N, K) rows of
+    ``w.transpose(1, 2)``: per (expert, column), as ``quantize_rowwise(w_e,
+    axis=0)`` under ``jax.vmap``."""
+    if w.dim() == 3:
+        E, K, N = w.shape
+        q, s = quantize_rows(w.transpose(1, 2).reshape(E * N, K))
+        return q.view(E, N, K), s.view(E, N, 1)
     return quantize_rows(w.t().contiguous())
 
 
@@ -118,7 +126,14 @@ def quantized_matmul(x, w):
     weight is quantised once while it is unchanged (``cached_weight``);
     when autograd needs the graph (training) every call quantises both
     through ``_QuantizedMatmul``, whose backward carries the scales'
-    gradient as autograd would through ``quantize_rowwise``."""
+    gradient as autograd would through ``quantize_rowwise``.
+
+    A stack of experts, x (E, M, K) with w (E, K, N), is E products in one
+    ``quantize_rows`` launch over x's (E·M, K) rows and one ``int8_matmul``
+    launch (the JAX package's ``jax.vmap`` of ``quantized_matmul``); it
+    serves without autograd only."""
+    if w.dim() == 3:
+        return _quantized_bmm(x, w)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
@@ -128,6 +143,18 @@ def quantized_matmul(x, w):
         w_t, w_s = cached_weight(w)
         y = int8_matmul_t(x_q, x_s, w_t, w_s, out_dtype=x.dtype)
     return y.reshape(lead + (w.shape[-1],))
+
+
+def _quantized_bmm(x, w):
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        raise NotImplementedError(
+            "quantized_matmul: the experts' batched int8 product has no "
+            "backward (ROADMAP.md queue 1, item 6)")
+    E, M, K = x.shape
+    x_q, x_s = quantize_rows(x.reshape(E * M, K).contiguous())
+    w_t, w_s = cached_weight(w)
+    return int8_matmul_t(x_q.view(E, M, K), x_s.view(E, M, 1), w_t, w_s,
+                         out_dtype=x.dtype)
 
 
 def bf16_matmul(x, w):

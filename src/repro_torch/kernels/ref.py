@@ -24,7 +24,8 @@ def quantize_rowwise(x: torch.Tensor, axis: int = -1):
 
 
 def int8_matmul_ref(x_q, x_scale, w_q, w_scale, out_dtype=torch.bfloat16):
-    """x_q: (M,K) int8, x_scale: (M,1) f32; w_q: (K,N) int8, w_scale: (1,N).
+    """x_q: (M,K) int8, x_scale: (M,1) f32; w_q: (K,N) int8, w_scale: (1,N);
+    or a stack of E such products, each with a leading (E,) dimension.
 
     The integer product is taken in float64, which holds every int8 x int8
     sum of up to 2^37 terms exactly, so this is the exact int32 accumulate

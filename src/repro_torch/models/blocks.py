@@ -3,8 +3,10 @@
 attention block with an MLP; zamba2's shared block runs as full
 attention) and the MAMBA kind, on the serving paths (decode on dense rings
 or the paged pool with per-slot Mamba rows, chunked prefill into either)
-and in the full-sequence forward of the training path. MoE and
-cross-attention blocks are not ported."""
+and in the full-sequence forward of the training path. A config with
+experts puts an MoE layer (``models/moe.py``, its ``top_k`` from the
+``topk_override`` knob) in place of the MLP of its ATTN and LOCAL_ATTN
+blocks. Cross-attention blocks are not ported."""
 from __future__ import annotations
 
 import torch
@@ -15,6 +17,7 @@ from repro_torch.configs.base import (ATTN, LOCAL_ATTN, MAMBA, SHARED_ATTN,
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2 as mamba_mod
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import ParamSpec, rms_norm
 
 
@@ -25,10 +28,23 @@ def block_specs(kind: str, cfg: ModelConfig):
                 "mixer": mamba_mod.mamba_specs(cfg)}
     assert kind in (ATTN, LOCAL_ATTN, SHARED_ATTN), \
         f"the port has no {kind} block"
-    return {"norm_attn": ParamSpec((d,), ("embed",), init="ones"),
-            "attn": attn_mod.attn_specs(cfg),
-            "norm_mlp": ParamSpec((d,), ("embed",), init="ones"),
-            "mlp": mlp_mod.mlp_specs(cfg)}
+    s = {"norm_attn": ParamSpec((d,), ("embed",), init="ones"),
+         "attn": attn_mod.attn_specs(cfg),
+         "norm_mlp": ParamSpec((d,), ("embed",), init="ones")}
+    if cfg.moe is not None and kind in (ATTN, LOCAL_ATTN):
+        s["moe"] = moe_mod.moe_specs(cfg)
+    else:
+        s["mlp"] = mlp_mod.mlp_specs(cfg)
+    return s
+
+
+def ffn(params, hn, cfg: ModelConfig, knobs: ApproxKnobs):
+    """The block's MLP, or its MoE layer at the knob's ``top_k``. Returns
+    (y, aux), aux None for an MLP."""
+    if hasattr(params, "moe"):
+        return moe_mod.moe(params.moe, hn, cfg, top_k=knobs.topk_override,
+                           precision=knobs.matmul_precision)
+    return mlp_mod.mlp(params.mlp, hn, precision=knobs.matmul_precision), None
 
 
 def block_forward(kind: str, params, h, positions, cfg: ModelConfig,
@@ -37,21 +53,23 @@ def block_forward(kind: str, params, h, positions, cfg: ModelConfig,
     (B,S). Returns (h, aux_loss). An attention block runs its attention in
     ``window`` mode for LOCAL_ATTN, else ``causal`` (``full`` when
     ``causal`` is False), with the ``kv_keep_stride`` knob, then the MLP at
-    the knob's matmul precision."""
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    prec = knobs.matmul_precision
+    the knob's matmul precision (or the MoE layer, whose load-balancing
+    loss is the aux)."""
     if kind == MAMBA:
         y = mamba_mod.mamba_mixer(params.mixer,
                                   rms_norm(h, params.norm, cfg.norm_eps),
-                                  cfg, precision=prec)
-        return h + y, aux
+                                  cfg, precision=knobs.matmul_precision)
+        return h + y, torch.zeros((), dtype=torch.float32, device=h.device)
     mode = ("window" if kind == LOCAL_ATTN else
             ("causal" if causal else "full"))
     h = h + attn_mod.attention(
         params.attn, rms_norm(h, params.norm_attn, cfg.norm_eps), positions,
         cfg, mode=mode, kv_keep_stride=knobs.kv_keep_stride)
-    hn = rms_norm(h, params.norm_mlp, cfg.norm_eps)
-    return h + mlp_mod.mlp(params.mlp, hn, precision=prec), aux
+    y, aux = ffn(params, rms_norm(h, params.norm_mlp, cfg.norm_eps), cfg,
+                 knobs)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return h + y, aux
 
 
 def _kv_args(kind: str, cfg: ModelConfig, knobs: ApproxKnobs):
@@ -76,9 +94,8 @@ def block_prefill(kind: str, params, h, positions, cache, cfg: ModelConfig,
         params.attn, rms_norm(h, params.norm_attn, cfg.norm_eps),
         positions, cache, cfg, window=window, kv_scale=kv_scale, mesh=mesh)
     h = h + y
-    hn = rms_norm(h, params.norm_mlp, cfg.norm_eps)
-    return h + mlp_mod.mlp(params.mlp, hn,
-                           precision=knobs.matmul_precision), cache
+    y, _ = ffn(params, rms_norm(h, params.norm_mlp, cfg.norm_eps), cfg, knobs)
+    return h + y, cache
 
 
 def block_prefill_paged(kind: str, params, h, positions, cache,
@@ -100,9 +117,8 @@ def block_prefill_paged(kind: str, params, h, positions, cache,
         positions, cache, cfg, slot, window=window, kv_scale=kv_scale,
         mesh=mesh)
     h = h + y
-    hn = rms_norm(h, params.norm_mlp, cfg.norm_eps)
-    return h + mlp_mod.mlp(params.mlp, hn,
-                           precision=knobs.matmul_precision), cache
+    y, _ = ffn(params, rms_norm(h, params.norm_mlp, cfg.norm_eps), cfg, knobs)
+    return h + y, cache
 
 
 def block_decode(kind: str, params, h, position, cache, cfg: ModelConfig,
@@ -133,6 +149,5 @@ def block_decode(kind: str, params, h, position, cache, cfg: ModelConfig,
             params.attn, hn, position, cache, cfg, window=window,
             kv_scale=kv_scale)
     h = h + y
-    hn = rms_norm(h, params.norm_mlp, cfg.norm_eps)
-    return h + mlp_mod.mlp(params.mlp, hn,
-                           precision=knobs.matmul_precision), cache
+    y, _ = ffn(params, rms_norm(h, params.norm_mlp, cfg.norm_eps), cfg, knobs)
+    return h + y, cache

@@ -43,12 +43,8 @@ from repro_torch.models.common import (ParamSpec, ParamTree, init_params,
 
 
 def lm_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    """The model's ``ParamSpec`` tree. A config with experts raises: the
-    port has no MoE block, and a dense stand-in would be another model."""
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE blocks are not ported (ROADMAP.md queue 1, "
-            f"item 5 'MoE'); the port only prices this config")
+    """The model's ``ParamSpec`` tree (a block of a config with experts
+    holds ``moe`` in place of ``mlp``)."""
     d = cfg.d_model
     specs: Dict[str, Any] = {
         "embed": ParamSpec((cfg.vocab_size, d), ("vocab", "embed")),

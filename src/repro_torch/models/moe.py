@@ -1,0 +1,143 @@
+"""Top-k MoE layer with sort-based dispatch, single device. Counterpart of
+the JAX package's ``models/moe.py`` (its single-device path; expert
+parallelism over a mesh, ``ep_axis``, is not ported).
+
+Dispatch is index-based (a stable sort by expert, capacity-bounded slots),
+never a one-hot dispatch tensor. Every op is a device op on shapes fixed
+by the token count: no ``.item()``, ``nonzero``, boolean-mask indexing or
+``bincount`` (which reads its maximum back to the host), so a decode step
+that routes can be captured in a CUDA graph. The experts' products are
+batched over the experts: on the int8 rungs each of the three is one
+``quantize_rows`` and one ``int8_matmul`` launch for all experts
+(``ops.quantized_matmul`` on a stack), the counterpart of the JAX
+package's ``jax.vmap`` of the Pallas call; on precise they are ``torch.bmm``,
+as the JAX package leaves its ``einsum`` to XLA.
+
+Pliant knob: ``top_k`` override (expert perforation): routing to fewer
+experts cuts the active products at a bounded quality loss.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kops
+from repro_torch.models.common import ParamSpec
+
+
+def moe_specs(cfg: ModelConfig):
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
+    return {
+        "wg": ParamSpec((d, e), (None, None)),
+        "wi_gate": ParamSpec((e, d, f), ("expert", "embed", "mlp")),
+        "wi_up": ParamSpec((e, d, f), ("expert", "embed", "mlp")),
+        "wo": ParamSpec((e, f, d), ("expert", "mlp", "embed")),
+    }
+
+
+def _capacity(n_tokens: int, top_k: int, n_experts: int, cf: float,
+              align: int = 8) -> int:
+    """Slots an expert takes from a call of ``n_tokens`` tokens: the
+    capacity factor's share, rounded up to ``align`` (at least ``align``).
+    A Python int: the token count is static."""
+    c = int(cf * n_tokens * top_k / n_experts)
+    return max(align, -(-c // align) * align)
+
+
+def _top_k(probs, k: int):
+    """The ``k`` largest of each row, largest first, ties to the lower
+    index: ``jax.lax.top_k``'s order (``torch.topk`` breaks ties in no set
+    order), from a stable descending sort."""
+    vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], ids[..., :k]
+
+
+def _route(x2, wg, top_k: int, capacity: int, n_experts: int):
+    """x2: (T, D). Returns (slots (T,k) int64, gates (T,k) in x2's dtype,
+    keep (T,k) bool, aux fp32 scalar).
+
+    Each (token, choice) entry goes to slot ``expert * capacity + rank``,
+    its rank among the expert's entries in token order; an entry past the
+    capacity is dropped (``keep`` False) and parked on the expert's last
+    slot, where it adds zeros."""
+    logits = (x2 @ wg).float()                              # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    gate, ids = _top_k(probs, top_k)                        # (T, k)
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    flat_e = ids.reshape(-1)                                # (T*k,)
+    n = flat_e.shape[0]
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    counts = torch.zeros(n_experts, dtype=torch.int64,
+                         device=x2.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
+    seg_start = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(n, device=x2.device) - seg_start[sorted_e]
+    keep_sorted = rank < capacity
+    slot_sorted = sorted_e * capacity + torch.clamp(rank, max=capacity - 1)
+    slot = torch.empty_like(flat_e).scatter_(0, order, slot_sorted)
+    keep = torch.empty_like(keep_sorted).scatter_(0, order, keep_sorted)
+    me = probs.mean(0)
+    ce = counts.float() / n
+    aux = n_experts * torch.sum(me * ce)
+    return (slot.reshape(-1, top_k), gate.to(x2.dtype),
+            keep.reshape(-1, top_k), aux)
+
+
+def _bmm_f32(a, b):
+    """``a @ b`` batched with an fp32 output and fp32 sums of the exact
+    products (the JAX package's ``preferred_element_type=float32``): on the
+    card cuBLAS writes the fp32 accumulators without rounding them to the
+    inputs' dtype; on the CPU the operands are upcast, which is exact."""
+    if a.dtype == torch.float32:
+        return torch.bmm(a, b)
+    if a.device.type == "cuda":
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def _expert_ffn(xe, wi_gate, wi_up, wo, precision: str):
+    """xe: (E, C, D); weights (E, D, F) / (E, F, D). Returns (E, C, D).
+    int8: each product for all experts in one ``quantized_matmul``, the
+    gate's output (in x's dtype) cast to fp32 for the SiLU. Precise: the
+    gate product's output in fp32, SiLU in fp32, the others in x's
+    dtype."""
+    if precision == "int8":
+        qmm = kops.quantized_matmul
+        g = F.silu(qmm(xe, wi_gate).float())
+        u = qmm(xe, wi_up)
+        return qmm(g.to(xe.dtype) * u, wo)
+    g = F.silu(_bmm_f32(xe, wi_gate))
+    u = torch.bmm(xe, wi_up)
+    return torch.bmm(g.to(xe.dtype) * u, wo)
+
+
+def _moe_local(params, x2, cfg: ModelConfig, top_k: int, precision: str):
+    """MoE on the tokens x2: (T, D), capacity from T. Returns (y (T, D),
+    aux)."""
+    E = cfg.moe.n_experts
+    T, D = x2.shape
+    C = _capacity(T, top_k, E, cfg.moe.capacity_factor)
+    slot, gate, keep, aux = _route(x2, params.wg, top_k, C, E)
+    flat_slot = slot.reshape(-1)
+    flat_keep = keep.reshape(-1)
+    tok_idx = torch.arange(T * top_k, device=x2.device) // top_k
+    src = torch.where(flat_keep[:, None], x2[tok_idx], 0)
+    buf = torch.zeros((E * C, D), dtype=x2.dtype, device=x2.device)
+    buf.index_add_(0, flat_slot, src)       # a kept slot receives one entry
+    ye = _expert_ffn(buf.view(E, C, D), params.wi_gate, params.wi_up,
+                     params.wo, precision)
+    y = ye.reshape(E * C, D)[flat_slot].reshape(T, top_k, D)
+    y = torch.sum(y * (gate * keep)[..., None], dim=1)
+    return y.to(x2.dtype), aux
+
+
+def moe(params, x, cfg: ModelConfig, *, top_k: int = 0,
+        precision: str = "bf16"):
+    """x: (B, S, D) -> (y, aux_loss). Routes all B * S tokens together (the
+    capacity follows B * S); ``top_k`` 0 is the config's."""
+    B, S, D = x.shape
+    top_k = top_k or cfg.moe.top_k
+    y, aux = _moe_local(params, x.reshape(-1, D), cfg, top_k, precision)
+    return y.reshape(B, S, D), aux

@@ -5,7 +5,8 @@ engine's admission into a fresh single-request cache),
 ``prefill_with_cache`` runs the full-sequence forward once and hands dense
 rings and Mamba states to decode. A Mamba block's scan runs through
 ``ops.ssd`` with the state in and out (the ``ssd_scan`` kernel on the
-card); zamba2's SHARED_ATTN layers run the one ``shared`` block."""
+card); zamba2's SHARED_ATTN layers run the one ``shared`` block; an MoE
+block routes all B * S tokens of the sequence at once."""
 from __future__ import annotations
 
 import torch
@@ -14,8 +15,7 @@ from repro_torch.approx.knobs import PRECISE, ApproxKnobs
 from repro_torch.configs.base import LOCAL_ATTN, MAMBA, ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2 as mamba_mod
-from repro_torch.models import mlp as mlp_mod
-from repro_torch.models.blocks import block_prefill, block_prefill_paged
+from repro_torch.models.blocks import block_prefill, block_prefill_paged, ffn
 from repro_torch.models.common import apply_rope, rms_norm
 from repro_torch.models.lm import layer_cache, layer_params, logits_fn
 
@@ -34,8 +34,8 @@ def _attn_block_with_kv(params, h, positions, cfg: ModelConfig, kind: str,
     mode = "window" if kind == LOCAL_ATTN else "causal"
     h = h + attn_mod.attention(params.attn, hn, positions, cfg, mode=mode,
                                kv_keep_stride=knobs.kv_keep_stride)
-    hn2 = rms_norm(h, params.norm_mlp, cfg.norm_eps)
-    h = h + mlp_mod.mlp(params.mlp, hn2, precision=knobs.matmul_precision)
+    y, _ = ffn(params, rms_norm(h, params.norm_mlp, cfg.norm_eps), cfg, knobs)
+    h = h + y
     W = min(cfg.window, max_len) if kind == LOCAL_ATTN else max_len
     n_keep = min(S, W)
     cache = attn_mod.init_cache(cfg, B, W, k.dtype, device=h.device)

@@ -78,16 +78,55 @@ def test_configs_equal_jax(arch, smoke):
             jax_applicable(jcfg, JAX_SHAPES[k])
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b-smoke", "olmoe-1b-7b"])
-def test_init_lm_refuses_experts(arch):
-    """The port has no MoE block: a config with experts raises rather than
-    building a dense model in its place."""
-    cfg = t_configs.get_config(arch)
-    assert cfg.moe is not None
-    with pytest.raises(NotImplementedError, match="MoE"):
-        t_lm.init_lm(cfg, 0, torch.float32, "cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        t_lm.lm_specs(cfg)
+def _leaf_shapes(tree, prefix=""):
+    """{dotted name: shape} of a nested dict / list tree whose leaves have
+    a ``shape`` (arrays, ``ParamSpec``s)."""
+    if hasattr(tree, "shape"):
+        return {prefix[:-1]: tuple(tree.shape)}
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    out = {}
+    for k, v in items:
+        out.update(_leaf_shapes(v, f"{prefix}{k}."))
+    return out
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b-smoke", "olmoe-1b-7b",
+                                  "moonshot-v1-16b-a3b-smoke",
+                                  "moonshot-v1-16b-a3b"])
+def test_init_lm_builds_experts(arch):
+    """A config with experts builds blocks with a ``moe`` subtree of the
+    JAX package's shapes (``wg`` (D, E), ``wi_gate`` / ``wi_up`` (E, D, F),
+    ``wo`` (E, F, D)) in place of ``mlp``, every leaf as the JAX package's
+    layer-stacked tree has it, and as many parameters as ``param_count``.
+    A smoke config is built by ``init_lm``; a full one (6.9 and 16 B
+    parameters) is checked on its spec tree."""
+    tcfg, jcfg = t_configs.get_config(arch), jax_configs.get_config(arch)
+    period = len(tcfg.pattern)
+    want = {}
+    for name, shape in _leaf_shapes(
+            jax_api.abstract(jcfg, jnp.float32)).items():
+        parts = name.split(".")
+        if parts[0] != "groups":
+            want[name] = shape
+            continue
+        j = int(parts[1][3:])
+        for g in range(shape[0]):
+            want[".".join(["layers", str(g * period + j)] + parts[2:])] = \
+                shape[1:]
+    if arch.endswith("-smoke"):
+        params = t_lm.init_lm(tcfg, 0, torch.float32, "cpu")
+        got = {n: tuple(p.shape) for n, p in params.named_parameters()}
+        assert all(torch.isfinite(p).all() for p in params.parameters())
+    else:
+        got = _leaf_shapes(t_lm.lm_specs(tcfg))
+    assert got == want
+    E, D, F = tcfg.moe.n_experts, tcfg.d_model, tcfg.d_ff
+    assert got["layers.0.moe.wg"] == (D, E)
+    assert got["layers.0.moe.wi_gate"] == got["layers.0.moe.wi_up"] \
+        == (E, D, F)
+    assert got["layers.0.moe.wo"] == (E, F, D)
+    assert not any(".mlp." in n for n in got)
+    assert sum(int(np.prod(s)) for s in got.values()) == tcfg.param_count()
 
 
 def test_rms_norm(model):
