@@ -56,15 +56,17 @@ Phases, each reported on its own line:
 3. parity    phi4-mini-3.8b-smoke served in fp32 twice from the same seeded
              weights, on the card and on the CPU: the greedy token streams
              of each serving rung must be equal. mamba2-780m-smoke (4 x 32
-             tokens, no remat) and phi4-mini-3.8b-smoke (2 x 4096 tokens,
-             remat "full") trained in fp32 three steps on each training
+             tokens, no remat) and phi4-mini-3.8b-smoke (2 x 1024 tokens,
+             remat "full"; 2 x 4096 until its CPU run's ~45 s was cut to
+             keep the script in its time limit) trained in fp32 three steps on each training
              rung, on the card and on the CPU from the same weights: the
              losses must agree. phi4-mini-3.8b-smoke served in fp32 under
              a 4x1 mesh on every serving rung: the ring engine on the card,
              the same engine on the CPU and the single-device engine on the
              card give the same greedy streams.
 4. serve     the serving slice at full width: ``repro_torch.launch.serve``
-             on phi4-mini-3.8b (32 layers, bf16, random weights) under a QoS
+             on phi4-mini-3.8b (16 of its 32 layers, bf16, random
+             weights) under a QoS
              target tight enough that the Pliant runtime swaps variants,
              launch counters zeroed just before and read just after; then a
              ``request_variant`` walk timing decode steps per rung.
@@ -84,15 +86,17 @@ Phases, each reported on its own line:
              graph's capture times its replays.
 5. profile   ``torch.profiler`` over decode steps of a full batch per rung.
 6. train     the training slice at full width: ``repro_torch.launch.train``
-             on mamba2-780m (48 layers, fp32 params, batch 4 x 1024 tokens,
-             random weights) under ``--pliant``, launch counters zeroed just
-             before and read just after; then each training rung pinned by
+             on mamba2-780m (24 of its 48 layers, fp32 params, batch 4 x
+             1024 tokens, random weights) under ``--pliant``, launch
+             counters zeroed just before and read just after; then each
+             training rung pinned by
              ``table.executable(i)`` (median step time, peak memory) and one
              profiled step per rung (device-busy share, largest kernels).
 7. train-attn  the dense-attention training slice at full width:
              ``repro_torch.launch.train.main(..., remat="full")`` on
-             phi4-mini-3.8b (32 layers, fp32 params and AdamW, batch 2 x
-             4096 tokens, random weights) under ``--pliant``, launch
+             phi4-mini-3.8b (8 of its 32 layers, fp32 params and AdamW,
+             batch 2 x 4096 tokens, random weights) under ``--pliant``,
+             launch
              counters zeroed just before and read just after; then each
              rung pinned (median step time, peak memory, launches a step),
              the int8 rung again with its causal attention through
@@ -113,10 +117,13 @@ Phases, each reported on its own line:
 
 9. colocate  the colocation harness at full width,
              ``repro_torch.launch.colocate``: phi4-mini-3.8b serving (32
-             layers, bf16, 8 slots, max_len 1024, page 16, 6 requests of
-             128 prompt and 32 new tokens, Poisson arrivals at 1.0 req/s;
-             16 before serve-ssm was added, 12 before serve-moe)
-             and mamba2-780m training (48 layers, fp32 params and AdamW,
+             layers, bf16, 8 slots, max_len 1024, page 16, 4 requests of
+             128 prompt and 16 new tokens, Poisson arrivals at 1.0 req/s;
+             16 requests before serve-ssm was added, 12 before serve-moe,
+             6 before train-encdec; 32 new tokens until train-encdec ran
+             over the script's time limit)
+             and mamba2-780m training (24 of its 48 layers, fp32 params
+             and AdamW,
              1 x 512 tokens, 8 duty-cycle quanta, a decision every 1 s)
              on the one card, serially on one stream; first each training
              rung's step time at that shape. Four runs on the same
@@ -142,7 +149,7 @@ Phases, each reported on its own line:
              gemma2-27b-smoke in fp32 on every serving rung, prompts past
              its 32-token window, the greedy streams on the card equal to
              the CPU's and to the paged engine's on the card; then
-             ``repro_torch.launch.serve`` on gemma2-27b cut to 8 of its
+             ``repro_torch.launch.serve`` on gemma2-27b cut to 4 of its
              46 layers (bf16, random weights, 8 slots, max_len 8192, chunks
              of 512, 12 requests of 4200-7600 prompt tokens, so every local
              ring wraps, 32 new tokens, greedy) under a QoS target tight
@@ -160,9 +167,10 @@ Phases, each reported on its own line:
              both handoffs' rings holding the same positions with their
              cursors at the next slot and K/V within 0.5 of their rms, then
              32 decode steps teacher-forced through both, each step's
-             logits within 0.15 of their rms, its 8 ``flash_attention``
-             launches all of design tc, its time beside the 614.6 ms the
-             simple design took on an H100; ``flash_attention`` at that shape
+             logits within 0.15 of their rms, its ``flash_attention``
+             launches (one a layer) all of design tc, its time beside the
+             614.6 ms the simple design took on an H100 at 16 layers;
+             ``flash_attention`` at that shape
              (causal and window 4096, softcap 50, and causal without it)
              beside its plain version and ``scaled_dot_product_attention``
              without the softcap; device memory before, at peak and after.
@@ -185,8 +193,8 @@ Phases, each reported on its own line:
              mamba2-780m-smoke in fp32 on every serving rung, the card's
              dense, paged and megastep streams equal to the CPU's; then
              ``repro_torch.launch.serve --paged`` on zamba2-2.7b at full
-             width and depth (54 layers: 45 Mamba2 and 9 calls of the one
-             shared attention block; bf16, random weights, 8 slots,
+             width cut to 24 of its 54 layers (20 Mamba2 and 4 calls of
+             the one shared attention block; bf16, random weights, 8 slots,
              max_len 4096, page 16, chunk 128, 6 requests of 512-3072
              prompt tokens, 32 new tokens, greedy) under a QoS target
              tight enough that the runtime swaps variants, launch counters
@@ -229,7 +237,7 @@ Phases, each reported on its own line:
              olmoe-1b-7b-smoke in fp32 on precise, int8, int8+kvq8 and a
              topk1 rung, the card's dense, paged and megastep streams
              equal to the CPU's; then ``repro_torch.launch.serve --paged``
-             on olmoe-1b-7b at full width and depth (16 layers, d_model
+             on olmoe-1b-7b at full width cut to 8 of its 16 layers (d_model
              2048, 16 heads of 128, 64 experts of d_ff 1024, top-8; bf16,
              random weights, 8 slots, max_len 4096, page 16, chunk 128, 12
              requests of 256-2048 prompt tokens, 32 new tokens, greedy)
@@ -253,6 +261,44 @@ Phases, each reported on its own line:
              (the handoff is exact up to fp32 sums); device memory before,
              at peak and after.
 
+13. train-encdec  training every family: ``flash_attention`` at
+             whisper-large-v3's shapes (its encoder, non-causal over 1500
+             frames, 20 heads of 64; the decoder's causal 448 tokens; the
+             cross attention, 448 queries over 1500 frames; the decode
+             step's cross attention, one query a row over 1500 frames) and
+             paligemma-3b's (MQA, 8 heads of 256 over one K/V head, 512
+             tokens, design "simple"), fp32 and bf16, beside
+             ``scaled_dot_product_attention`` and the bound;
+             ``int8_matmul`` and ``quantize_rows`` at their int8 MLP
+             products (whisper 6000 and 1792 rows of 1280 <-> 5120,
+             paligemma 1024 rows of 2048 <-> 16384), bit for bit; the
+             experts' stacked int8 product under autograd at olmoe's
+             expert shapes against the CPU plain path (zero pattern
+             included) and its backward's exact sums (one stacked
+             launch) bit for bit, timed; flash's backward at paligemma's
+             shape, its gradients and peak memory. whisper-large-v3-smoke
+             and paligemma-3b-smoke trained in fp32 three steps a rung on
+             the card and on the CPU from the same weights: the losses
+             agree. Then ``repro_torch.launch.train`` on whisper-large-v3
+             at full width and depth (32 + 32 layers, d_model 1280, fp32
+             and AdamW, 4 x 448 tokens over 1500 frames, random weights)
+             under ``--pliant``, remat "full", launch counters zeroed
+             just before and read just after; each rung
+             pinned (median step, peak memory); its decode (8 rows, 64
+             teacher-forced steps, the cross K/V recomputed every step)
+             against the full forward in bf16 and, as the witness, fp32
+             (16 steps); at full width cut to 2 + 2 layers, 8 steps with
+             ``--ckpt-dir`` and ``--ckpt-period 4`` (the step-4
+             checkpoint written on a thread while steps 5-8 run, then step
+             8's; each manifest's leaf count, shapes and step, and its
+             stored optimizer step, held), then ``--resume`` from step 4
+             to 8, the losses equal; then
+             paligemma-3b at full width and depth (18 layers, 2 x (256 +
+             256) tokens, remat "full"): one step through the driver, 3
+             steps a rung pinned, and ``make_prefill_fn`` in bf16 (one
+             "simple" flash launch a layer); device memory before, at
+             peak and after each run.
+
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``. Any
 failure raises: the script then exits non-zero without the result line, as
@@ -261,6 +307,8 @@ it does when CUDA is unavailable or the repository's sources are missing.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import functools
 import itertools
 import json
 import pathlib
@@ -895,8 +943,9 @@ def check_flash(device, cases, iters=10):
     fails it).
     ``library_ms``: ``F.scaled_dot_product_attention`` on the same inputs
     where one call computes the same function (is_causal for causal
-    attention, a boolean mask of the kept entries for window and stride;
-    no softcap, no caller grid), with the kernels it ran. A case may name
+    attention, no mask for non-causal attention, a boolean mask of the
+    kept entries for window, stride and causal Sq != Skv; no softcap, no
+    caller grid), with the kernels it ran. A case may name
     the caller's block ``grid`` (bq, bk), the ``design`` it must take and
     a ``q_scale`` (``flash_case``: at unit scale cap tanh(s / cap) ~ s for
     the caps here, so a softcap is only tested where q is scaled up);
@@ -950,6 +999,8 @@ def check_flash(device, cases, iters=10):
             if kw["causal"] and not kw["window"] and kw["kv_keep_stride"] \
                     == 1 and Sq == Skv:
                 sdpa_kw = dict(is_causal=True)
+            elif not kw["causal"] and not kw["window"]:
+                sdpa_kw = {}            # every entry kept: no mask
             else:
                 sdpa_kw = dict(attn_mask=flash_kept(Sq, Skv, kw, device))
 
@@ -1080,9 +1131,28 @@ def paged_case(lengths, *, G, R, hd, P, M, dtype, quantized, device,
     filled with large values that must not matter. With ``blind``, two
     inactive slots follow: one with no running page (zeros) and one whose
     two running pages hold no valid entry (the mean of their V)."""
-    import numpy as np
     import torch
     from repro_torch.models.attention import quantize_kv
+    kp, vp, ppos, block, positions, q = paged_pool(
+        tuple(lengths), G, R, hd, P, M, seed, speculative, blind)
+    if quantized:
+        kp, vp = quantize_kv(kp.clamp(-6, 6)), quantize_kv(vp.clamp(-6, 6))
+    else:
+        kp, vp = kp.to(dtype), vp.to(dtype)
+    q = torch.tensor(q, dtype=dtype)
+    pos = torch.tensor(positions)
+    return [t.to(device) for t in (q, kp, vp, torch.tensor(ppos),
+                                   torch.tensor(block), pos)]
+
+
+@functools.lru_cache(maxsize=1)
+def paged_pool(lengths, G, R, hd, P, M, seed, speculative, blind):
+    """``paged_case``'s fp32 pool on the host, its page positions, block
+    table, decode positions and query (float64), kept for the next case
+    that differs only in its dtypes (the cases of one shape come in a row).
+    The tensors are read, never written, by their users."""
+    import numpy as np
+    import torch
     rng = np.random.default_rng(seed)
     B = len(lengths) + 2 * blind
     n_pages = 1 + B * M
@@ -1108,14 +1178,8 @@ def paged_case(lengths, *, G, R, hd, P, M, dtype, quantized, device,
     if blind:
         block[B - 1, :2] = (pid, pid + 1)
         positions += [7, 2 * P]
-    if quantized:
-        kp, vp = quantize_kv(kp.clamp(-6, 6)), quantize_kv(vp.clamp(-6, 6))
-    else:
-        kp, vp = kp.to(dtype), vp.to(dtype)
-    q = torch.tensor(rng.normal(size=(B, G, R, hd)), dtype=dtype)
-    pos = torch.tensor(np.asarray(positions, np.int32))
-    return [t.to(device) for t in (q, kp, vp, torch.tensor(ppos),
-                                   torch.tensor(block), pos)]
+    q = rng.normal(size=(B, G, R, hd))
+    return kp, vp, ppos, block, np.asarray(positions, np.int32), q
 
 
 def paged_live_pages(block, position, P, window):
@@ -1130,10 +1194,15 @@ def paged_live_pages(block, position, P, window):
 
 
 def check_paged(device, cases, iters=20):
+    """Each case against its plain version (``FP32_ATOL`` in fp32,
+    ``BF16_ATOL`` otherwise), timed beside it and the bound; the host's
+    waits for the stream counted over one call of every case (one profiled
+    window, not one a case): the decode step is host-bound, so a call must
+    not wait for the card."""
     import torch
     from repro_torch.kernels import paged_attention as mod
     from repro_torch.models.attention import KV_SCALE
-    rows = []
+    rows, calls = [], []
     for c in cases:
         G, R, hd, P = c["G"], c["R"], c["hd"], c["P"]
         lengths, M = c["lengths"], c["M"]
@@ -1152,10 +1221,8 @@ def check_paged(device, cases, iters=20):
         tol = FP32_ATOL if c["dtype"] == torch.float32 else BF16_ATOL
         err = max_err(out, ref)
         assert err <= tol, (c["name"], err, tol)
-        # the decode step is host-bound: a call must not wait for the card
-        syncs = host_syncs(lambda: mod.paged_attention(q, kp, vp, ppos,
-                                                       block, pos, **kw))
-        assert syncs == 0, (c["name"], syncs)
+        calls.append(functools.partial(mod.paged_attention, q, kp, vp, ppos,
+                                       block, pos, **kw))
         kern = timed(lambda: mod.paged_attention(q, kp, vp, ppos, block, pos,
                                                  **kw), device, iters)
         plain = timed(lambda: mod.paged_attention_plain(
@@ -1177,8 +1244,12 @@ def check_paged(device, cases, iters=20):
         print(f"paged_attention {c['name']} B={len(lengths)} M={M}: "
               f"max_abs_err={err:.3g} (tol {tol:.3g}) ms={kern:.4f} "
               f"plain_ms={plain:.4f} library_ms=null bound_ms={bound:.5f} "
-              f"({by}, {live} live pages), host syncs {syncs}, "
+              f"({by}, {live} live pages), "
               f"{pps} pages a range, tiles of {pt} of {P} rows")
+    syncs = host_syncs(lambda: [f() for f in calls])
+    print(f"paged_attention: host syncs {syncs} over one call of each of "
+          f"the {len(calls)} cases")
+    assert syncs == 0, syncs
     return rows
 
 
@@ -1387,9 +1458,11 @@ def check_train_parity(device, arch="mamba2-780m-smoke", steps=3,
                        batch=4, seq=32, remat="none", per_step=None):
     """``arch`` trained in fp32 from the same seeded weights, once on the
     card (CUDA kernels, forward and backward) and once on the CPU (plain
-    versions), ``steps`` steps on each rung of the training ladder: every
-    step's loss within 1e-4 relative (fp32 sums in other orders, carried
-    through three AdamW steps). The card run's launches must be
+    versions), ``steps`` steps on each rung of the training ladder, on the
+    same batches (whisper's frames and paligemma's patch embeddings drawn
+    on the CPU as ``launch/train.py`` draws them): every step's loss
+    within 1e-4 relative (fp32 sums in other orders, carried through
+    three AdamW steps). The card run's launches must be
     ``per_step(cfg, knobs)`` a step."""
     import copy
 
@@ -1398,13 +1471,14 @@ def check_train_parity(device, arch="mamba2-780m-smoke", steps=3,
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.explorer import explore
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
-    from repro_torch.models.lm import init_lm
+    from repro_torch.launch.train import extra_inputs
+    from repro_torch.models import api
     from repro_torch.train import optim
     from repro_torch.train.step import make_train_step
     cfg = get_config(arch)
     table = explore(cfg, ShapeConfig("cli", seq, batch, "train"),
                     serving=False, max_variants=4)
-    cpu_params = init_lm(cfg, 0, torch.float32, "cpu")
+    cpu_params = api.init(cfg, 0, torch.float32, "cpu")
     src = SyntheticLM(DataConfig(cfg.vocab_size, seq, batch, seed=0))
     opt_cfg = optim.OptConfig(lr=1e-3, warmup=2, total_steps=10)
     worst = 0.0
@@ -1419,7 +1493,8 @@ def check_train_parity(device, arch="mamba2-780m-smoke", steps=3,
             reset_launches()
             for i in range(steps):
                 tokens = torch.as_tensor(src.batch(i), device=d)
-                params, opt, m = step(params, opt, {"tokens": tokens})
+                params, opt, m = step(params, opt, {
+                    "tokens": tokens, **extra_inputs(cfg, batch, 0, i, d)})
                 losses[-1].append(float(m["loss"]))
             if d == device:
                 launches = read_launches()
@@ -1439,14 +1514,23 @@ def check_train_parity(device, arch="mamba2-780m-smoke", steps=3,
 
 # ------------------------------------------------------------- full width --
 
+# phi4-mini-3.8b's serving depth in the serve, megastep and profile phases:
+# 16 of its 32 layers at full width (32 until the train-encdec phase ran
+# over the script's time limit; its decode step is host-bound, ~1.5 ms of
+# host work a layer on an H100's host)
+SERVE_LAYERS = 16
+
 def serve_full(device, arch="phi4-mini-3.8b", requests=12, slots=8,
-               megastep=0):
-    """The serving slice at full width through ``launch/serve.py``; with
-    ``megastep`` K under ``--megastep K``. Returns ``serve.main``'s result and
+               megastep=0, layers=SERVE_LAYERS):
+    """The serving slice at full width, cut to ``layers`` layers, through
+    ``launch/serve.py``; with ``megastep`` K under ``--megastep K``.
+    Returns ``serve.main``'s result and
     the launches: the wrappers' counts, and under a megastep also the
     replayed ones (each graph's launches at its capture times its
     replays; the wrappers count the capture only)."""
+    from repro_torch.configs import get_config
     from repro_torch.launch import serve
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
     argv = ["--arch", arch, "--paged", "--dtype", "bf16",
             "--device", str(device), "--slots", str(slots),
             "--max-len", "1024", "--page-size", "16",
@@ -1454,16 +1538,17 @@ def serve_full(device, arch="phi4-mini-3.8b", requests=12, slots=8,
             "--prompt-len", "64", "--prompt-len-max", "400",
             "--max-new", "16", "--qos-target", "0.001",
             "--decision-interval", "0", "--min-samples", "4"]
-    tag = f"serve {arch}"
+    tag = f"serve {arch} ({layers} layers)"
     if megastep:
         argv += ["--megastep", str(megastep)]
         tag += f" --megastep {megastep}"
     drop_int8_weights()
     reset_launches()
-    res = serve.main(argv)
+    res = serve.main(argv, cfg=cfg)
     launches = read_launches()
     int8_designs(tag)
     eng, reqs = res["engine"], res["requests"]
+    assert eng.cfg.n_layers == layers
     vocab = eng.cfg.vocab_size
     assert all(r.done and len(r.out) == r.max_new for r in reqs), \
         [(r.uid, r.done, len(r.out)) for r in reqs]
@@ -1587,6 +1672,10 @@ def profile_rungs(res, device, batch=8, prompt_len=128, steps=8):
 # ------------------------------------------------------------- megastep --
 
 MEGA_K = 8                    # the megastep phase's K
+ATTN_LAYERS = 8               # the train-attn cell's depth (phi4-mini: 32)
+# the train cell's depth: 24 of mamba2-780m's 48 layers at full width (48
+# until the train-encdec phase ran over the script's time limit)
+TRAIN_LAYERS = 24
 
 
 def mega_engine(src, device, rung, k=MEGA_K, **kw):
@@ -1816,21 +1905,38 @@ def megastep_temperature(res, device, max_new=17):
           f"({sum(map(len, outs[0]))} tokens)")
 
 
+@contextlib.contextmanager
+def depth_cut(arch, driver="train", **fields):
+    """``repro_torch.launch.<driver>`` building ``arch`` with ``fields`` of
+    its config replaced (a depth cut at full width), through the driver's
+    own ``get_config``, patched. Yields the cut config."""
+    import importlib
+    from unittest import mock
+
+    from repro_torch.configs import get_config
+    mod = importlib.import_module(f"repro_torch.launch.{driver}")
+    cut = dataclasses.replace(get_config(arch), **fields)
+    with mock.patch.object(mod, "get_config",
+                           lambda name: cut if name == arch
+                           else get_config(name)):
+        yield cut
+
+
 def train_full(device, arch, steps, batch, seq, names, per_step,
-               remat="none"):
+               remat="none", extra=()):
     """A training slice at full width and depth:
     ``repro_torch.launch.train.main`` on ``arch`` (fp32 params, random
     weights from a seed) under ``--pliant``, decisions every step, so the
     burst in the middle of the run walks the ladder ``names`` down and
-    back. The kernels' launch counters are zeroed just before and read just
-    after, and must equal ``per_step(cfg, knobs)`` summed over the rungs
-    the run took."""
+    back; ``extra`` appended to its arguments. The kernels' launch
+    counters are zeroed just before and read just after, and must equal
+    ``per_step(cfg, knobs)`` summed over the rungs the run took."""
     import numpy as np
     import torch
     from repro_torch.launch import train
     argv = ["--arch", arch, "--steps", str(steps), "--batch", str(batch),
             "--seq", str(seq), "--pliant", "--decision-interval", "0",
-            "--device", str(device)]
+            "--device", str(device), *extra]
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     res = train.main(argv, remat=remat)
@@ -1865,6 +1971,7 @@ def train_rung_walk(res, device, steps=8, per_step=None, skip=1,
     ``per_step``). ``tag`` follows the rung's name in the report."""
     import numpy as np
     import torch
+    from repro_torch.launch.train import extra_inputs
     table, src, cfg = res["table"], res["source"], res["cfg"]
     params, opt = res["params"], res["opt"]
     out = {}
@@ -1878,8 +1985,10 @@ def train_rung_walk(res, device, steps=8, per_step=None, skip=1,
         times = []
         for k in range(steps):
             tokens = torch.as_tensor(src.batch(100 + k), device=device)
+            batch = {"tokens": tokens, **extra_inputs(
+                cfg, tokens.shape[0], 0, 100 + k, device)}
             t0 = time.perf_counter()
-            params, opt, m = step(params, opt, {"tokens": tokens})
+            params, opt, m = step(params, opt, batch)
             float(m["loss"])
             times.append(time.perf_counter() - t0)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2730,7 +2839,10 @@ def ring_cell(device, rungs=("precise", "int8+kvq8")):
 # a train step), so a lower rate only lengthens the runs.
 COLO_SERVE = ["--serve-arch", "phi4-mini-3.8b", "--dtype", "bf16",
               "--slots", "8", "--max-len", "1024", "--page-size", "16",
-              "--prompt-len", "128", "--max-new", "32", "--requests", "6"]
+              "--prompt-len", "128", "--max-new", "16", "--requests", "4"]
+# (--requests: 12 until serve-moe was added, 6 until the train-encdec
+# phase's full-depth checkpoints; --max-new 32 until the train-encdec phase
+# ran over the script's time limit: cut to keep the script in it)
 COLO_RATE = 1.0
 # A loop turn with a train step takes ~0.3-0.4 s, so a decision every
 # 0.1 s consumes the monitor's window every turn, before it holds
@@ -2738,6 +2850,11 @@ COLO_RATE = 1.0
 # the arbiter never acts. A 1 s interval (the simulator's) spans ~3 turns.
 COLO_TRAIN = ["--train-arch", "mamba2-780m", "--train-groups", "8",
               "--decision-interval", "1.0"]
+# the train tenant's depth: 24 of mamba2-780m's 48 layers at full width (48
+# until the train-encdec phase ran over the script's time limit). Its step
+# is host-bound, so it follows the depth, and each colocated turn carries
+# one
+COLO_TRAIN_LAYERS = 24
 # The step is host-bound at ~260-380 ms on every shape from 1 x 128 to
 # 2 x 512 tokens (7-11 serve decode steps), so the smallest shape that
 # still trains on full sequences is kept
@@ -2753,22 +2870,21 @@ def colo_opt(flag):
     return args[args.index(flag) + 1]
 
 
-def colocate_sizing(device, shapes, steps=4):
-    """Median ms of the train tenant's training step (fp32, seeded weights) at
+def colocate_sizing(device, cfg, shapes, steps=4):
+    """Median ms of the train tenant's training step (``cfg``, fp32, seeded
+    weights) at
     each (batch, seq) of ``shapes`` on each rung of the ladder the harness
     builds (``max_variants=3``), over the last ``steps - 1`` of ``steps``
     steps: what a colocated token waits for when a train step runs before
     it. Also warms the kernels and cuBLAS for the train tenant's shapes."""
     import numpy as np
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.explorer import explore
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.launch.train import build_variant_steps
     from repro_torch.models.lm import init_lm
     from repro_torch.train import optim
-    cfg = get_config(colo_opt("--train-arch"))
     out = {}
     for batch, seq in shapes:
         params = init_lm(cfg, 1, torch.float32, device)
@@ -2790,8 +2906,8 @@ def colocate_sizing(device, shapes, steps=4):
                 times.append(time.perf_counter() - t0)
             row[v.name] = 1e3 * float(np.median(times[1:]))
         out[(batch, seq)] = row
-        print(f"colocate sizing: {cfg.name} train step at {batch} x {seq} "
-              f"tokens, median ms a rung "
+        print(f"colocate sizing: {cfg.name} ({cfg.n_layers} layers) train "
+              f"step at {batch} x {seq} tokens, median ms a rung "
               f"{ {k: round(x, 1) for k, x in row.items()} }")
         del params, opt, table
         torch.cuda.empty_cache()
@@ -3004,10 +3120,12 @@ def colocate_cell(device):
     from repro_torch.launch.serve import DTYPES
     from repro_torch.models.lm import init_lm
     shape = COLO_TRAIN_SHAPE
-    sizing = colocate_sizing(device, [shape])[shape]
-    sparams = init_lm(get_config(colo_opt("--serve-arch")), 0,
-                      DTYPES[colo_opt("--dtype")], device)
-    out = colocate_runs(device, sparams, COLO_RATE, shape)
+    with depth_cut(colo_opt("--train-arch"), "colocate",
+                   n_layers=COLO_TRAIN_LAYERS) as tcfg:
+        sizing = colocate_sizing(device, tcfg, [shape])[shape]
+        sparams = init_lm(get_config(colo_opt("--serve-arch")), 0,
+                          DTYPES[colo_opt("--dtype")], device)
+        out = colocate_runs(device, sparams, COLO_RATE, shape)
     del sparams
     drop_int8_weights()
     torch.cuda.empty_cache()
@@ -3058,11 +3176,12 @@ def colocate_cell(device):
 # ------------------------------------------------------------ serve-dense --
 
 DENSE_ARCH = "gemma2-27b"
-# 8 of its 46 layers (4 local/global pairs): at 46 the bf16 weights (54.4
+# 4 of its 46 layers (2 local/global pairs): at 46 the bf16 weights (54.4
 # GB), the int8 rungs' MLP weight cache (23.4 GB) and the rings (~18.5 GB)
-# do not fit in 80 GB; 16 until serve-moe was added, cut to keep the whole
-# script under 1100 s
-DENSE_LAYERS = 8
+# do not fit in 80 GB; 16 until serve-moe was added and 8 until the
+# train-encdec phase ran over the script's time limit, cut to keep the
+# script in it
+DENSE_LAYERS = 4
 DENSE_SLOTS = 8
 DENSE_CTX = 8192              # max_len: a global layer's ring
 DENSE_CHUNK = 512             # prefill chunk
@@ -3529,10 +3648,20 @@ def dense_cell(device):
     torch.cuda.empty_cache()
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
+    secs, t = {}, time.perf_counter()
+
+    def done(name):
+        nonlocal t
+        secs[name] = round(time.perf_counter() - t, 1)
+        t = time.perf_counter()
     dense_parity(device)
+    done("parity")
     res, launches = dense_serve(device)
+    done("serve")
     dense_walk(res, device)
+    done("walk")
     dense_handoff(res, device)
+    done("handoff")
     del res                  # the engine and its runtime hold a cycle
     drop_int8_weights()
     gc.collect()
@@ -3540,6 +3669,8 @@ def dense_cell(device):
     gemma2_flash(device)
     gc.collect()
     torch.cuda.empty_cache()
+    done("flash")
+    print(f"serve-dense seconds: {secs}")
     peak = torch.cuda.max_memory_allocated()
     after = torch.cuda.memory_allocated()
     print(f"serve-dense memory: before {before / 2 ** 30:.2f} GiB, peak "
@@ -3549,7 +3680,13 @@ def dense_cell(device):
 
 # -------------------------------------------------------------- serve-ssm --
 
-SSM_ARCH = "zamba2-2.7b"      # full width and depth: 54 layers
+SSM_ARCH = "zamba2-2.7b"      # full width; 54 layers at full depth
+# 24 of its 54 layers (4 periods: 20 Mamba2 blocks and 4 calls of the
+# shared attention block; 54 until the train-encdec phase ran over the
+# script's time limit). Admission and decode are host-bound, so the cell's
+# time follows the depth; at 24 the serve run's snapshots (358 of 25.6 MiB)
+# still pass the engine's 8 GiB snapshot budget, so the prefix index evicts
+SSM_LAYERS = 24
 SSM_SLOTS = 8
 SSM_CTX = 4096                # max_len
 SSM_PAGE = 16
@@ -3566,7 +3703,7 @@ SSM_MEGA_LEN = 64
 SSM_PREFIX_LEN = 256
 SSM_HANDOFF_LEN = 2048        # prefill_with_cache's prompt
 # first-token logits, prefill_with_cache against chunked admission (bf16
-# sums in other orders and other chunkings over 54 layers): max |diff| over
+# sums in other orders and other chunkings over its layers): max |diff| over
 # the rms of the chunked logits, as the serve-dense phase's gate
 SSM_LOGIT_TOL = 0.5
 # the Mamba states the two handoffs give decode, relative Frobenius norm of
@@ -3779,8 +3916,8 @@ def ssm_chunks(eng):
 
 
 def ssm_serve(device):
-    """The cell through ``launch/serve.py``: zamba2-2.7b at full width and
-    depth, bf16, the paged engine, ``SSM_REQUESTS`` requests at t = 0
+    """The cell through ``launch/serve.py``: zamba2-2.7b at full width,
+    ``SSM_LAYERS`` layers, bf16, the paged engine, ``SSM_REQUESTS`` requests at t = 0
     under a QoS target tight enough that the runtime swaps variants;
     launch counters zeroed just before and read just after: every
     admission chunk launches ``ssd_scan`` (``FWD_PASSES`` a Mamba layer),
@@ -3792,6 +3929,7 @@ def ssm_serve(device):
     (below ``SSM_PEAK_GIB``). Returns (``serve.main``'s result,
     launches)."""
     import torch
+    from repro_torch.configs import get_config
     from repro_torch.configs.base import MAMBA
     from repro_torch.kernels import ssd_scan
     from repro_torch.launch import serve
@@ -3805,20 +3943,22 @@ def ssm_serve(device):
             "--prompt-len-max", str(hi), "--max-new", str(SSM_NEW),
             "--qos-target", "0.001", "--decision-interval", "0",
             "--min-samples", "4"]
-    tag = f"serve-ssm {SSM_ARCH}"
+    tag = f"serve-ssm {SSM_ARCH} ({SSM_LAYERS} layers)"
+    cfg = dataclasses.replace(get_config(SSM_ARCH), n_layers=SSM_LAYERS)
     drop_int8_weights()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     rss0 = host_rss_gib()
     reset_launches()
-    res = serve.main(argv)
+    res = serve.main(argv, cfg=cfg)
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     int8_designs(tag)
     eng, reqs, names = res["engine"], res["requests"], res["names"]
     cfg = eng.cfg
     n_mamba = sum(k == MAMBA for k in cfg.kinds())
-    assert eng.paged and cfg.n_layers == 54 and n_mamba == 45
+    assert eng.paged and cfg.n_layers == SSM_LAYERS \
+        and n_mamba == SSM_LAYERS * 5 // 6
     assert all(r.done and len(r.out) == SSM_NEW for r in reqs), \
         [(r.uid, r.done, len(r.out)) for r in reqs]
     assert all(0 <= t < cfg.vocab_size for r in reqs for t in r.out)
@@ -4035,14 +4175,15 @@ def state_gaps(caches_a, caches_b):
 
 def ssm_handoff(res, device):
     """``prefill_with_cache`` on one prompt of ``SSM_HANDOFF_LEN`` tokens at
-    the cell's width (precise): 45 ``ssd_scan`` calls with the final state
-    out and 9 ``flash_attention`` calls (hd 80: design simple), against
+    the cell's width (precise): an ``ssd_scan`` call with the final state
+    out a Mamba layer and a ``flash_attention`` call (hd 80: design
+    simple) a shared-attention layer, against
     chunked admission (the dense engine's ``_chunked_prefill``). In bf16
     (the cell's weights): the first-token logits within ``SSM_LOGIT_TOL``
     of their rms, the Mamba states each hands to decode within
     ``SSM_STATE_BF16`` (relative Frobenius norm, worst layer). The same
     weights in fp32 are the witness that the handoff itself is exact,
-    that bf16 rounding over 54 layers makes the bf16 gap: states within
+    that bf16 rounding over the layers makes the bf16 gap: states within
     ``SSM_STATE_FP32`` (relative Frobenius, worst layer and worst head)
     and logits within ``SSM_LOGIT_FP32`` of their rms. ``state_gaps``'
     other readings are printed beside them."""
@@ -4050,6 +4191,7 @@ def ssm_handoff(res, device):
 
     import numpy as np
     import torch
+    from repro_torch.configs.base import SHARED_ATTN
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan
     from repro_torch.serve import prefill as prefill_mod
@@ -4074,9 +4216,11 @@ def ssm_handoff(res, device):
         pf_s = time.perf_counter() - t0
         launches = read_launches()
         designs = {k: n for k, n in fa.design_launches.items() if n}
-        assert launches["ssd_scan"] == ssd_scan.FWD_PASSES * 45, launches
-        assert launches["flash_attention"] == 9 \
-            and designs == {"simple": 9}, (launches, designs)
+        n_attn = sum(k == SHARED_ATTN for k in cfg.kinds())
+        assert launches["ssd_scan"] == ssd_scan.FWD_PASSES * (
+            cfg.n_layers - n_attn), launches
+        assert launches["flash_attention"] == n_attn \
+            and designs == {"simple": n_attn}, (launches, designs)
         eng = ServeEngine(cfg, batch_slots=1, max_len=SSM_CTX,
                           params=params, prefill_chunk=SSM_CHUNK,
                           cache_dtype=cache_dtype, device=device)
@@ -4164,7 +4308,11 @@ def ssm_cell(device):
 
 # -------------------------------------------------------------- serve-moe --
 
-MOE_ARCH = "olmoe-1b-7b"      # full width and depth: 16 layers, 64 experts
+MOE_ARCH = "olmoe-1b-7b"      # full width: 64 experts; 16 layers at full
+# depth, cut to 8 (16 until the train-encdec phase ran over the script's
+# time limit: admission and decode are host-bound, so the cell's time
+# follows the depth)
+MOE_LAYERS = 8
 MOE_SLOTS = 8
 MOE_CTX = 4096                # max_len
 MOE_PAGE = 16
@@ -4405,8 +4553,8 @@ def expert_calls():
 
 
 def moe_serve(device):
-    """The cell through ``launch/serve.py``: olmoe-1b-7b at full width and
-    depth, bf16, the paged engine, ``MOE_REQUESTS`` requests at t = 0 under
+    """The cell through ``launch/serve.py``: olmoe-1b-7b at full width,
+    ``MOE_LAYERS`` layers, bf16, the paged engine, ``MOE_REQUESTS`` requests at t = 0 under
     a QoS target tight enough that the runtime swaps variants; launch
     counters zeroed just before and read just after: decode launches
     ``paged_attention``, and every MoE layer of a forward on an int8 rung
@@ -4416,6 +4564,7 @@ def moe_serve(device):
     for each stacked weight the cache quantised. Returns
     (``serve.main``'s result, launches)."""
     import torch
+    from repro_torch.configs import get_config
     from repro_torch.kernels import ops as kops
     from repro_torch.launch import serve
     lo, hi = MOE_PROMPTS
@@ -4427,22 +4576,24 @@ def moe_serve(device):
             "--prompt-len-max", str(hi), "--max-new", str(MOE_NEW),
             "--qos-target", "0.001", "--decision-interval", "0",
             "--min-samples", "4"]
-    tag = f"serve-moe {MOE_ARCH}"
+    tag = f"serve-moe {MOE_ARCH} ({MOE_LAYERS} layers)"
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
     drop_int8_weights()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     misses = kops.weight_cache_misses
     reset_launches()
     with expert_calls() as calls:
-        res = serve.main(argv)
+        res = serve.main(argv, cfg=cfg)
     launches = read_launches()
     quantised = kops.weight_cache_misses - misses
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     designs = int8_designs(tag)
     eng, reqs, names = res["engine"], res["requests"], res["names"]
     cfg = eng.cfg
-    assert eng.paged and cfg.n_layers == 16 and cfg.d_model == 2048 \
-        and cfg.moe.n_experts == 64 and cfg.moe.top_k == 8, cfg
+    assert eng.paged and cfg.n_layers == MOE_LAYERS \
+        and cfg.d_model == 2048 and cfg.moe.n_experts == 64 \
+        and cfg.moe.top_k == 8, cfg
     assert all(r.done and len(r.out) == MOE_NEW for r in reqs), \
         [(r.uid, r.done, len(r.out)) for r in reqs]
     assert all(0 <= t < cfg.vocab_size for r in reqs for t in r.out)
@@ -4799,6 +4950,537 @@ def moe_cell(device):
     return launches, i8_rows
 
 
+# ---------------------------------------------------------- train-encdec --
+
+ENC_ARCH = "whisper-large-v3"     # full width and depth: 32 + 32 layers
+ENC_BATCH, ENC_SEQ = 4, 448       # 4 x 448 decoder tokens over 1500 frames
+ENC_STEPS = 8                     # the --pliant run and the resume check
+ENC_PERIOD = 4                    # --ckpt-period
+ENC_RUNGS = ["precise", "int8", "int8+kvstride2", "int8+drop50%"]
+ENC_DECODE_ROWS, ENC_DECODE_LEN = 8, 64
+ENC_WITNESS_LEN = 16              # the fp32 witness's steps
+ENC_DECODE_TOL = {"bfloat16": 0.15, "float32": 1e-3}   # of the logits' rms
+VLM_ARCH = "paligemma-3b"         # full width and depth: 18 layers
+VLM_BATCH, VLM_TEXT = 2, 256      # 256 patch embeddings + 256 text tokens
+VLM_STEPS = 3                     # steps a rung
+RESUME_REL = 1e-6
+# the checkpoints' depth: 2 encoder + 2 decoder layers at full width (4 +
+# 4 until the train-encdec phase ran over the script's time limit). At
+# full depth a checkpoint is 23.4 GB: two of them took ~80 s to copy and
+# write on an H100's host, and a restore ~70 s more, which the script's
+# time limit does not hold
+RESUME_LAYERS = 2
+
+
+def encdec_launches(remat):
+    """Kernel launches of one training step of an encoder-decoder or a
+    decoder-only config under ``remat``, as ``per_step(cfg, knobs)``: a
+    forward runs every attention sublayer through ``flash_attention``
+    (whisper's encoder, the decoder's self-attention and its cross
+    attention), except a causal one under the stride knob
+    (``_causal_chunked`` in plain PyTorch), and each MLP's three products
+    on the int8 rungs; remat runs the forward again in the backward, and
+    the backward takes each int8 product's sums once more, with
+    ``quantize_rows`` for its two operands in each forward and for both in
+    the backward."""
+    fwd = 1 if remat == "none" else 2
+
+    def per_step(cfg, knobs):
+        causal = 0 if knobs.kv_keep_stride > 1 else 1
+        if cfg.family == "encdec":
+            mlps = cfg.n_encoder_layers + cfg.n_layers
+            flash = cfg.n_encoder_layers + cfg.n_layers * (1 + causal)
+        else:
+            mlps, flash = cfg.n_layers, cfg.n_layers * causal
+        int8 = knobs.matmul_precision == "int8"
+        return {"ssd_scan": 0, "ssd_scan_backward": 0, "paged_attention": 0,
+                "ring_hop": 0, "flash_attention": fwd * flash,
+                "int8_matmul": 3 * mlps * (fwd + 1) if int8 else 0,
+                "quantize_rows": 6 * mlps * (fwd + 1) if int8 else 0}
+    return per_step
+
+
+def encdec_flash_cases():
+    """``flash_attention`` at the phase's shapes: whisper-large-v3's
+    encoder (non-causal, 1500 frames = 11 x 128 + 92, 20 heads of 64), its
+    decoder's causal self-attention (448 tokens) and cross attention (448
+    queries over 1500 frames), the decode step's cross attention (8 rows,
+    one query over 1500 frames), and paligemma-3b's MQA (8 heads of 256
+    over one K/V head, 512 tokens), each in fp32 and bf16."""
+    import torch
+    B, H = ENC_BATCH, 20
+    F, T = 1500, ENC_SEQ
+    out = []
+    for dt, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        tc = "tiled" if dt == torch.float32 else "tc"
+        out += [dict(name=f"whisper-enc-{tag}", shape=(B, H, H, F, F, 64),
+                     dtype=dt, causal=False, design=tc),
+                dict(name=f"whisper-dec-{tag}", shape=(B, H, H, T, T, 64),
+                     dtype=dt, design=tc),
+                dict(name=f"whisper-cross-{tag}", shape=(B, H, H, T, F, 64),
+                     dtype=dt, causal=False, design=tc),
+                dict(name=f"whisper-cross-decode-{tag}",
+                     shape=(ENC_DECODE_ROWS, H, H, 1, F, 64), dtype=dt,
+                     causal=False, design=tc),
+                dict(name=f"paligemma-{tag}",
+                     shape=(VLM_BATCH, 8, 1, 2 * VLM_TEXT, 2 * VLM_TEXT, 256),
+                     dtype=dt, design="simple")]
+    return out
+
+
+def encdec_int8_shapes():
+    """The int8 rungs' MLP products: whisper-large-v3's encoder (4 x 1500
+    rows, 1280 -> 5120 and 5120 -> 1280) and decoder (4 x 448 rows), and
+    paligemma-3b's (2 x 512 rows, 2048 -> 16384 and 16384 -> 2048)."""
+    return [(m, k, n) for m in (ENC_BATCH * 1500, ENC_BATCH * ENC_SEQ)
+            for k, n in ((1280, 5120), (5120, 1280))] + [
+        (2 * VLM_BATCH * VLM_TEXT, k, n)
+        for k, n in ((2048, 16384), (16384, 2048))]
+
+
+def encdec_quantize_shapes():
+    """What those products quantise, fp32: the activations' rows and the
+    weights as rows of ``w.t()``."""
+    import torch
+    f32 = torch.float32
+    return [(m, k, f32) for m, k, _ in encdec_int8_shapes()] + [
+        (n, k, f32) for _, k, n in encdec_int8_shapes()[:2]] + [
+        (n, k, f32) for _, k, n in encdec_int8_shapes()[4:]]
+
+
+def stacked_bound_ms(E, M, K, N, out_bytes=4):
+    """The stacked product's bound: each expert's x and w read once and
+    its (M, N) output written once; 2 E M N K integer operations."""
+    nbytes = E * (M * K + K * N + out_bytes * M * N)
+    ops = 2.0 * E * M * N * K
+    t_bytes, t_ops = nbytes / HBM_BW, ops / INT8_OPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def check_int8_bmm_grads(device, E=OLMOE_EXPERTS, M=None, iters=10,
+                         grad_experts=8):
+    """The experts' stacked int8 product under autograd (``_QuantizedMatmul``)
+    at olmoe-1b-7b's expert products (2048 -> 1024 and 1024 -> 2048, M = a
+    256-token batch's capacity), ``grad_experts`` of them on the card
+    against the CPU plain path (which takes seconds an expert): the
+    forward bit for bit, the gradients of x and w with the same zero
+    pattern and within 1e-4 of their largest entry (sums over N or M terms
+    in other orders). The backward's exact sums for all ``E`` experts
+    (``int8_acc``: one stacked ``int8_matmul`` launch, unit scales, fp32
+    out) bit for bit against the plain version, timed beside it and the
+    bound (library null: no single PyTorch call computes the stacked int8
+    product)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import int8_matmul as i8
+    from repro_torch.kernels import ops
+    M = M or moe_capacity(256)
+    rows = []
+    for K, N in OLMOE_PRODUCTS:
+        rng = np.random.default_rng(K)
+        x = torch.tensor(rng.normal(size=(E, M, K)), dtype=torch.float32)
+        w = torch.tensor(rng.normal(size=(E, K, N)) * K ** -0.5,
+                         dtype=torch.float32)
+        g0 = torch.tensor(rng.normal(size=(grad_experts, M, N)),
+                          dtype=torch.float32)
+        out = []
+        for d in (torch.device("cpu"), device):
+            xs = x[:grad_experts].to(d).requires_grad_(True)
+            ws = w[:grad_experts].to(d).requires_grad_(True)
+            launches = i8.launches
+            y = ops.quantized_matmul(xs, ws)
+            gx, gw = torch.autograd.grad((y * g0.to(d)).sum(), (xs, ws))
+            if d == device:
+                assert i8.launches == launches + 2, i8.launches - launches
+            out.append([t.detach().cpu() for t in (y, gx, gw)])
+        (yc, gxc, gwc), (yd, gxd, gwd) = out
+        assert torch.equal(yc, yd), max_err(yc, yd)
+        errs = {}
+        for name, a, b in (("x", gxd, gxc), ("w", gwd, gwc)):
+            assert torch.equal(a != 0, b != 0), name
+            errs[name] = max_err(a, b) / float(b.abs().max())
+            assert errs[name] <= 1e-4, (name, errs[name])
+        x_q, _ = ops.quantize_rows(x.to(device).reshape(E * M, K))
+        w_t, _ = ops.quantize_weight(w.to(device))
+        x_q = x_q.view(E, M, K)
+        acc = ops.int8_acc(x_q, w_t)
+        want = i8.int8_matmul_plain(x_q, 1.0, w_t.transpose(1, 2), 1.0,
+                                    torch.float32)
+        assert torch.equal(acc, want), max_err(acc, want)
+        ms = timed(lambda: ops.int8_acc(x_q, w_t), device, iters)
+        plain = timed(lambda: i8.int8_matmul_plain(
+            x_q, 1.0, w_t.transpose(1, 2), 1.0, torch.float32), device, 3,
+            warmup=1)
+        bound, by = stacked_bound_ms(E, M, K, N)
+        design = i8.select_design(M, N, K)
+        rows.append(dict(E=E, M=M, K=K, N=N, design=design, ms=ms,
+                         plain_ms=plain, bound_ms=bound, bound_by=by,
+                         library_ms=None, max_abs_err=max_err(acc, want)))
+        G = grad_experts
+        print(f"stacked int8 backward E={E} M={M} K={K} N={N}: y "
+              f"bit-equal ({G} experts), nonzero x-grads "
+              f"{int((gxd != 0).sum())}/{G * M * K} w-grads "
+              f"{int((gwd != 0).sum())}/{G * K * N} "
+              f"(patterns equal), max_abs_err / max|ref| x={errs['x']:.3g} "
+              f"w={errs['w']:.3g}; acc (design {design}) bit-equal, "
+              f"ms={ms:.4f} plain_ms={plain:.4f} bound_ms={bound:.4f} ({by})"
+              f" library_ms=null")
+    return rows
+
+
+def check_flash_grads_memory(device, shape):
+    """``FlashAttention``'s backward (the plain version's VJP, recomputed
+    per block of 1024 query rows) at ``shape``, fp32 causal: its gradients
+    against autograd through the plain version on the card, and the peak
+    device memory the backward takes above its inputs."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    B, H, KVH, S, _, hd = shape
+    ins = [t.requires_grad_(True) for t in flash_case(
+        B, H, KVH, S, S, hd, torch.float32, device, seed=7)]
+    go = torch.tensor(np.random.default_rng(8).normal(size=(B, H, S, hd)),
+                      dtype=torch.float32, device=device)
+    want = torch.autograd.grad(fa.flash_attention_plain(*ins), ins, go)
+    out = fa.FlashAttention.apply(*ins, True, 0, 0.0, 1)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = torch.autograd.grad(out, ins, go)
+    torch.cuda.synchronize()
+    extra = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    rel = {n: max_err(g, w) / float(w.abs().max())
+           for n, g, w in zip("qkv", got, want)}
+    print(f"flash_attention backward B={B} H={H} KVH={KVH} S={S} hd={hd}: "
+          f"grads vs autograd of the plain version, max_abs_err / max|ref| "
+          + " ".join(f"{k}={v:.3g}" for k, v in rel.items())
+          + f"; peak {extra:.1f} MiB above its inputs")
+    assert max(rel.values()) <= 1e-5, rel
+    return extra
+
+
+def gib(nbytes):
+    return round(nbytes / 2 ** 30, 2)
+
+
+def memory_line(tag, before):
+    import torch
+    print(f"{tag} memory: before {gib(before)} GiB, peak "
+          f"{gib(torch.cuda.max_memory_allocated())} GiB, after "
+          f"{gib(torch.cuda.memory_allocated())} GiB")
+
+
+def encdec_train(device):
+    """whisper-large-v3 at full width and depth through
+    ``launch/train.py`` under ``--pliant``, remat "full", launch counters
+    zeroed just before and read just after, then each rung pinned. No
+    ``--ckpt-dir``: the checkpoints are held in ``encdec_resume``, at full
+    width and cut depth. Returns the run's result and launches."""
+    import torch
+    t = time.perf_counter()
+    res, launches = train_full(
+        device, ENC_ARCH, ENC_STEPS, ENC_BATCH, ENC_SEQ, ENC_RUNGS,
+        encdec_launches("full"), remat="full")
+    print(f"train {ENC_ARCH}: {time.perf_counter() - t:.1f}s for "
+          f"{ENC_STEPS} steps (init included)")
+    train_rung_walk(res, device, steps=2, per_step=encdec_launches("full"))
+    torch.cuda.synchronize()
+    return res, launches
+
+
+def check_manifests(d, res, steps):
+    """The checkpoints under ``d`` are those of ``steps``, and each
+    manifest holds the state's leaf count and shapes and its step, and its
+    stored optimizer step is its own."""
+    import numpy as np
+    from repro_torch.ckpt import checkpoint as ck
+    assert ck.all_steps(d) == steps, (ck.all_steps(d), steps)
+    like = ck.state_like((res["params"], res["opt"]), res["cfg"])
+    leaves, n_params = ck.flatten(like), len(ck.flatten(like[0]))
+    for step in steps:
+        m = json.loads((d / f"step_{step}" / "manifest.json").read_text())
+        assert m["step"] == step and m["n_leaves"] == len(leaves), m
+        assert [tuple(x) for x in m["shapes"]] == \
+            [x.shape for x in leaves], step
+        with np.load(d / f"step_{step}" / "shard0.npz") as z:
+            assert int(z[f"a{n_params}"]) == step, step
+
+
+def encdec_resume(device, layers=RESUME_LAYERS):
+    """A run of ``ENC_STEPS`` precise steps with ``--ckpt-dir`` and
+    ``--ckpt-period ENC_PERIOD`` (the step-4 checkpoint written on a thread
+    while steps 5-8 update the state in place; its manifests held by
+    ``check_manifests``), then, its step-8
+    checkpoint removed, ``--resume`` to ``ENC_STEPS`` from step 4 (both
+    runs from the same seed), on whisper-large-v3 at full width cut to
+    ``layers`` encoder and decoder layers (``depth_cut``; None: full
+    depth): the resumed
+    steps' losses within RESUME_REL relative of the uninterrupted run's;
+    reported whether they are bit-equal, with each save's host copy and
+    write and the restore's seconds."""
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.ckpt import checkpoint as ck
+    from repro_torch.launch import train
+    d2 = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    argv = ["--arch", ENC_ARCH, "--batch", str(ENC_BATCH), "--seq",
+            str(ENC_SEQ), "--device", str(device), "--steps", str(ENC_STEPS),
+            "--ckpt-dir", str(d2)]
+    runs, secs, ckpt = [], [], []
+    try:
+        cut = dict(n_layers=layers, n_encoder_layers=layers) if layers \
+            else {}
+        with depth_cut(ENC_ARCH, **cut) as cfg:
+            for extra in (["--ckpt-period", str(ENC_PERIOD)], ["--resume"]):
+                if extra == ["--resume"]:
+                    shutil.rmtree(d2 / f"step_{ENC_STEPS}")
+                t = time.perf_counter()
+                res = train.main(argv + extra, remat="full")
+                secs.append(round(time.perf_counter() - t, 1))
+                if extra != ["--resume"]:
+                    check_manifests(d2, res, list(range(
+                        ENC_STEPS, 0, -ENC_PERIOD)))
+                runs.append((res["start_step"], list(res["losses"])))
+                ckpt += res["ckpt_timings"]
+                del res
+                gc.collect()
+                torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(d2, ignore_errors=True)
+    whole, resumed = runs
+    assert resumed[0] == ENC_PERIOD, resumed[0]
+    want = np.array(whole[1][ENC_PERIOD:])
+    got = np.array(resumed[1])
+    rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    print(f"resume {ENC_ARCH} ({cfg.n_encoder_layers} + {cfg.n_layers} "
+          f"layers, {gib(4 * 3 * cfg.param_count())} GiB of checkpoint): "
+          f"uninterrupted losses "
+          f"{[round(x, 6) for x in whole[1]]}, resumed from step "
+          f"{resumed[0]}: {[round(x, 6) for x in resumed[1]]}, max rel "
+          f"{rel:.3g}, bit-equal {bool(np.array_equal(got, want))}; run "
+          f"seconds {secs} ({ENC_STEPS} steps + saves at {ENC_PERIOD} "
+          f"and {ENC_STEPS}, restore + {ENC_STEPS - ENC_PERIOD} steps + "
+          f"save); checkpoint seconds "
+          f"{[{k: round(v, 1) for k, v in t.items()} for t in ckpt]}")
+    assert rel <= RESUME_REL, (rel, got, want)
+    return rel
+
+
+def encdec_decode(device, params):
+    """whisper-large-v3's one-token decode (``make_serve_step``: dense
+    rings, the cross attention recomputed from ``enc_out`` every step) on
+    ``ENC_DECODE_ROWS`` rows, teacher-forced over ``ENC_DECODE_LEN``
+    tokens, against ``decode_hidden``'s full forward on the same tokens:
+    each step's logits within ``ENC_DECODE_TOL`` of the full forward's rms
+    at that position, in bf16 (a copy of ``params``) and, over the first
+    ``ENC_WITNESS_LEN`` steps, in fp32 on ``params`` themselves (the
+    witness: the step is exact up to fp32 sums). Each step timed with CUDA events around it (the host's launch
+    gaps included: the step is synchronised by its check), the median of
+    the bf16 steps beside the bound: the cross K/V of every layer over
+    every frame are most of the work."""
+    import numpy as np
+    import torch
+    from repro_torch.models import api, encdec
+    from repro_torch.models.lm import logits_fn
+    from repro_torch.configs import get_config
+    from repro_torch.train.step import make_serve_step
+    cfg = get_config(ENC_ARCH)
+    B, T, F = ENC_DECODE_ROWS, ENC_DECODE_LEN, cfg.encoder_seq
+    g = torch.Generator().manual_seed(11)
+    toks = torch.randint(0, cfg.vocab_size, (B, T), generator=g).to(device)
+    frames = torch.randn((B, F, cfg.d_model), generator=g).to(device)
+    step = make_serve_step(cfg)
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[-1]
+        if dt == torch.float32:
+            p = params
+        else:
+            p = api.init(cfg, 0, dt, device)
+            with torch.no_grad():
+                for a, b in zip(p.parameters(), params.parameters()):
+                    a.copy_(b)
+        with torch.no_grad():
+            enc_out = encdec.encode(p, frames, cfg, remat="none")
+            full = logits_fn(p, encdec.decode_hidden(
+                p, toks, enc_out, cfg, remat="none"), cfg)
+            caches = encdec.init_caches(cfg, B, T, dtype=dt, device=device)
+            worst, ms = 0.0, []
+            for t in range(T if dt == torch.bfloat16 else ENC_WITNESS_LEN):
+                pos = torch.full((B,), t, dtype=torch.int32, device=device)
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                logits, caches = step(p, toks[:, t:t + 1], pos, caches,
+                                      enc_out)
+                b.record()
+                ref = full[:, t]
+                rms = float(ref.pow(2).mean().sqrt())
+                err = max_err(logits, ref) / rms
+                worst = max(worst, err)
+                torch.cuda.synchronize()
+                ms.append(a.elapsed_time(b))
+        assert torch.isfinite(full).all() and worst <= ENC_DECODE_TOL[name], \
+            (name, worst)
+        out[name] = dict(worst=worst, ms=float(np.median(ms[1:])))
+        print(f"decode {ENC_ARCH} {name}: {B} rows x {len(ms)} teacher-forced "
+              f"steps, worst max|step - full| / rms {worst:.3g} (tol "
+              f"{ENC_DECODE_TOL[name]}), median step {out[name]['ms']:.3f} "
+              f"ms (first {ms[0]:.3f})")
+        del p, enc_out, full, caches
+        torch.cuda.empty_cache()
+    L, d = cfg.n_layers, cfg.d_model
+    flops = 2.0 * B * L * (2 * F * d * cfg.kv_dim       # cross K/V
+                           + 2 * d * (cfg.q_dim + cfg.kv_dim) + 2 * d * d
+                           + 3 * d * cfg.d_ff) + 2.0 * B * d * cfg.vocab_size
+    nbytes = 2 * (L * (4 * d * d + 4 * d * cfg.kv_dim + 3 * d * cfg.d_ff)
+                  + cfg.vocab_size * d) + 2 * L * B * F * d
+    bound = 1e3 * max(flops / BF16_FLOPS, nbytes / HBM_BW)
+    by = "operations" if flops / BF16_FLOPS > nbytes / HBM_BW else "bytes"
+    out["bound_ms"], out["bound_by"] = bound, by
+    print(f"decode {ENC_ARCH} bf16: {flops / 1e12:.3f} TFLOP a step, bound "
+          f"{bound:.3f} ms ({by}), measured {out['bfloat16']['ms']:.3f} ms, "
+          f"share of bound {bound / out['bfloat16']['ms']:.3f}")
+    return out
+
+
+def vlm_train(device):
+    """paligemma-3b at full width and depth: ``launch/train.py`` one
+    precise step at 2 x (256 + 256) tokens, remat "full", launch counters
+    zeroed just before and read just after; then ``VLM_STEPS`` steps on
+    each rung pinned by ``table.executable(i)`` (median step time, peak
+    memory, launches a step); then ``make_prefill_fn`` in bf16 on the same
+    batch shape: logits finite, one ``flash_attention`` launch of design
+    "simple" a layer (hd 256). Returns the run's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train
+    from repro_torch.launch.train import extra_inputs
+    from repro_torch.models import api
+    from repro_torch.train.step import make_prefill_fn
+    per_step = encdec_launches("full")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t = time.perf_counter()
+    res = train.main(["--arch", VLM_ARCH, "--steps", "1", "--batch",
+                      str(VLM_BATCH), "--seq", str(VLM_TEXT), "--device",
+                      str(device)], remat="full")
+    launches = read_launches()
+    cfg = res["cfg"]
+    int8_designs(f"train {VLM_ARCH}")
+    flash_designs(f"train {VLM_ARCH}", cfg)
+    assert np.isfinite(res["losses"]).all(), res["losses"]
+    assert launches == per_step(cfg, res["table"].variants[0].knobs), \
+        launches
+    print(f"train {VLM_ARCH}: 1 step batch {VLM_BATCH} x ({cfg.n_prefix_tokens}"
+          f" + {VLM_TEXT}) remat full in {time.perf_counter() - t:.1f}s "
+          f"(init included), loss {res['losses']}, peak "
+          f"{gib(torch.cuda.max_memory_allocated())} GiB, launches "
+          f"{launches}")
+    walk = train_rung_walk(res, device, steps=VLM_STEPS, per_step=per_step)
+    params = res["params"]
+    del res
+    p16 = api.init(cfg, 0, torch.bfloat16, device)
+    with torch.no_grad():
+        for a, b in zip(p16.parameters(), params.parameters()):
+            a.copy_(b)
+    del params
+    torch.cuda.empty_cache()
+    g = torch.Generator().manual_seed(12)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                     (VLM_BATCH, VLM_TEXT + 1),
+                                     generator=g).to(device),
+             **{k: v.to(torch.bfloat16) for k, v in extra_inputs(
+                 cfg, VLM_BATCH, 0, 0, device).items()}}
+    prefill = make_prefill_fn(cfg, remat="none")
+    with torch.no_grad():
+        reset_launches()
+        logits = prefill(p16, batch)
+        torch.cuda.synchronize()
+        n = read_launches()["flash_attention"]
+        designs = dict(fa.design_launches)
+        ms = timed(lambda: prefill(p16, batch), device, 3, warmup=1)
+    assert logits.shape == (VLM_BATCH, cfg.vocab_size), logits.shape
+    assert torch.isfinite(logits).all()
+    assert n == cfg.n_layers and designs["simple"] == n, (n, designs)
+    print(f"prefill {VLM_ARCH} bf16: logits {tuple(logits.shape)} finite, "
+          f"{n} flash_attention launches by design {designs}, {ms:.2f} ms")
+    del p16
+    torch.cuda.empty_cache()
+    return launches, walk
+
+
+def encdec_cell(device):
+    """Phase ``train-encdec``: ``flash_attention``, ``int8_matmul`` and
+    ``quantize_rows`` at the phase's shapes, the experts' stacked int8
+    backward, flash's backward memory at hd 256, whisper and paligemma
+    smoke parity on the card against the CPU, whisper-large-v3 training
+    and its rungs, its decode, the checkpoints and the resume check, then
+    paligemma-3b training and prefill; device memory before, at peak and
+    after each run. Returns (whisper's launches, paligemma's launches,
+    flash rows, int8 rows, stacked backward rows)."""
+    import gc
+
+    import torch
+    drop_int8_weights()
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs, t = {}, time.perf_counter()
+
+    def done(name):
+        nonlocal t
+        secs[name] = round(time.perf_counter() - t, 1)
+        t = time.perf_counter()
+    fa_rows = check_flash(device, encdec_flash_cases(), iters=5)
+    done("flash")
+    i8_rows = check_int8(device, encdec_int8_shapes(), iters=10)
+    check_quantize(device, encdec_quantize_shapes(), iters=10)
+    done("int8")
+    bmm_rows = check_int8_bmm_grads(device)
+    check_flash_grads_memory(device, (VLM_BATCH, 8, 1, 2 * VLM_TEXT,
+                                      2 * VLM_TEXT, 256))
+    done("grads")
+    check_train_parity(device, "whisper-large-v3-smoke",
+                       per_step=encdec_launches("none"))
+    check_train_parity(device, "paligemma-3b-smoke",
+                       per_step=encdec_launches("none"))
+    done("parity")
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res, enc_launches = encdec_train(device)
+    memory_line(f"train {ENC_ARCH}", before)
+    done("train")
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    encdec_decode(device, res["params"])
+    memory_line(f"decode {ENC_ARCH}", before)
+    done("decode")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    encdec_resume(device)
+    memory_line(f"resume {ENC_ARCH}", before)
+    done("resume")
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    vlm_launches, _ = vlm_train(device)
+    memory_line(f"train {VLM_ARCH}", before)
+    done("vlm")
+    drop_int8_weights()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"train-encdec seconds: {secs}")
+    return enc_launches, vlm_launches, fa_rows, i8_rows, bmm_rows
+
+
 # ------------------------------------------------------------------ main --
 
 def main():
@@ -4826,17 +5508,29 @@ def main():
         for line in seen:
             print(f"  {name}: {line}")
 
-    t = time.perf_counter()
+    t = t_lap = time.perf_counter()
+    laps = {}
+
+    def lap(name):
+        """The seconds since the last lap or phase, under ``name``."""
+        nonlocal t_lap
+        laps[name] = round(time.perf_counter() - t_lap, 1)
+        t_lap = time.perf_counter()
 
     def phase_done(name):
-        nonlocal t
-        print(f"phase {name}: {time.perf_counter() - t:.1f}s")
-        t = time.perf_counter()
+        nonlocal t, t_lap
+        print(f"phase {name}: {time.perf_counter() - t:.1f}s"
+              + (f" {laps}" if laps else ""))
+        t = t_lap = time.perf_counter()
+        laps.clear()
 
     i8_rows = check_int8(device, int8_shapes())
+    lap("int8")
     assert {r["design"] for r in i8_rows} == {"A", "B", "fallback"}
     q_rows = check_quantize(device, quantize_shapes())
+    lap("quantize")
     pa_rows = check_paged(device, phi4_paged_cases(torch.bfloat16))
+    lap("paged")
     ssd_full = (4, 1024, 48, 64, 128, 128)      # mamba2-780m training
     ssd_rows = check_ssd(device, [(2, 64, 8, 16, 16, 16), ssd_full])
     # the token-drop rungs' batch rows: int8+drop12% keeps 3, int8+drop50% 2
@@ -4845,13 +5539,21 @@ def main():
     ssd_bwd_rows = check_ssd_backward(device, [(2, 64, 8, 16, 16, 16),
                                                ssd_full])
     check_ssd_grads(device)
+    lap("ssd")
     ssd_bwd_ms = time_ssd_backward(device, ssd_full)
+    lap("ssd_backward")
     check_int8_grads(device)
+    lap("int8_grads")
     fa_rows = check_flash(device, phi4_flash_cases())
+    lap("flash")
     check_flash_grads(device)
+    lap("flash_grads")
     time_attention_paths(device)
+    lap("attention_paths")
     rh_rows = check_ring_hop(device, phi4_ring_hop_cases())
+    lap("ring_hop")
     check_ring_chunk(device)
+    lap("ring_chunk")
     kernels = {"flash_attention": next(r for r in fa_rows
                                        if r["name"] == "cell-fp32"),
                "int8_matmul": next(r for r in i8_rows
@@ -4871,18 +5573,25 @@ def main():
                                          and r["dtype"] == "fp32")}
     phase_done("kernels")
     check_parity(device)
+    lap("serve")
     check_ring_parity(device)
+    lap("ring")
     check_train_parity(device, per_step=mamba_launches)
-    check_train_parity(device, "phi4-mini-3.8b-smoke", batch=2, seq=4096,
+    lap("train_mamba2")
+    check_train_parity(device, "phi4-mini-3.8b-smoke", batch=2, seq=1024,
                        remat="full", per_step=attn_launches)
     phase_done("parity")
     res, serve_launches = serve_full(device)
     rung_walk(res, device)
     phase_done("serve")
     check_sampling(device)
+    lap("sampling")
     megastep_rungs(res, device)
+    lap("rungs")
     megastep_swap(res, device)
+    lap("swap")
     megastep_temperature(res, device)
+    lap("temperature")
     drop_int8_weights()
     mres, mega_launches = serve_full(device, megastep=MEGA_K)
     print(f"serve under --megastep {MEGA_K}: tok_s {mres['tok_s']:.2f} "
@@ -4901,34 +5610,43 @@ def main():
     del res
     drop_int8_weights()
     torch.cuda.empty_cache()
-    tres, train_launches = train_full(
-        device, "mamba2-780m", 12, 4, 1024,
-        ["precise", "int8", "int8+drop12%", "int8+drop50%"], mamba_launches)
+    # mamba2-780m at 4 x 1024 tokens, full width cut to TRAIN_LAYERS layers
+    with depth_cut("mamba2-780m", n_layers=TRAIN_LAYERS):
+        tres, train_launches = train_full(
+            device, "mamba2-780m", 12, 4, 1024,
+            ["precise", "int8", "int8+drop12%", "int8+drop50%"],
+            mamba_launches)
     phase_done("train")
     train_rung_walk(tres, device, steps=5, per_step=mamba_launches)
+    lap("walk")
     profile_train(tres, device)
     phase_done("train-rungs")
     print(f"ssd_scan_backward: {48 * ssd_bwd_ms:.1f} ms a training step "
-          f"(48 layers x {ssd_bwd_ms:.3f} ms)")
+          f"at mamba2-780m's full depth (48 layers x {ssd_bwd_ms:.3f} ms)")
     del tres
     torch.cuda.empty_cache()
-    # phi4-mini-3.8b at 2 x 4096 tokens: 61.5 GB of fp32 params, grads and
-    # AdamW moments, so the layers' activations fit only under remat
-    ares, attn_train_launches = train_full(
-        device, "phi4-mini-3.8b", 8, 2, 4096,
-        ["precise", "int8", "int8+kvstride2", "int8+drop50%"],
-        attn_launches, remat="full")
+    # phi4-mini-3.8b at 2 x 4096 tokens, full width cut to ATTN_LAYERS
+    # layers (32 until the train-encdec phase was added); at full depth its
+    # 61.5 GB of fp32 params, grads and AdamW moments leave the layers'
+    # activations room only under remat
+    with depth_cut("phi4-mini-3.8b", n_layers=ATTN_LAYERS):
+        ares, attn_train_launches = train_full(
+            device, "phi4-mini-3.8b", 8, 2, 4096,
+            ["precise", "int8", "int8+kvstride2", "int8+drop50%"],
+            attn_launches, remat="full")
     phase_done("train-attn")
     # 2 steps a rung (the second timed): cut from 4 with the serve-ring
     # phase added and from 3 with serve-ssm, to keep the whole script
     # under 1100 s
     train_rung_walk(ares, device, steps=2, per_step=attn_launches)
+    lap("walk")
     with chunked_causal_attention():
         train_rung_walk(ares, device, steps=2, rungs=["int8"],
                         tag=" (attention chunked, stride 1)",
                         per_step=lambda cfg, knobs: {
                             **attn_launches(cfg, knobs),
                             "flash_attention": 0})
+    lap("chunked")
     profile_train(ares, device)
     phase_done("train-attn-rungs")
     del ares
@@ -4943,6 +5661,9 @@ def main():
     phase_done("serve-ssm")
     moe_launches, moe_i8_rows = moe_cell(device)
     phase_done("serve-moe")
+    enc_launches, vlm_launches, enc_fa_rows, enc_i8_rows, bmm_rows = \
+        encdec_cell(device)
+    phase_done("train-encdec")
 
     src_of = {"flash_attention": (
                   "src/repro_torch/csrc/flash_attention.cu",
@@ -4970,12 +5691,22 @@ def main():
                       "colocate": colo_launches[name],
                       "serve-dense": dense_launches[name],
                       "serve-ssm": ssm_launches[name],
-                      "serve-moe": moe_launches[name]}
+                      "serve-moe": moe_launches[name],
+                      "train-encdec": enc_launches[name],
+                      "train-vlm": vlm_launches[name]}
                for name in kernels}
     # the experts' batched product (one launch for 64 experts) at decode
     i8_batched = {"serve_moe": [{k: r[k] for k in (
         "E", "M", "K", "N", "design", "ms", "plain_ms", "library_ms",
-        "bound_ms", "bound_by", "max_abs_err")} for r in moe_i8_rows]}
+        "bound_ms", "bound_by", "max_abs_err")} for r in moe_i8_rows],
+        "train_backward_acc": bmm_rows}
+    # the train-encdec phase's shapes
+    i8_encdec = [{k: r[k] for k in (
+        "M", "K", "N", "design", "ms", "ms_fp32", "plain_ms", "library_ms",
+        "bound_ms", "bound_by", "max_abs_err")} for r in enc_i8_rows]
+    fa_encdec = [{k: r[k] for k in (
+        "name", "shape", "design", "ms", "plain_ms", "library_ms",
+        "bound_ms", "bound_by", "max_abs_err")} for r in enc_fa_rows]
     # ssd_scan with the state in and out at zamba2's admission chunk
     ssm_row = next(r for r in ssm_rows if r["shape"] == (1, 128, 80, 64, 64)
                    and r["dtype"] == "bf16")
@@ -5002,7 +5733,7 @@ def main():
                          launches_by_path=by_path[name],
                          **({**{k: r[k] for k in ("design",
                                                    "library_layout")},
-                             "batched": i8_batched}
+                             "batched": i8_batched, "encdec": i8_encdec}
                             if name == "int8_matmul" else {}),
                          **({k: r[k] for k in ("design", "step_ms")}
                             if name == "ring_hop" else {}),
@@ -5012,7 +5743,8 @@ def main():
                          **({"design": r["design"], "tc": {
                              k: tc_row[k] for k in (
                                  "name", "ms", "plain_ms", "library_ms",
-                                 "bound_ms", "sfu_ms", "max_abs_err")}}
+                                 "bound_ms", "sfu_ms", "max_abs_err")},
+                             "encdec": fa_encdec}
                             if name == "flash_attention" else {})))
     print(f"chip_smoke: {time.perf_counter() - t0:.1f}s by its own clock")
     print(json.dumps({"kernels": line}))

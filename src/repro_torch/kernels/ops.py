@@ -29,18 +29,28 @@ def int8_acc(x_q, w_t):
     return int8_matmul_t(x_q, None, w_t, None, out_dtype=torch.float32)
 
 
+def _quantize_x(x):
+    """The rows of x (..., M, K) quantised in one ``quantize_rows`` launch:
+    int8 in x's shape and fp32 scales (..., M, 1)."""
+    q, s = quantize_rows(x.reshape(-1, x.shape[-1]).contiguous())
+    return q.view(x.shape), s.view(x.shape[:-1] + (1,))
+
+
 class _QuantizedMatmul(torch.autograd.Function):
-    """W8A8 product of x (M, K) and w (K, N) for autograd: both quantised
-    (``quantize_rows``, the weight as rows of ``w.t()``), multiplied by
-    ``int8_matmul_t``. With ``out = (acc * x_s) * w_s`` the gradient reaches
-    only the scales, as under ``jax.grad`` of ``quantized_matmul_ref``:
-    ``d x_s = sum_n (g * w_s) * acc`` and ``d w_s = sum_m g * (acc * x_s)``,
-    the exact int32 sums ``acc`` taken again by the kernel; from the scales
-    ``quantize_rows_backward`` carries them to x and w."""
+    """W8A8 product of x (M, K) and w (K, N), or of E experts' stacks x (E,
+    M, K) and w (E, K, N), for autograd: both quantised (``quantize_rows``,
+    the weight as rows of its transpose, each operand in one launch),
+    multiplied by ``int8_matmul_t`` (a stack in one launch). With ``out =
+    (acc * x_s) * w_s`` the gradient reaches only the scales, as under
+    ``jax.grad`` of ``quantized_matmul_ref`` (of its ``jax.vmap`` for a
+    stack): ``d x_s = sum_n (g * w_s) * acc`` and ``d w_s = sum_m g * (acc
+    * x_s)``, the exact int32 sums ``acc`` taken again by one kernel launch;
+    from the scales ``quantize_rows_backward`` carries them to the rows of
+    x and of w's transpose, one launch each."""
 
     @staticmethod
     def forward(ctx, x, w):
-        x_q, x_s = quantize_rows(x)
+        x_q, x_s = _quantize_x(x)
         w_t, w_s = quantize_weight(w)
         ctx.save_for_backward(x, w, x_q, x_s, w_t, w_s)
         return int8_matmul_t(x_q, x_s, w_t, w_s, out_dtype=x.dtype)
@@ -48,15 +58,20 @@ class _QuantizedMatmul(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w, x_q, x_s, w_t, w_s = ctx.saved_tensors
-        acc = int8_acc(x_q, w_t)
+        K = x.shape[-1]
+        acc = int8_acc(x_q, w_t)                        # (..., M, N) fp32
         g = g.float()
         gx = gw = None
         if ctx.needs_input_grad[0]:
-            d_xs = ((g * w_s.t()) * acc).sum(1, keepdim=True)
-            gx = quantize_rows_backward(x, d_xs)
+            d_xs = ((g * w_s.transpose(-1, -2)) * acc).sum(-1, keepdim=True)
+            gx = quantize_rows_backward(x.reshape(-1, K).contiguous(),
+                                        d_xs.reshape(-1, 1)).view(x.shape)
         if ctx.needs_input_grad[1]:
-            d_ws = (g * (acc * x_s)).sum(0).unsqueeze(1)
-            gw = quantize_rows_backward(w.t().contiguous(), d_ws).t()
+            d_ws = (g * (acc * x_s)).sum(-2)              # (..., N)
+            w_r = w.transpose(-1, -2)
+            gw = quantize_rows_backward(w_r.reshape(-1, K).contiguous(),
+                                        d_ws.reshape(-1, 1)
+                                        ).view(w_r.shape).transpose(-1, -2)
         return gx, gw
 
 
@@ -130,31 +145,15 @@ def quantized_matmul(x, w):
 
     A stack of experts, x (E, M, K) with w (E, K, N), is E products in one
     ``quantize_rows`` launch over x's (E·M, K) rows and one ``int8_matmul``
-    launch (the JAX package's ``jax.vmap`` of ``quantized_matmul``); it
-    serves without autograd only."""
-    if w.dim() == 3:
-        return _quantized_bmm(x, w)
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    launch (the JAX package's ``jax.vmap`` of ``quantized_matmul``)."""
+    x2 = x if w.dim() == 3 else x.reshape(-1, x.shape[-1]).contiguous()
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         y = _QuantizedMatmul.apply(x2, w)
     else:
-        x_q, x_s = quantize_rows(x2)
+        x_q, x_s = _quantize_x(x2)
         w_t, w_s = cached_weight(w)
         y = int8_matmul_t(x_q, x_s, w_t, w_s, out_dtype=x.dtype)
-    return y.reshape(lead + (w.shape[-1],))
-
-
-def _quantized_bmm(x, w):
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        raise NotImplementedError(
-            "quantized_matmul: the experts' batched int8 product has no "
-            "backward (ROADMAP.md queue 1, item 6)")
-    E, M, K = x.shape
-    x_q, x_s = quantize_rows(x.reshape(E * M, K).contiguous())
-    w_t, w_s = cached_weight(w)
-    return int8_matmul_t(x_q.view(E, M, K), x_s.view(E, M, 1), w_t, w_s,
-                         out_dtype=x.dtype)
+    return y.reshape(x.shape[:-1] + (w.shape[-1],))
 
 
 def bf16_matmul(x, w):

@@ -12,11 +12,22 @@ job back toward precise.
       --steps 20 --batch 4 --seq 1024 --pliant --decision-interval 0
 
 The default arch is phi4-mini-3.8b-smoke, as in the JAX driver; every arch
-the port configures trains (attention and Mamba blocks). ``--device cpu``
-runs the kernels' plain versions on the CPU. ``main(argv, remat=...)``
-hands ``remat`` to ``build_variant_steps``: "none" by default, as in the
-JAX driver; full-width phi4-mini-3.8b at 2 x 4096 tokens needs "full" to
-fit one 80 GB card. ``main`` prints the same ``step ... loss ...
+trains: whisper's batch carries ``frames`` (B, encoder_seq, d_model) and
+paligemma's ``prefix_embeds`` (B, n_prefix_tokens, d_model), drawn each
+step from a ``torch.Generator`` seeded from (seed, step) on the CPU, so a
+run on the card sees the same batches as one on the CPU. ``--device cpu``
+runs the kernels' plain versions on the CPU.
+
+``--ckpt-dir DIR`` saves ``(params, opt)`` every ``--ckpt-period`` steps
+(asynchronously, in the JAX package's checkpoint format) and once more at
+the end; ``--resume`` restores the newest loadable checkpoint in DIR first
+(a torn one is skipped with a warning), and the run continues from its
+step with the data the uninterrupted run would have read there. A
+checkpoint the JAX driver wrote restores as well. ``main(argv, remat=...,
+cfg=...)`` hands ``remat`` to ``build_variant_steps``: "none" by default,
+as in the JAX driver; full-width phi4-mini-3.8b at 2 x 4096 tokens needs
+"full" to fit one 80 GB card; ``cfg``, when given, is trained in place of
+``--arch``'s config (a depth cut, say). ``main`` prints the same ``step ... loss ...
 variant=...`` and ``final loss`` lines as the JAX driver and returns a dict
 with the table, the trained state and the per-step record (loss, wall
 seconds, seconds waiting for data, active variant).
@@ -29,6 +40,8 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.ckpt.checkpoint import (CheckpointManager, load_state,
+                                         state_like, state_tree)
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.colocation import SERVICES
@@ -38,8 +51,8 @@ from repro_torch.core.runtime import PliantRuntime
 from repro_torch.core.tenant import TrainTenant
 from repro_torch.core.variants import VariantTable
 from repro_torch.data.pipeline import DataConfig, Prefetcher, SyntheticLM
+from repro_torch.models import api
 from repro_torch.models.common import resolve_device
-from repro_torch.models.lm import init_lm
 from repro_torch.train import optim
 from repro_torch.train import step as step_mod
 
@@ -48,6 +61,22 @@ def build_variant_steps(cfg, table: VariantTable, opt_cfg, remat="none"):
     """One train-step closure per variant of ``table``."""
     table.compile_all(lambda knobs: step_mod.make_train_step(
         cfg, knobs, opt_cfg=opt_cfg, remat=remat))
+
+
+def extra_inputs(cfg, batch: int, seed: int, step: int, device):
+    """The stub frontends' inputs of one step: whisper's ``frames`` or
+    paligemma's ``prefix_embeds``, standard normal fp32 from a CPU
+    ``torch.Generator`` seeded from (seed, step); {} for the token-only
+    families."""
+    if cfg.family == "encdec":
+        name, rows = "frames", cfg.encoder_seq
+    elif cfg.family == "vlm":
+        name, rows = "prefix_embeds", cfg.n_prefix_tokens
+    else:
+        return {}
+    gen = torch.Generator().manual_seed(seed * 2 ** 32 + step)
+    return {name: torch.randn((batch, rows, cfg.d_model),
+                              generator=gen).to(device)}
 
 
 def main(argv=None, remat="none"):
@@ -60,6 +89,9 @@ def main(argv=None, remat="none"):
     p.add_argument("--pliant", action="store_true",
                    help="enable the Pliant runtime with a synthetic "
                         "contention trace on the token-serve service")
+    p.add_argument("--ckpt-dir", default="")
+    p.add_argument("--ckpt-period", type=int, default=50)
+    p.add_argument("--resume", action="store_true")
     p.add_argument("--decision-interval", type=float, default=0.5)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda")
@@ -67,7 +99,7 @@ def main(argv=None, remat="none"):
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
-    params = init_lm(cfg, args.seed, torch.float32, device)
+    params = api.init(cfg, args.seed, torch.float32, device)
     opt = optim.init_opt(params)
     opt_cfg = optim.OptConfig(lr=args.lr, warmup=20, total_steps=args.steps)
 
@@ -84,17 +116,30 @@ def main(argv=None, remat="none"):
     data_cfg = DataConfig(cfg.vocab_size, args.seq, args.batch,
                           seed=args.seed)
     source = SyntheticLM(data_cfg)
-    prefetch = Prefetcher(lambda s: source.batch(s), 0)
+    start_step, mgr = 0, None
+    if args.ckpt_dir:
+        mgr = CheckpointManager(args.ckpt_dir, period=args.ckpt_period,
+                                to_host=lambda st: state_tree(st, cfg))
+        if args.resume:
+            restored, rstep = mgr.restore_latest(state_like((params, opt),
+                                                            cfg))
+            if restored is not None:
+                params, opt = load_state(restored, (params, opt), cfg)
+                del restored
+                start_step = rstep
+                print(f"resumed from step {rstep}")
+    prefetch = Prefetcher(lambda s: source.batch(s), start_step)
 
     losses, step_s, wait_s, variants = [], [], [], []
     svc = SERVICES["token-serve"]
     t0 = time.time()
     try:
-        for i in range(args.steps):
+        for i in range(start_step, args.steps):
             t_step = time.perf_counter()
             _, tokens = next(prefetch)
             wait_s.append(time.perf_counter() - t_step)
-            batch = {"tokens": torch.as_tensor(tokens, device=device)}
+            batch = {"tokens": torch.as_tensor(tokens, device=device),
+                     **extra_inputs(cfg, args.batch, args.seed, i, device)}
             active = runtime.active_variant if args.pliant else 0
             step_fn = table.executable(active)
             params, opt, metrics = step_fn(params, opt, batch)
@@ -104,7 +149,7 @@ def main(argv=None, remat="none"):
             if args.pliant:
                 # synthetic contention trace: mid-run interference burst on
                 # the colocated interactive service
-                phase = i / max(args.steps, 1)
+                phase = (i - start_step) / max(args.steps - start_step, 1)
                 burst = 1.0 if 0.3 < phase < 0.7 else 0.0
                 v = table.variants[runtime.active_variant]
                 interf = burst * (svc.sens_mem * v.pressure.hbm
@@ -114,14 +159,25 @@ def main(argv=None, remat="none"):
                 for x in p99 / 3.2 * np.exp(0.45 * rng.standard_normal(64)):
                     monitor.record(float(x))
                 runtime.maybe_decide()
+            if mgr is not None:
+                mgr.maybe_save((params, opt), i + 1)
             if (i + 1) % 20 == 0:
                 v = names[runtime.active_variant] if args.pliant \
                     else "precise"
                 print(f"step {i+1:5d} loss {np.mean(losses[-20:]):.4f} "
                       f"variant={v} reclaimed={runtime.reclaimed} "
-                      f"({(time.time()-t0) / (i+1):.2f}s/step)")
+                      f"({(time.time()-t0) / (i+1-start_step):.2f}s/step)")
     finally:
         prefetch.close()
+    if mgr is not None:
+        mgr.save_sync((params, opt), args.steps)
+        mgr.wait()
+        print("checkpoints: " + ", ".join(
+            f"step {t['step']} " + (f"restored in {t['restore_s']:.1f}s"
+                                    if "restore_s" in t else
+                                    f"host copy {t['host_s']:.1f}s, write "
+                                    f"{t['write_s']:.1f}s")
+            for t in mgr.timings))
     final = float(np.mean(losses[-10:]))
     print(f"final loss {final:.4f} (first-10 {np.mean(losses[:10]):.4f})")
     if args.pliant:
@@ -131,7 +187,8 @@ def main(argv=None, remat="none"):
     return dict(final_loss=final, losses=losses, step_s=step_s,
                 wait_s=wait_s, variants=variants, names=names, table=table,
                 params=params, opt=opt, runtime=runtime, source=source,
-                cfg=cfg)
+                cfg=cfg, start_step=start_step,
+                ckpt_timings=mgr.timings if mgr is not None else [])
 
 
 if __name__ == "__main__":

@@ -6,7 +6,10 @@ or the paged pool with per-slot Mamba rows, chunked prefill into either)
 and in the full-sequence forward of the training path. A config with
 experts puts an MoE layer (``models/moe.py``, its ``top_k`` from the
 ``topk_override`` knob) in place of the MLP of its ATTN and LOCAL_ATTN
-blocks. Cross-attention blocks are not ported."""
+blocks. A block made with ``cross=True`` (the encoder-decoder's decoder)
+adds a cross-attention sublayer between the self-attention and the MLP,
+over the encoder's output ``enc_out``; the decode step recomputes its K/V
+from ``enc_out`` every step, as the JAX package does."""
 from __future__ import annotations
 
 import torch
@@ -21,7 +24,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import ParamSpec, rms_norm
 
 
-def block_specs(kind: str, cfg: ModelConfig):
+def block_specs(kind: str, cfg: ModelConfig, *, cross: bool = False):
     d = cfg.d_model
     if kind == MAMBA:
         return {"norm": ParamSpec((d,), ("embed",), init="ones"),
@@ -31,6 +34,9 @@ def block_specs(kind: str, cfg: ModelConfig):
     s = {"norm_attn": ParamSpec((d,), ("embed",), init="ones"),
          "attn": attn_mod.attn_specs(cfg),
          "norm_mlp": ParamSpec((d,), ("embed",), init="ones")}
+    if cross:
+        s["norm_cross"] = ParamSpec((d,), ("embed",), init="ones")
+        s["cross"] = attn_mod.attn_specs(cfg)
     if cfg.moe is not None and kind in (ATTN, LOCAL_ATTN):
         s["moe"] = moe_mod.moe_specs(cfg)
     else:
@@ -47,14 +53,23 @@ def ffn(params, hn, cfg: ModelConfig, knobs: ApproxKnobs):
     return mlp_mod.mlp(params.mlp, hn, precision=knobs.matmul_precision), None
 
 
+def cross_attention(params, h, enc_out, cfg: ModelConfig):
+    """The cross sublayer's residual term: attention from h (B,S,D) over
+    ``enc_out`` (B,F,D), no mask and no RoPE."""
+    return attn_mod.attention(params.cross,
+                              rms_norm(h, params.norm_cross, cfg.norm_eps),
+                              None, cfg, mode="cross", kv_x=enc_out)
+
+
 def block_forward(kind: str, params, h, positions, cfg: ModelConfig,
-                  knobs: ApproxKnobs = PRECISE, *, causal: bool = True):
+                  knobs: ApproxKnobs = PRECISE, *, causal: bool = True,
+                  enc_out=None):
     """Full-sequence block (the training forward). h: (B,S,D); positions:
     (B,S). Returns (h, aux_loss). An attention block runs its attention in
     ``window`` mode for LOCAL_ATTN, else ``causal`` (``full`` when
-    ``causal`` is False), with the ``kv_keep_stride`` knob, then the MLP at
-    the knob's matmul precision (or the MoE layer, whose load-balancing
-    loss is the aux)."""
+    ``causal`` is False), with the ``kv_keep_stride`` knob, then, given
+    ``enc_out``, the cross sublayer, then the MLP at the knob's matmul
+    precision (or the MoE layer, whose load-balancing loss is the aux)."""
     if kind == MAMBA:
         y = mamba_mod.mamba_mixer(params.mixer,
                                   rms_norm(h, params.norm, cfg.norm_eps),
@@ -65,6 +80,8 @@ def block_forward(kind: str, params, h, positions, cfg: ModelConfig,
     h = h + attn_mod.attention(
         params.attn, rms_norm(h, params.norm_attn, cfg.norm_eps), positions,
         cfg, mode=mode, kv_keep_stride=knobs.kv_keep_stride)
+    if enc_out is not None:
+        h = h + cross_attention(params, h, enc_out, cfg)
     y, aux = ffn(params, rms_norm(h, params.norm_mlp, cfg.norm_eps), cfg,
                  knobs)
     if aux is None:
@@ -122,7 +139,7 @@ def block_prefill_paged(kind: str, params, h, positions, cache,
 
 
 def block_decode(kind: str, params, h, position, cache, cfg: ModelConfig,
-                 knobs: ApproxKnobs = PRECISE, *, active=None):
+                 knobs: ApproxKnobs = PRECISE, *, active=None, enc_out=None):
     """Single-token decode on a ``PagedKVCache``, a dense ``KVCache`` ring
     or a ``MambaCache``, chosen by the kind and the cache's type. Returns
     (h, cache), the cache updated in place.
@@ -132,7 +149,8 @@ def block_decode(kind: str, params, h, position, cache, cfg: ModelConfig,
     a row with ``active=False`` every page and Mamba row the row owns
     comes back bit-identical, because its page write is redirected to the
     never-read null page and its Mamba update is where-masked. A dense
-    ring takes no mask: every row writes at the shared cursor."""
+    ring takes no mask: every row writes at the shared cursor. Given
+    ``enc_out`` the cross sublayer follows the self-attention."""
     if kind == MAMBA:
         y, cache = mamba_mod.mamba_decode(
             params.mixer, rms_norm(h, params.norm, cfg.norm_eps), cache,
@@ -149,5 +167,7 @@ def block_decode(kind: str, params, h, position, cache, cfg: ModelConfig,
             params.attn, hn, position, cache, cfg, window=window,
             kv_scale=kv_scale)
     h = h + y
+    if enc_out is not None:
+        h = h + cross_attention(params, h, enc_out, cfg)
     y, _ = ffn(params, rms_norm(h, params.norm_mlp, cfg.norm_eps), cfg, knobs)
     return h + y, cache

@@ -26,10 +26,12 @@ group ``g`` of cache ``j`` in place.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.approx.knobs import PRECISE, ApproxKnobs, keep_groups
 from repro_torch.configs.base import (ATTN, LOCAL_ATTN, MAMBA, SHARED_ATTN,
@@ -89,36 +91,102 @@ def logits_fn(params, h, cfg: ModelConfig):
 
 # ---------------------------------------------------------------- training --
 
-def forward_hidden(params, tokens, cfg: ModelConfig,
-                   knobs: ApproxKnobs = PRECISE, *, remat: str = "full"):
-    """tokens: (B, S) -> (h (B,S,D) final-normed, aux loss). Every block
-    sees the positions ``arange(S)``.
+def near_sqrt_factors(g: int):
+    """(no, ni) with no*ni == g, no as close to sqrt(g) as possible."""
+    best = (1, g)
+    for no in range(2, int(g ** 0.5) + 1):
+        if g % no == 0:
+            best = (no, g // no)
+    return best
 
-    The ``layer_skip`` knob runs only ``keep_groups``' layer groups.
-    ``remat``: "none" keeps every activation; "full" recomputes each layer
-    group in the backward (``torch.utils.checkpoint`` per group)."""
-    if remat not in ("none", "full"):
-        raise ValueError(f"forward_hidden: remat must be none | full, "
-                         f"got {remat!r}")
+
+# the 2-D matmuls' ops: what ``checkpoint_dots_with_no_batch_dims`` saves
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    if op in _DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_save_dots)
+
+
+REMATS = ("none", "full", "2level", "dots")
+
+
+def remat_loop(body, carry: tuple, items, remat: str) -> tuple:
+    """``carry = body(*carry, item)`` for each of ``items`` under a remat
+    policy (``torch.utils.checkpoint`` in place of ``jax.checkpoint``):
+
+    - "none" keeps every activation;
+    - "full" recomputes each item's body in the backward;
+    - "2level" nests checkpoints over ``near_sqrt_factors(len(items))``:
+      ``no`` outer checkpoints of ``ni`` inner ones each, so the backward
+      keeps ~no + ni carries instead of len(items); a prime count falls
+      back to "full";
+    - "dots" saves the 2-D matmuls' outputs (``aten.mm`` / ``aten.addmm``,
+      the projections: ``checkpoint_dots_with_no_batch_dims``) and
+      recomputes the rest of each body."""
+    if remat not in REMATS:
+        raise ValueError(f"remat must be one of {REMATS}, got {remat!r}")
+
+    def ckpt(fn, carry, **kw):
+        return checkpoint(fn, *carry, use_reentrant=False, **kw)
+
+    if remat == "2level":
+        no, ni = near_sqrt_factors(len(items))
+        if no > 1:
+            def outer(*c, chunk):
+                for it in chunk:
+                    c = ckpt(functools.partial(body, item=it), c)
+                return c
+            for o in range(no):
+                carry = ckpt(functools.partial(
+                    outer, chunk=items[o * ni:(o + 1) * ni]), carry)
+            return carry
+        remat = "full"
+    for it in items:
+        fn = functools.partial(body, item=it)
+        if remat == "none":
+            carry = fn(*carry)
+        elif remat == "full":
+            carry = ckpt(fn, carry)
+        else:
+            carry = ckpt(fn, carry, context_fn=_dots_context)
+    return carry
+
+
+def forward_hidden(params, tokens, cfg: ModelConfig,
+                   knobs: ApproxKnobs = PRECISE, *, prefix_embeds=None,
+                   remat: str = "full"):
+    """tokens: (B, S_text) -> (h (B,S,D) final-normed, aux loss).
+
+    ``prefix_embeds`` (B, P, D), the vlm's stub patch embeddings, are cast
+    to the embeddings' dtype and prepended, so S = P + S_text; every block
+    sees the positions ``arange(S)``. The ``layer_skip`` knob runs only
+    ``keep_groups``' layer groups, each under the ``remat`` policy of
+    ``remat_loop``."""
     h = params.embed[tokens]
+    if prefix_embeds is not None:
+        h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    B, S = tokens.shape
+    B, S = h.shape[:2]
     positions = torch.arange(S, device=h.device).expand(B, S)
     period = len(cfg.pattern)
 
-    def group_body(h, aux, g):
+    def group_body(h, aux, item):
         for j, kind in enumerate(cfg.pattern):
             h, a = block_forward(kind,
-                                 layer_params(params, cfg, g * period + j),
+                                 layer_params(params, cfg, item * period + j),
                                  h, positions, cfg, knobs)
             aux = aux + a
         return h, aux
 
-    for g in keep_groups(cfg.n_groups, knobs.layer_skip):
-        if remat == "full":
-            h, aux = checkpoint(group_body, h, aux, g, use_reentrant=False)
-        else:
-            h, aux = group_body(h, aux, g)
+    h, aux = remat_loop(group_body, (h, aux),
+                        keep_groups(cfg.n_groups, knobs.layer_skip), remat)
     return rms_norm(h, params.final_norm, cfg.norm_eps), aux
 
 
@@ -160,14 +228,22 @@ def chunked_xent(params, h, labels, mask, cfg: ModelConfig, *,
 
 def lm_loss(params, batch, cfg: ModelConfig, knobs: ApproxKnobs = PRECISE, *,
             remat: str = "full", aux_coef: float = 0.01):
-    """batch: {"tokens": (B,S+1) int}. The ``token_drop`` knob (batch
-    perforation) keeps the first ``b_keep`` rows. Returns (loss, metrics)."""
+    """batch: {"tokens": (B,S+1) int, optional "prefix_embeds" (B,P,D)}.
+    The ``token_drop`` knob (batch perforation) keeps the first ``b_keep``
+    rows of both. The prefix positions predict nothing: text position i
+    predicts label i. Returns (loss, metrics)."""
     tokens = batch["tokens"]
+    prefix = batch.get("prefix_embeds")
     if knobs.token_drop > 0:
         b_keep = max(1, int(tokens.shape[0] * (1.0 - knobs.token_drop)))
         tokens = tokens[:b_keep]
+        if prefix is not None:
+            prefix = prefix[:b_keep]
     inputs, labels = tokens[:, :-1], tokens[:, 1:]
-    h, aux = forward_hidden(params, inputs, cfg, knobs, remat=remat)
+    h, aux = forward_hidden(params, inputs, cfg, knobs, prefix_embeds=prefix,
+                            remat=remat)
+    if prefix is not None:
+        h = h[:, prefix.shape[1]:]
     mask = torch.ones(labels.shape, dtype=torch.float32, device=h.device)
     loss = chunked_xent(params, h, labels, mask, cfg)
     return loss + aux_coef * aux, {"ce": loss, "aux": aux}

@@ -65,8 +65,9 @@ def adamw_update(grads: Dict[str, torch.Tensor], opt: OptState, params,
 
     Weight decay applies to the leaves that are at least 2-D in the JAX
     package's tree, where every layer's leaf is stacked over the layer
-    groups: so a layer's 1-D leaves (norm scales, ``a_log``, ``dt_bias``,
-    ``d_skip``) decay too, and only ``final_norm`` does not."""
+    groups (an encoder-decoder's over its encoder and decoder layers): so
+    a layer's 1-D leaves (norm scales, ``a_log``, ``dt_bias``, ``d_skip``)
+    decay too, and only ``final_norm`` (and ``enc_norm``) do not."""
     named = dict(params.named_parameters())
     gnorm = global_norm(grads.values())
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
@@ -81,7 +82,7 @@ def adamw_update(grads: Dict[str, torch.Tensor], opt: OptState, params,
         m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
         v.copy_(cfg.b2 * v + (1 - cfg.b2) * g.square())
         update = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
-        stacked = k.startswith("layers.")
+        stacked = k.startswith(("layers.", "enc.", "dec."))
         decay = cfg.weight_decay if p.ndim + stacked >= 2 else 0.0
         pf = p.float()
         p.copy_((pf - lr * (update + decay * pf)).to(p.dtype))

@@ -210,9 +210,28 @@ def test_stacked_weight_cache_one_miss_then_hits():
 
 
 def test_batched_int8_has_no_backward():
+    """The experts' batched product used to raise under autograd; it now
+    has a backward (``ops._QuantizedMatmul`` on a stack): the forward
+    equals the serving path bit for bit, and the gradients equal, expert
+    by expert, those of the 2-D product, zero pattern included.
+    ``test_torch_models_smoke.py`` holds them to ``jax.grad`` of the
+    vmapped JAX reference."""
     tx, tw, _, _ = _stack(3, 4, 16, 8, torch.float32, seed=4)
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        ops.quantized_matmul(tx.requires_grad_(), tw)
+    g = torch.randn((3, 4, 8), generator=torch.Generator().manual_seed(4))
+    x, w = tx.clone().requires_grad_(), tw.clone().requires_grad_()
+    y = ops.quantized_matmul(x, w)
+    with torch.no_grad():
+        assert torch.equal(y, ops.quantized_matmul(tx, tw))
+    gx, gw = torch.autograd.grad((y * g).sum(), (x, w))
+    for e in range(3):
+        xe, we = tx[e].clone().requires_grad_(), tw[e].clone().requires_grad_()
+        ye = ops.quantized_matmul(xe, we)
+        assert torch.equal(ye.detach(), y[e].detach())
+        gxe, gwe = torch.autograd.grad((ye * g[e]).sum(), (xe, we))
+        for a, b in ((gx[e], gxe), (gw[e], gwe)):
+            assert torch.equal(a != 0, b != 0)
+            torch.testing.assert_close(a, b, rtol=0,
+                                       atol=1e-6 * float(b.abs().max()))
 
 
 def test_params_roundtrip_moe_subtree():

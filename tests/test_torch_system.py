@@ -6,7 +6,7 @@ bounded. The bounds are the JAX tests' own, held on the port's run.
 
 Each run starts from the JAX package's weights (``repro.models.api.init``,
 converted by ``repro_torch.convert``; the port's driver gets them through
-its ``init_lm``), and its first ten losses are held to the JAX run's on the
+``api.init``), and its first ten losses are held to the JAX run's on the
 same batches within 1e-5 relative (fp32 sums in other orders, ten AdamW
 steps). Before the burst (30% into the run) both runs are precise, so the
 first ten steps do not depend on the decision clock. The int8 rung's
@@ -77,7 +77,7 @@ def _jax_main(monkeypatch, argv):
 def _port_main(monkeypatch, argv):
     """The port's driver on ``argv`` from the JAX package's weights:
     (result, stdout)."""
-    monkeypatch.setattr(t_train, "init_lm",
+    monkeypatch.setattr(t_train.api, "init",
                         lambda cfg, seed, dtype, device:
                         _converted(cfg.name, seed))
     buf = io.StringIO()
