@@ -299,6 +299,34 @@ Phases, each reported on its own line:
              "simple" flash launch a layer); device memory before, at
              peak and after each run.
 
+14. serve-elastic  (run after serve-ring) elastic serving with the paged
+             decode sharded by slot affinity: ``paged_attention`` as the
+             sharded decode launches it at the cell's shape (8 slots of
+             512-2048 tokens in a 4-shard pool of 3,080 pages of 16, bf16
+             and int8 K/V): one launch a shard (2 slots, the shard's pages
+             as a view, the block table rebased, the whole pool's page
+             split) bit-equal to one whole-pool launch, both timed beside
+             the plain version and the bound; then
+             ``repro_torch.launch.serve --paged --mesh 4x2 --chaos
+             "revoke@6+2:2,restore@30"`` on phi4-mini-3.8b at full width
+             cut to 8 of its 32 layers (bf16, random weights, 8 slots,
+             max_len 4096, page 16, chunk 512, 8 requests of 512-2048
+             prompt and 24 new tokens, a 1 ms target so the runtime walks
+             to the int8 rungs), launch counters zeroed just before and
+             read just after: the mesh shrinks to 2x2 at step 8 with
+             admissions and decodes in flight and grows back at step 30,
+             every request done, none rejected, 2 re-homes, the pool
+             consistent, decode through one launch a shard and never the
+             gather path; each re-home's mesh, pages migrated, cutover and
+             recovery; the same weights and prompts on precise and
+             int8+kvq8, per step and under the megastep (K 8), unfaulted
+             and faulted (a megastep run, ~20 rounds, restores at two
+             thirds of its unfaulted rounds), the bf16 streams equal and
+             the first index where they differ; the sharded decode step
+             beside the single-device engine's; and, as the witness, the
+             same at 4 layers in fp32: the faulted run's tokens equal the
+             unfaulted run's and the single-device engine's.
+
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``. Any
 failure raises: the script then exits non-zero without the result line, as
@@ -2678,6 +2706,10 @@ RING_LOGIT_TOL = 0.5
 # CUDA cores (H100 80GB HBM3, 700 W), printed beside each run
 RING_CELL_BEFORE = {"precise": dict(chunk_ms=526.5, wall=20.40, same=4),
                     "int8+kvq8": dict(chunk_ms=522.5, wall=20.24, same=2)}
+# the ring engine's decode step (ms) while its decode ran single-device,
+# one paged_attention launch a layer over the 4 slots (H100 80GB HBM3,
+# 700 W), printed beside the sharded decode's (one launch a shard)
+RING_DECODE_BEFORE = {"precise": 53.792, "int8+kvq8": 77.206}
 
 
 def ring_cell(device, rungs=("precise", "int8+kvq8")):
@@ -2723,6 +2755,8 @@ def ring_cell(device, rungs=("precise", "int8+kvq8")):
                               mesh=m)
             eng.request_variant(rung)
             assert eng.sharded_prefill == (m is not None)
+            # decode: one paged_attention launch a slot-affinity shard
+            assert eng.sharded_kernel == (m is not None)
             reqs = [Request(i, prompt=p, max_new=16)
                     for i, p in enumerate(prompts)]
             for r in reqs:
@@ -2796,9 +2830,14 @@ def ring_cell(device, rungs=("precise", "int8+kvq8")):
         for path in ("ring", "single"):
             dec = res[path]["decode"]
             pr = dec.profile
+            sharded = (f" (sharded: {RING_N} launches a layer; "
+                       "single-device decode before: "
+                       f"{RING_DECODE_BEFORE[name]} ms)"
+                       if path == "ring" else "")
             print(f"ring cell {name} {path}: decode step {dec.mean_ms():.3f} "
-                  f"ms (mean of {len(dec.steps)}, the card synchronised "
-                  f"around each); profiled step, all 4 slots decoding: wall "
+                  f"ms{sharded} (mean of {len(dec.steps)}, the card "
+                  f"synchronised around each); profiled step, all 4 slots "
+                  f"decoding: wall "
                   f"{pr['wall_ms']:.3f} ms, device busy {pr['busy_ms']:.3f} "
                   f"ms, paged_attention {pr['match_ms']:.3f} ms "
                   f"({pr['match_ms'] / pr['busy_ms']:.3f} of busy)")
@@ -2824,6 +2863,439 @@ def ring_cell(device, rungs=("precise", "int8+kvq8")):
     drop_int8_weights()
     torch.cuda.empty_cache()
     return report, total
+
+
+# ---------------------------------------------------------- serve-elastic --
+
+# Elastic serving: phi4-mini-3.8b at full width (d_model 3072, 24 heads, 8
+# KV heads of 128, vocab 200064), cut to 8 of its 32 layers, random bf16
+# weights from seed 0, under mesh 4x2 (4 slot-affinity shards over
+# "data", KV heads over "model" in the plan; every position the one card);
+# 8 slots, max_len 4096, page 16, chunk 512; 8 greedy requests of 512-2048
+# prompt tokens, 24 new each; the capacity script revokes 2 positions with
+# a 2-step grace at step 6 (cutover at step 8, admissions and decodes in
+# flight: the mesh shrinks to 2x2, 2 shards) and restores them at step 30.
+ELASTIC_ARCH = "phi4-mini-3.8b"
+ELASTIC_LAYERS = 8
+ELASTIC_WITNESS_LAYERS = 4        # the fp32 witness's depth
+ELASTIC_MESH = (4, 2)
+ELASTIC_SLOTS = 8
+ELASTIC_CTX = 4096
+ELASTIC_PAGE = 16
+ELASTIC_CHUNK = 512
+ELASTIC_PROMPTS = (512, 2048)
+ELASTIC_NEW = 24
+ELASTIC_SCRIPT = "revoke@6+2:2,restore@30"
+ELASTIC_KEY_RMS = 3.0           # the kernel check's keys: sharp scores
+
+
+def elastic_script(rounds):
+    """``ELASTIC_SCRIPT`` for a run whose unfaulted twin took ``rounds``
+    engine steps: as it is when the restore lands with decodes in flight,
+    else the restore moved to two thirds of the run (a megastep run ends
+    in ~20 rounds: K falls to 1 while prompts admit, then 8 tokens a
+    round)."""
+    if rounds > 34:
+        return ELASTIC_SCRIPT
+    return f"revoke@6+2:2,restore@{2 * rounds // 3}"
+
+
+def elastic_argv(device, chaos=ELASTIC_SCRIPT, mesh=ELASTIC_MESH):
+    """``launch/serve.py``'s command line of the cell (the QoS target tight
+    enough that the runtime walks to the int8 rungs)."""
+    argv = ["--arch", ELASTIC_ARCH, "--paged", "--dtype", "bf16",
+            "--device", str(device), "--slots", str(ELASTIC_SLOTS),
+            "--max-len", str(ELASTIC_CTX), "--page-size", str(ELASTIC_PAGE),
+            "--prefill-chunk", str(ELASTIC_CHUNK), "--requests", "8",
+            "--prompt-len", str(ELASTIC_PROMPTS[0]),
+            "--prompt-len-max", str(ELASTIC_PROMPTS[1]),
+            "--max-new", str(ELASTIC_NEW), "--qos-target", "0.001",
+            "--decision-interval", "0", "--min-samples", "4"]
+    if mesh:
+        argv += ["--mesh", "x".join(map(str, mesh))]
+    return argv + (["--chaos", chaos] if chaos else [])
+
+
+def elastic_pool(lengths, device, int8, seed=0):
+    """The cell's pool in its slot-affinity layout (``PagePool`` over
+    ``spec_for(8, 4096, 16, n_shards=4)``: 3,080 pages, 770 a shard): slot
+    ``s`` holds ``lengths[s]`` tokens plus its reserved decode pages on its
+    own shard, the decode query at position ``lengths[s]``. Keys of rms
+    ``ELASTIC_KEY_RMS`` make the scores sharp, so each output is a mix of a
+    few V rows, of size ~1, and a page dropped or read twice moves it by
+    about as much; every page that holds no running entry (null pages,
+    reserved decode pages, free pages) is filled with K 1e3 and V -1e3,
+    which must not matter. Returns (q, kp, vp, ppos, block, position,
+    n_shards)."""
+    import numpy as np
+    import torch
+    from repro_torch.models.attention import quantize_kv
+    from repro_torch.serve import pages
+    n_sh = ELASTIC_MESH[0]
+    spec = pages.spec_for(ELASTIC_SLOTS, ELASTIC_CTX, ELASTIC_PAGE,
+                          n_shards=n_sh)
+    pool = pages.PagePool(spec, ELASTIC_SLOTS)
+    for s, L in enumerate(lengths):
+        assert pool.admit(s, list(range(1, L + 1)), "t",
+                          reserve_tokens=ELASTIC_NEW) is not None
+    pool.assert_consistent()
+    P, G, hd = ELASTIC_PAGE, 8, 128
+    ppos = np.full((spec.n_pages, P), -1, np.int32)
+    for s, L in enumerate(lengths):
+        for lp, pid in enumerate(pool.slot_pages[s]):
+            top = min(L + 1, (lp + 1) * P)
+            ppos[pid, : max(top - lp * P, 0)] = np.arange(lp * P, top)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    kp = torch.randn((spec.n_pages, P, G, hd), generator=g) * ELASTIC_KEY_RMS
+    vp = torch.randn((spec.n_pages, P, G, hd), generator=g)
+    idle = torch.from_numpy((ppos < 0).all(axis=1))
+    kp[idle], vp[idle] = 1e3, -1e3
+    if int8:
+        kp, vp = quantize_kv(kp.clamp(-6, 6)), quantize_kv(vp.clamp(-6, 6))
+    else:
+        kp, vp = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
+    q = torch.randn((ELASTIC_SLOTS, G, 3, hd), generator=g).to(
+        torch.bfloat16)
+    return [t.to(device) for t in (
+        q, kp, vp, torch.tensor(ppos), torch.tensor(pool.blocks),
+        torch.tensor(lengths, dtype=torch.int32))] + [n_sh]
+
+
+def check_paged_sharded(device, lengths, iters=20):
+    """``paged_attention`` as the sharded decode launches it at the cell's
+    shape (``paged_attention_sharded``: one launch per slot-affinity shard,
+    2 slots, the shard's 770 pages as a view, the block table rebased, the
+    page split of the whole pool's batch) against one launch over the
+    whole pool: bit for bit, in bf16 and with int8 K/V; the whole launch
+    against the plain version, scaled to the outputs' size: every element
+    within one bf16 step of the largest output (2^-7 max|plain|), and the
+    error's norm within 2^-7 of the plain output's. Timed: the 4 launches,
+    the whole launch, the plain version, beside the bound (the live pages'
+    bytes)."""
+    import torch
+    from repro_torch.kernels import paged_attention as mod
+    from repro_torch.models.attention import KV_SCALE
+    rows = []
+    for int8 in (False, True):
+        q, kp, vp, ppos, block, pos, n_sh = elastic_pool(lengths, device,
+                                                         int8)
+        B, G, R, hd = q.shape
+        n_pages, P = ppos.shape
+        M = block.shape[1]
+        chunk = n_pages // n_sh
+        pps = mod.device_page_splits(device, B, G, M)
+        kv = dict(kv_scale=KV_SCALE if int8 else 0.0)
+
+        def shards():
+            return mod.paged_attention_sharded(q, kp, vp, ppos, block, pos,
+                                               n_sh, **kv)
+
+        def whole():
+            return mod.paged_attention(q, kp, vp, ppos, block, pos,
+                                       pages_per_range=pps, **kv)
+        before = mod.launches
+        out = shards()
+        assert mod.launches - before == n_sh, (mod.launches, before)
+        ref = whole()
+        assert torch.equal(out, ref), ("sharded != whole", int8,
+                                       max_err(out, ref))
+        plain = mod.paged_attention_plain(q, kp, vp, ppos, block, pos, **kv)
+        err = max_err(ref, plain)
+        scale = float(plain.float().abs().max())
+        rel = float((ref.float() - plain.float()).norm()
+                    / plain.float().norm())
+        tol = 2 ** -7 * scale
+        assert 0.5 < scale < 100 and err <= tol and rel <= 2 ** -7, \
+            (int8, err, tol, rel)
+        ms_sh = timed(shards, device, iters)
+        ms = timed(whole, device, iters)
+        plain_ms = timed(lambda: mod.paged_attention_plain(
+            q, kp, vp, ppos, block, pos, **kv), device, 3)
+        live, tokens = paged_live_pages(block, pos, P, 0)
+        esize = kp.element_size()
+        nbytes = mod.decode_hbm_bytes(live, P, G, hd, kv_bytes=esize,
+                                      batch=B, n_heads=G * R, q_bytes=2,
+                                      max_pages=M)
+        shard_bytes = mod.sharded_decode_hbm_bytes(
+            live, P, G, hd, n_shards=n_sh, kv_bytes=esize, batch=B,
+            n_heads=G * R, q_bytes=2, max_pages=M)
+        t_b, t_o = nbytes / HBM_BW, 4.0 * tokens * G * R * hd / BF16_FLOPS
+        bound, by = 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o
+                                          else "operations")
+        name = "elastic-int8" if int8 else "elastic-bf16"
+        rows.append(dict(name=name, ms=ms_sh, whole_ms=ms, plain_ms=plain_ms,
+                         library_ms=None, bound_ms=bound, bound_by=by,
+                         max_abs_err=err, tol=tol, rel_err=rel,
+                         max_abs_plain=scale, live_pages=live,
+                         pages_a_range=pps, shards=n_sh))
+        print(f"paged_attention {name}: q {tuple(q.shape)}, pool "
+              f"({n_pages}, {P}, {G}, {hd}) {kp.dtype}, M {M}, {live} live "
+              f"pages; {n_sh} shard launches (2 slots, {chunk} pages each) "
+              f"bit-equal to the whole-pool launch; ms {ms_sh:.4f} for the "
+              f"{n_sh} (whole {ms:.4f}), plain_ms {plain_ms:.4f}, "
+              f"library_ms null, bound_ms {bound:.5f} ({by}; a shard's "
+              f"{shard_bytes / 1e6:.2f} MB, {1e3 * shard_bytes / HBM_BW:.5f}"
+              f" ms), max_abs_err vs plain {err:.3g} (tol {tol:.3g} = 2^-7 "
+              f"x max|plain| {scale:.3g}), error norm / plain norm "
+              f"{rel:.3g} (tol {2 ** -7:.3g}), {pps} pages a range")
+    return rows
+
+
+def elastic_engine(cfg, params, table, device, rung, *, mesh=True, k=0,
+                   dtype=None):
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serve.engine import ServeEngine
+    eng = ServeEngine(cfg, batch_slots=ELASTIC_SLOTS, max_len=ELASTIC_CTX,
+                      params=params, table=table,
+                      prefill_chunk=ELASTIC_CHUNK, paged=True,
+                      page_size=ELASTIC_PAGE,
+                      cache_dtype=dtype or torch.bfloat16, device=device,
+                      megastep_k=k,
+                      mesh=(make_mesh(ELASTIC_MESH, ("data", "model"),
+                                      device) if mesh else None))
+    eng.request_variant(rung)
+    assert eng.sharded_kernel == mesh
+    return eng
+
+
+def elastic_run(eng, prompts, script, trace=False):
+    """The driver loop of ``launch/serve.py`` on ``eng`` (the injector
+    polled each step), every prompt at t=0. Returns (streams, wall s, the
+    ``DecodeTrace`` or None, launches, ``paged_attention`` launches a
+    sharded layer call, engine steps)."""
+    import torch
+    from repro_torch.dist.elastic import FaultInjector
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.serve.engine import Request
+    reqs = [Request(i, prompt=list(p), max_new=ELASTIC_NEW)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    inj = FaultInjector.parse(script) if script else None
+    torch.cuda.synchronize()
+    reset_launches()
+    attn_mod.DISPATCH_COUNTS.clear()
+    steps = 0
+    t0 = time.perf_counter()
+    with (DecodeTrace(eng) if trace else contextlib.nullcontext()) as dec:
+        while not eng.idle:
+            if inj is not None:
+                for ev in inj.due(steps):
+                    eng.inject(ev)
+            eng.step()
+            steps += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    counts = dict(attn_mod.DISPATCH_COUNTS)
+    check_elastic(eng, reqs, script, counts)
+    per_call = (launches["paged_attention"]
+                / max(counts.get("kernel_sharded", 0), 1))
+    return [r.out for r in reqs], wall, dec, launches, per_call, steps
+
+
+def check_elastic(eng, reqs, script, counts):
+    """The phase's gates: every request done and none rejected, exactly 2
+    re-homes under the script (none without), the pool consistent, the
+    megastep pipeline empty, decode through the sharded path only (on a
+    mesh)."""
+    vocab = eng.cfg.vocab_size
+    assert all(r.done and len(r.out) == ELASTIC_NEW for r in reqs), \
+        [(r.uid, r.done, len(r.out)) for r in reqs]
+    assert not eng.rejected and all(0 <= t < vocab for r in reqs
+                                    for t in r.out)
+    assert eng.stats["rehomes"] == (2 if script else 0), eng.elastic_log
+    eng.pool.assert_consistent()
+    assert eng._inflight is None and eng._carry is None
+    if eng._base_mesh is not None:
+        assert counts.get("kernel_sharded", 0) > 0 and \
+            counts.get("gather_mesh", 0) == 0, counts
+
+
+def rehome_lines(tag, eng):
+    for e in eng.elastic_log:
+        if "mesh_shape" not in e:
+            continue
+        print(f"{tag}: re-home at step {e['step']} ({e['kind']}, revoked "
+              f"{e['revoked']}): mesh -> {e['mesh_shape']} ({e['why']}), "
+              f"shards {e['n_shards'][0]} -> {e['n_shards'][1]}, pages "
+              f"migrated {e['pages_migrated']}, cutover_s "
+              f"{e['cutover_s']:.4f}, recovery_steps {e['recovery_steps']}, "
+              f"recovery_s {e.get('recovery_s', float('nan')):.4f}, graph "
+              f"capture_s {e.get('capture_s', 0.0):.4f}")
+
+
+def first_diff(a, b):
+    """(streams equal, first differing token index of each pair)."""
+    same, where = 0, []
+    for x, y in zip(a, b):
+        same += x == y
+        where.append(next((i for i, (s, t) in enumerate(zip(x, y))
+                           if s != t), None))
+    return same, where
+
+
+def elastic_serve(device):
+    """The main path: ``launch/serve.py --paged --mesh 4x2 --chaos`` on the
+    cut config, launch counters zeroed just before and read just after;
+    the runtime walks to the int8 rungs under the 1 ms target and the
+    capacity pressure."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import attention as attn_mod
+    cfg = dataclasses.replace(get_config(ELASTIC_ARCH),
+                              n_layers=ELASTIC_LAYERS)
+    drop_int8_weights()
+    reset_launches()
+    attn_mod.DISPATCH_COUNTS.clear()
+    res = serve.main(elastic_argv(device), cfg=cfg)
+    launches = read_launches()
+    counts = dict(attn_mod.DISPATCH_COUNTS)
+    eng, reqs = res["engine"], res["requests"]
+    tag = f"serve-elastic {ELASTIC_ARCH} ({ELASTIC_LAYERS} layers)"
+    int8_designs(tag)
+    check_elastic(eng, reqs, ELASTIC_SCRIPT, counts)
+    assert eng.cfg.n_layers == ELASTIC_LAYERS
+    visited = {0} | {v for _, v in eng.swaps}
+    assert launches["paged_attention"] > 0 and launches["ring_hop"] > 0 \
+        and launches["int8_matmul"] > 0 and launches["quantize_rows"] > 0 \
+        and launches["flash_attention"] == launches["ssd_scan"] == 0, \
+        (launches, visited)
+    print(f"{tag}: dispatch {eng.explain_dispatch()}")
+    print(f"{tag}: {res['tokens']} tokens, tok_s {res['tok_s']:.2f}, p50_ms "
+          f"{1e3 * res['p50_s']:.3f}, p99_ms {1e3 * res['p99_s']:.3f}, "
+          f"rungs visited {sorted(visited)}, kernel_sharded layer calls "
+          f"{counts.get('kernel_sharded', 0)}, gather_mesh "
+          f"{counts.get('gather_mesh', 0)}, paged_attention launches "
+          f"{launches['paged_attention']} "
+          f"({launches['paged_attention'] / counts['kernel_sharded']:.3f} "
+          f"a layer call: one a shard, 4 before the cutover, 2 after), "
+          f"launches {launches}")
+    rehome_lines(tag, eng)
+    return res, launches
+
+
+def elastic_runs(res, device):
+    """Rungs precise and int8+kvq8, per step and under the megastep
+    (MEGA_K), each unfaulted and under ``ELASTIC_SCRIPT`` on the main run's
+    weights and prompts; on precise the single-device engine too, its
+    decode step beside the sharded one's."""
+    src = res["engine"]
+    names = res["names"]
+    prompts = [r.prompt for r in res["requests"]]
+    out = {}
+    for rung in ("precise", "int8+kvq8"):
+        for k in (0, MEGA_K):
+            runs, script = {}, ""
+            for faulted in (False, True):
+                drop_int8_weights()
+                eng = elastic_engine(src.cfg, src.params, src.table, device,
+                                     names.index(rung), k=k)
+                streams, wall, dec, launches, per_call, steps = elastic_run(
+                    eng, prompts, script, trace=not k and rung == "precise")
+                tag = (f"serve-elastic {rung} "
+                       + (f"megastep {k}" if k else "per-step")
+                       + (f" faulted ({script})" if script
+                          else " unfaulted"))
+                graphs = (f", graphs captured {len(eng.graph_log)} "
+                          f"({sum(g['capture_s'] for g in eng.graph_log):.3f}"
+                          f" s)" if k else "")
+                print(f"{tag}: wall {wall:.2f} s, {steps} steps, "
+                      f"paged_attention {per_call:.3f} launches a sharded "
+                      f"layer call{graphs}, launches {launches}")
+                rehome_lines(tag, eng)
+                runs[faulted] = streams
+                if dec is not None and not faulted:
+                    out["sharded_decode_ms"] = dec.mean_ms()
+                del eng
+                script = elastic_script(steps)
+            same, where = first_diff(runs[False], runs[True])
+            print(f"serve-elastic {rung} "
+                  + (f"megastep {k}" if k else "per-step")
+                  + f": bf16 faulted vs unfaulted streams equal {same}/8, "
+                  f"first differing index {where} (the ring re-plans from "
+                  f"4 sequence shards to 2 at the cutover)")
+            out[(rung, k)] = same
+    drop_int8_weights()
+    eng = elastic_engine(src.cfg, src.params, src.table, device, 0,
+                         mesh=False)
+    single, wall, dec, _, _, _ = elastic_run(eng, prompts, "", trace=True)
+    del eng
+    out["single_decode_ms"] = dec.mean_ms()
+    print(f"serve-elastic precise: decode step {out['sharded_decode_ms']:.3f}"
+          f" ms sharded (mesh 4x2, 4 launches a layer) vs "
+          f"{out['single_decode_ms']:.3f} ms single device, 8 slots, the "
+          f"card synchronised around each step")
+    return out
+
+
+def elastic_witness(device):
+    """The fp32 witness at ELASTIC_WITNESS_LAYERS layers, same width: the
+    faulted run's greedy tokens equal the unfaulted run's and the
+    single-device engine's, token for token."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serving_table
+    from repro_torch.models.lm import init_lm
+    cfg = dataclasses.replace(get_config(ELASTIC_ARCH),
+                              n_layers=ELASTIC_WITNESS_LAYERS)
+    params = init_lm(cfg, 0, torch.float32, device)
+    table = serving_table(cfg, slots=ELASTIC_SLOTS, max_len=ELASTIC_CTX,
+                          page_occupancy=0.4)
+    rng = np.random.default_rng(0)
+    prompts = [list(map(int, rng.integers(1, cfg.vocab_size, int(n))))
+               for n in rng.integers(ELASTIC_PROMPTS[0],
+                                     ELASTIC_PROMPTS[1] + 1, ELASTIC_SLOTS)]
+    streams, script = {}, ""
+    for name, mesh in (("unfaulted", True), ("faulted", True),
+                       ("single", False)):
+        eng = elastic_engine(cfg, params, table, device, 0, mesh=mesh,
+                             dtype=torch.float32)
+        streams[name], wall, _, _, _, steps = elastic_run(
+            eng, prompts, script if name == "faulted" else "")
+        if name == "faulted":
+            rehome_lines(f"serve-elastic fp32 witness ({script})", eng)
+        script = elastic_script(steps)
+        del eng
+    same = [first_diff(streams["faulted"], streams[o])
+            for o in ("unfaulted", "single")]
+    print(f"serve-elastic fp32 witness ({ELASTIC_WITNESS_LAYERS} layers): "
+          f"faulted vs unfaulted equal {same[0][0]}/8, vs single device "
+          f"{same[1][0]}/8")
+    assert streams["faulted"] == streams["unfaulted"] == streams["single"], \
+        same
+    del params
+    torch.cuda.empty_cache()
+
+
+def elastic_cell(device):
+    """Phase serve-elastic. Returns (the main path's launches, the
+    ``paged_attention`` rows of the sharded check)."""
+    import gc
+
+    import numpy as np
+    import torch
+    secs, t = {}, time.perf_counter()
+    rng = np.random.default_rng(1)
+    lengths = [int(n) for n in rng.integers(ELASTIC_PROMPTS[0],
+                                            ELASTIC_PROMPTS[1] + 1,
+                                            ELASTIC_SLOTS)]
+    rows = check_paged_sharded(device, lengths)
+    secs["kernels"] = round(time.perf_counter() - t, 1)
+    res, launches = elastic_serve(device)
+    secs["serve"] = round(time.perf_counter() - t - sum(secs.values()), 1)
+    elastic_runs(res, device)
+    secs["runs"] = round(time.perf_counter() - t - sum(secs.values()), 1)
+    del res
+    drop_int8_weights()
+    gc.collect()
+    torch.cuda.empty_cache()
+    elastic_witness(device)
+    secs["witness"] = round(time.perf_counter() - t - sum(secs.values()), 1)
+    print(f"serve-elastic seconds: {secs}")
+    return launches, rows
 
 
 # -------------------------------------------------------------- colocate --
@@ -5653,6 +6125,8 @@ def main():
     torch.cuda.empty_cache()
     _, ring_launches = ring_cell(device)
     phase_done("serve-ring")
+    elastic_launches, elastic_rows = elastic_cell(device)
+    phase_done("serve-elastic")
     colo_launches = colocate_cell(device)
     phase_done("colocate")
     dense_launches = dense_cell(device)
@@ -5688,6 +6162,7 @@ def main():
                       "train": train_launches[name],
                       "train-attn": attn_train_launches[name],
                       "serve-ring": ring_launches[name],
+                      "serve-elastic": elastic_launches[name],
                       "colocate": colo_launches[name],
                       "serve-dense": dense_launches[name],
                       "serve-ssm": ssm_launches[name],
@@ -5719,6 +6194,11 @@ def main():
     paged_ring = {"ring_decode_ms": ring_row["ms"],
                   "ring_decode_plain_ms": ring_row["plain_ms"],
                   "ring_decode_bound_ms": ring_row["bound_ms"],
+                  "serve_elastic": [{k: r[k] for k in (
+                      "name", "ms", "whole_ms", "plain_ms", "bound_ms",
+                      "bound_by", "max_abs_err", "tol", "rel_err",
+                      "max_abs_plain", "shards")}
+                      for r in elastic_rows],
                   "serve_ssm": {k: zamba_row[k] for k in (
                       "name", "ms", "plain_ms", "bound_ms", "bound_by",
                       "max_abs_err")}}

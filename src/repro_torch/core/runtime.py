@@ -28,11 +28,7 @@ from repro_torch.core.controller import Action, ControllerConfig
 from repro_torch.core.monitor import LatencyMonitor
 from repro_torch.core.tenant import Tenant, TrainTenant
 from repro_torch.core.variants import VariantTable
-
-# Capacity-event kinds that open / close contention pressure (the JAX
-# package's ``dist.elastic.PRESSURE_ON`` / ``PRESSURE_OFF``, carried inline).
-PRESSURE_ON = ("revoke", "quota_cut")
-PRESSURE_OFF = ("restore", "quota_restore")
+from repro_torch.dist.elastic import PRESSURE_OFF, PRESSURE_ON
 
 
 @dataclass

@@ -204,8 +204,10 @@ class ServeTenant(Tenant):
             self.engine.pool.set_reclaimed(total)
         super()._on_reclaimed(total)     # honor a late-bound actuator too
 
-    # on_capacity stays the base no-op: the port's engine serves one device
-    # and has no elastic re-home, so a capacity event acts as pressure only
+    def on_capacity(self, ev) -> None:
+        # the runtime already recorded the pressure (inject fans out after
+        # notify_capacity): route the actuation only, no double count
+        self.engine.inject(ev, notify_runtime=False)
 
     def pressure(self, t: float = 0.0,
                  variant: Optional[int] = None) -> ResourcePressure:

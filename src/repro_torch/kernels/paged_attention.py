@@ -19,7 +19,11 @@ whole range that holds none that can run exits at once.
 ``paged_attention`` runs the plain version for a CPU tensor and launches the
 kernels for a CUDA tensor, raising on anything else; it never falls back,
 and it never reads the card from the host (no sync: the split comes from
-shapes only).
+shapes only). A caller may fix the pages a range (``pages_per_range``):
+the sharded decode launches once per slot-affinity shard with the split of
+the whole pool's batch (``device_page_splits``), so each slot's ranges, and
+the order its merge sums them in, are those of one whole-pool launch, and
+its output is bit-equal whatever the shard count.
 """
 from __future__ import annotations
 
@@ -66,6 +70,20 @@ def page_splits(B: int, G: int, M: int, n_sm: int) -> int:
                          f">= 1 and M={M} >= 0")
     ranges = -(-SPLIT_BLOCKS_PER_SM * n_sm // (B * G))
     return max(MIN_SPLIT_PAGES, -(-M // ranges))
+
+
+def device_page_splits(device, B: int, G: int, M: int) -> int:
+    """``page_splits`` for a launch of B slots on ``device``'s SMs; 0 for
+    the CPU, whose plain version has no ranges."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return 0
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _N_SM:
+        _N_SM[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return page_splits(B, G, M, _N_SM[idx])
 
 
 def tile_rows(P: int, hd: int, esize: int) -> int:
@@ -127,16 +145,60 @@ def paged_attention_plain(q, kp, vp, ppos, block, position, *,
 
 
 def paged_attention(q, kp, vp, ppos, block, position, *, window: int = 0,
-                    kv_scale: float = 0.0, cap: float = 0.0):
-    """Fused paged decode attention (shapes as ``paged_attention_plain``)."""
+                    kv_scale: float = 0.0, cap: float = 0.0,
+                    pages_per_range: int = 0):
+    """Fused paged decode attention (shapes as ``paged_attention_plain``).
+    ``pages_per_range`` > 0 fixes kernel 1's split of a block-table row
+    (0: ``page_splits`` of this launch's shape); the plain version has no
+    split and ignores it."""
     if q.device.type == "cpu":
         return paged_attention_plain(q, kp, vp, ppos, block, position,
                                      window=window, kv_scale=kv_scale,
                                      cap=cap)
-    return _launch(q, kp, vp, ppos, block, position, window, kv_scale, cap)
+    return _launch(q, kp, vp, ppos, block, position, window, kv_scale, cap,
+                   pages_per_range)
 
 
-def _launch(q, kp, vp, ppos, block, position, window, kv_scale, cap):
+def paged_attention_sharded(q, kp, vp, ppos, block, position, n_shards: int,
+                            *, window: int = 0, kv_scale: float = 0.0,
+                            cap: float = 0.0):
+    """Paged decode attention over a slot-affinity pool, one
+    ``paged_attention`` call per shard (shapes as ``paged_attention_plain``;
+    ``block`` holds global page ids).
+
+    Shard ``s`` owns the rows ``[s * B/n, (s+1) * B/n)`` and the page range
+    ``[s * chunk, (s+1) * chunk)`` (``chunk = n_pages / n``), whose first
+    page is its null page, and every page its rows map lies in its range
+    (``serve.pages``' slot affinity). So its call takes its rows and its
+    pages as views (no copy) and the block table rebased to local ids,
+    ``pid % chunk`` (0 -> the local null page 0, else ``pid - s *
+    chunk``). Each call is what one card's work becomes once the shards
+    spread over cards. Every call fixes the page split of the whole pool's
+    batch (``device_page_splits``), so each slot's ranges and their merge
+    order are a whole-pool launch's and the output is bit-equal to it. On
+    one card the calls run in turn, and each lasts about as long as a
+    whole-pool launch (a launch lasts as long as its longest range). On
+    the CPU each shard runs the plain version."""
+    B, G = q.shape[:2]
+    n_pages = ppos.shape[0]
+    chunk, rows = n_pages // n_shards, B // n_shards
+    if n_pages % n_shards or B % n_shards:
+        raise ValueError(f"paged_attention_sharded: {n_pages} pages and "
+                         f"{B} slots must split over {n_shards} shards")
+    lblock = block % chunk
+    pps = device_page_splits(q.device, B, G, block.shape[1])
+    outs = []
+    for s in range(n_shards):
+        lo, r = s * chunk, slice(s * rows, (s + 1) * rows)
+        outs.append(paged_attention(
+            q[r], kp[lo:lo + chunk], vp[lo:lo + chunk], ppos[lo:lo + chunk],
+            lblock[r], position[r], window=window, kv_scale=kv_scale,
+            cap=cap, pages_per_range=pps))
+    return torch.cat(outs)
+
+
+def _launch(q, kp, vp, ppos, block, position, window, kv_scale, cap,
+            pages_per_range):
     global launches, merge_launches
     dev = q.device
     if dev.type != "cuda":
@@ -166,11 +228,10 @@ def _launch(q, kp, vp, ppos, block, position, window, kv_scale, cap):
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    if idx not in _N_SM:
-        _N_SM[idx] = torch.cuda.get_device_properties(
-            idx).multi_processor_count
-    pps = page_splits(B, G, M, _N_SM[idx])
+    if type(pages_per_range) is not int or pages_per_range < 0:
+        raise ValueError(f"paged_attention: pages_per_range must be an int "
+                         f">= 0, got {pages_per_range!r}")
+    pps = pages_per_range or device_page_splits(dev, B, G, M)
     ns = max(1, -(-M // pps))
     part = torch.empty(B * G * ns * R * (hd + 2), dtype=torch.float32,
                        device=dev)
@@ -219,3 +280,20 @@ def decode_hbm_bytes(live_pages: int, page_size: int, n_kv_heads: int,
     tables = batch * 4 * (max_pages + 1)        # block rows + positions, int32
     return live_pages * page_hbm_bytes(page_size, n_kv_heads, head_dim,
                                        kv_bytes=kv_bytes) + qo + tables
+
+
+def sharded_decode_hbm_bytes(live_pages: int, page_size: int,
+                             n_kv_heads: int, head_dim: int, *,
+                             n_shards: int = 1, kv_bytes: int = 4,
+                             batch: int = 1, n_heads: int = 0,
+                             q_bytes: int = 4, max_pages: int = 0) -> int:
+    """Bytes one shard's launch of the sharded paged decode moves under
+    slot-affinity placement: it runs over only its own slots' block
+    tables, so it streams ceil(live / n_shards) pages for ceil(batch /
+    n_shards) query rows (balanced placement: the pool pins slot s to shard
+    s * n_shards // batch_slots). It scales with live pages a shard, not
+    slots x max_len."""
+    return decode_hbm_bytes(
+        -(-live_pages // n_shards), page_size, n_kv_heads, head_dim,
+        kv_bytes=kv_bytes, batch=-(-batch // n_shards), n_heads=n_heads,
+        q_bytes=q_bytes, max_pages=max_pages)

@@ -1,30 +1,35 @@
 """A device mesh for the port. Counterpart of the JAX package's
 ``launch/mesh.py`` (``make_mesh``) over ``jax.sharding.Mesh``.
 
-A ``Mesh`` names its axes and gives each position a torch device. Its
-``shape`` is an ordered dict of axis name -> size, as
-``jax.sharding.Mesh.shape`` reads, so the plan functions of
-``dist.sharding`` take either mesh. Every position of a mesh here is the
-same device: the ring prefill runs its sequence shards one after another on
-that device, and a rotation of the ring is a re-index of the shard list.
-Spreading positions over several cards (K/V moved between them over NCCL)
-is not ported yet, so a mesh whose positions name different devices raises.
+A ``Mesh`` names its axes and gives each position a torch device and an
+ordinal ``id`` (the counterpart of ``jax.Device.id``; row-major over the
+shape for a fresh mesh). Its ``shape`` is an ordered dict of axis name ->
+size, as ``jax.sharding.Mesh.shape`` reads, so the plan functions of
+``dist.sharding`` take either mesh. A mesh can be built over a subset of
+another mesh's positions (``ids``), which ``dist.elastic.surviving_mesh``
+does after a revocation. Every position of a mesh here is the same device:
+the ring prefill runs its sequence shards one after another on that
+device, and the sharded paged decode one ``paged_attention`` launch per
+slot-affinity shard. Spreading positions over several cards (K/V moved
+between them over NCCL) is not ported yet (ROADMAP queue 1, "Multi-GPU,
+the rest"), so a mesh whose positions name different devices raises.
 """
 from __future__ import annotations
 
 import collections
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
 
 class Mesh:
     """``shape``: one size per name of ``axis_names``; ``devices``: one
-    torch device per position, in row-major order."""
+    torch device per position, in row-major order; ``ids``: each
+    position's ordinal (default ``0 .. n-1``)."""
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
-                 devices: Sequence):
+                 devices: Sequence, ids: Optional[Sequence[int]] = None):
         shape, axis_names = tuple(int(s) for s in shape), tuple(axis_names)
         if len(shape) != len(axis_names):
             raise ValueError(f"mesh shape {shape} and axes {axis_names} "
@@ -32,15 +37,21 @@ class Mesh:
         if len(devices) != math.prod(shape):
             raise ValueError(f"mesh {shape} needs {math.prod(shape)} "
                              f"devices, got {len(devices)}")
+        ids = tuple(range(len(devices))) if ids is None else \
+            tuple(int(i) for i in ids)
+        if len(ids) != len(devices) or len(set(ids)) != len(ids):
+            raise ValueError(f"mesh {shape} needs {len(devices)} distinct "
+                             f"position ids, got {ids}")
         devices = [_indexed(torch.device(d)) for d in devices]
         if len(set(devices)) > 1:
             raise NotImplementedError(
                 f"mesh positions on {sorted(map(str, set(devices)))}: a mesh "
-                "spread over several devices (ring rotation over NCCL) is "
-                "not ported yet (ROADMAP queue 1 item 13); every position "
-                "must be the same device")
+                "spread over several devices (K/V moved over NCCL) is not "
+                "ported yet (ROADMAP queue 1, \"Multi-GPU, the rest\"); "
+                "every position must be the same device")
         self.shape = collections.OrderedDict(zip(axis_names, shape))
         self.devices = devices
+        self.ids = ids
         self.device = devices[0]
 
     def __repr__(self):

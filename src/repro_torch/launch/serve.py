@@ -20,7 +20,18 @@ each megastep before the next dispatch, so token stamps time the compute).
 ``--device cpu`` runs the kernels' plain versions on the CPU. ``--mesh DxM``
 serves under a (data=D, model=M) mesh whose positions are all the one
 device: admission chunks run ring attention over D sequence shards in turn
-(the ``ring_hop`` kernel on the card); decode stays single-device. ``main``
+(the ``ring_hop`` kernel on the card), and the paged engine's decode makes
+one ``paged_attention`` launch a slot-affinity shard when the slots split
+over D. ``--chaos`` scripts capacity events (``dist.elastic``'s grammar,
+polled each step), e.g. a revocation that re-homes the engine onto the
+surviving mesh and a restore that grows it back:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --arch phi4-mini-3.8b-smoke --paged --mesh 4x2 --slots 4 \
+      --requests 8 --max-new 6 --max-len 32 --page-size 4 \
+      --prefill-chunk 3 --prompt-len 7 --chaos "revoke@4+2:2,restore@9"
+
+``main``
 prints the summary lines and returns a dict with the engine, the requests
 and the headline numbers; ``main(argv, cfg=)`` serves ``cfg`` (a config
 cut in depth, say) in place of ``--arch``'s.
@@ -40,6 +51,7 @@ from repro_torch.core.explorer import explore
 from repro_torch.core.monitor import LatencyMonitor
 from repro_torch.core.runtime import PliantRuntime
 from repro_torch.core.variants import VariantTable
+from repro_torch.dist import elastic
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.lm import init_lm
 from repro_torch.serve.engine import Request, ServeEngine
@@ -115,6 +127,10 @@ def main(argv=None, *, cfg: ModelConfig = None):
     p.add_argument("--max-admission-chunks", type=int, default=4)
     p.add_argument("--qos-guard", type=float, default=0.25)
     p.add_argument("--admission-timeout", type=float, default=0.0)
+    p.add_argument("--chaos", default="",
+                   help="capacity-event script for the fault injector, "
+                        "e.g. 'revoke@20+4:2,restore@60' (dist.elastic "
+                        "grammar: kind@step[+grace][:count])")
     p.add_argument("--device", default="cuda")
     p.add_argument("--dtype", default="fp32", choices=sorted(DTYPES),
                    help="params and KV cache dtype")
@@ -162,6 +178,11 @@ def main(argv=None, *, cfg: ModelConfig = None):
     print(f"dispatch: {eng.explain_dispatch()}")
     print(f"dispatch: {eng.explain_prefill_dispatch()}")
     print(f"dispatch: {eng.explain_megastep()}")
+    injector = None
+    if args.chaos:
+        injector = elastic.FaultInjector.parse(args.chaos)
+        print(f"chaos: {injector.pending()} scripted capacity events "
+              f"({args.chaos})")
     if args.variant is not None:
         eng.set_variant(names.index(args.variant))
 
@@ -186,6 +207,11 @@ def main(argv=None, *, cfg: ModelConfig = None):
             reqs[nxt].t_arrival = t0 + arrivals[nxt]
             eng.submit(reqs[nxt])
             nxt += 1
+        if injector is not None:
+            for ev in injector.due(steps):
+                print(f"chaos@{steps}: {ev.kind} count={ev.count} "
+                      f"quanta={ev.quanta} grace={ev.deadline_steps}")
+                eng.inject(ev)
         if eng.idle:
             if nxt < len(reqs):      # open loop: idle until the next arrival
                 time.sleep(min(arrivals[nxt] - now, 0.01))
@@ -253,6 +279,22 @@ def main(argv=None, *, cfg: ModelConfig = None):
         acts = [h["action"] for h in runtime.history if h["action"] != "hold"]
         print(f"qos: target={1e3 * args.qos_target:.1f}ms "
               f"violation_rate={viol:.3f} swaps={eng.swaps} actions={acts}")
+    if args.chaos:
+        s = eng.stats
+        rehomes = [e for e in eng.elastic_log if "mesh_shape" in e]
+        print(f"elastic: events={s['capacity_events']} "
+              f"rehomes={s['rehomes']} "
+              f"collective_retries={s['collective_retries']} "
+              f"recovery_steps={[e['recovery_steps'] for e in rehomes]} "
+              f"rejected={len(eng.rejected)} "
+              f"timeouts={s['admission_timeouts']} "
+              f"backoff_skips={s['backoff_skips']}")
+        for e in rehomes:
+            print(f"  rehome@{e['step']} {e['kind']}: mesh "
+                  f"{e['mesh_shape']} shards {e['n_shards']} "
+                  f"pages_migrated={e['pages_migrated']} "
+                  f"cutover_s={e['cutover_s']:.4f} "
+                  f"recovery_steps={e['recovery_steps']} ({e['why']})")
     if args.admission_timeout > 0:
         print(f"admission-timeout: rejected={len(eng.rejected)} "
               f"timeouts={eng.stats['admission_timeouts']} "

@@ -19,23 +19,31 @@ kernel). The cursor stays a device tensor, so a decode step needs no host
 sync.
 
 Paged pool (``PagedKVCache``): decode writes the new K/V entry with a plain
-index write and then calls the fused ``paged_attention`` kernel; chunked
-prefill gathers the slot's pages and runs ``_sdpa``, as the JAX package
-does, or, under a mesh whose plan carries a sequence ring,
-``ring_chunk_attention`` over the gathered block row.
+index write and then calls the fused ``paged_attention`` kernel; under a
+mesh whose ``paged_decode_plan`` finds a slot-affinity layout, the write
+and the kernel run once per shard over the shard's rows and its own page
+range (``paged_attention_sharded``), and under a mesh without a plan,
+decode takes the ``_gather_pages`` + ``_sdpa`` path, loudly
+(``DISPATCH_COUNTS`` counts each path a layer call). The engine derives
+the plan and passes its shard count down. Chunked prefill
+gathers the slot's pages and runs ``_sdpa``, as the JAX package does, or,
+under a mesh whose plan carries a sequence ring, ``ring_chunk_attention``
+over the gathered block row.
 
 Cache writes update the cache tensors in place.
 """
 from __future__ import annotations
 
+import collections
 import sys
 from typing import NamedTuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import prefill_plan
+from repro_torch.dist.sharding import paged_decode_plan, prefill_plan
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import paged_attention as pa_mod
 from repro_torch.kernels.ring_attention import ring_chunk_attention
 from repro_torch.models.common import ParamSpec, apply_rope, softcap
 
@@ -328,33 +336,108 @@ def chunk_decode_attention(params, x, positions, cache: KVCache,
     return o.reshape(B, C, cfg.q_dim) @ params.wo, cache
 
 
+# Which paged-decode path each layer call took: kernel_sharded (one launch
+# per slot-affinity shard), gather_mesh (the gather fallback under a mesh
+# with no plan), kernel_single. The gather fallback under a mesh is
+# otherwise invisible from outside.
+DISPATCH_COUNTS: "collections.Counter[str]" = collections.Counter()
+
+_GATHER_WARNED: set = set()
+
+
+def _warn_gather(reason: str) -> None:
+    """One line per distinct reason: a mesh silently paying O(slots x
+    max_len) gather traffic is the regression class the sharded path
+    replaces."""
+    if reason in _GATHER_WARNED:
+        return
+    _GATHER_WARNED.add(reason)
+    print("repro_torch: paged decode under a mesh is taking the dense "
+          f"gather path — {reason}; the fused kernel is not sharded, so "
+          "decode traffic is O(slots x max_len)", file=sys.stderr)
+
+
+def explain_dispatch(cfg: ModelConfig, mesh, *, batch_slots: int,
+                     n_pages: int = 0, megastep_k: int = 0,
+                     device="cpu") -> str:
+    """One-line description of the paged-decode path this configuration
+    dispatches to (``launch/serve.py``'s startup banner): the kernel is
+    the CUDA kernel on the card, its plain version on the CPU;
+    ``megastep_k`` > 0 notes the fused K-token megastep."""
+    kern = ("fused CUDA paged_attention kernel"
+            if torch.device(device).type == "cuda"
+            else "paged_attention's plain PyTorch version")
+    mega = (f", inside a fused {megastep_k}-token megastep"
+            if megastep_k > 0 else "")
+    if mesh is None:
+        return f"paged decode: {kern}, single device{mega}"
+    plan, reason = paged_decode_plan(cfg, mesh, batch_slots, n_pages)
+    if plan is not None:
+        heads = (f"kv_heads over {plan.kv_head_axis!r} in the plan, all "
+                 "heads computed per shard" if plan.kv_head_axis
+                 else "kv_heads replicated")
+        return (f"paged decode: {kern}, one launch per shard over "
+                f"{plan.batch_axes!r} ({plan.n_shards} slot-affinity shards "
+                f"run in turn on {mesh.device}, {heads}){mega}")
+    return ("paged decode: dense gather FALLBACK under mesh — "
+            f"{reason}{mega}")
+
+
 def paged_decode_attention(params, x, position, cache: PagedKVCache,
                            cfg: ModelConfig, *, window: int = 0,
-                           kv_scale: float = 0.0, active=None):
+                           kv_scale: float = 0.0, active=None, shards=1):
     """One-token decode against the paged pool. x: (B,1,D); position: (B,).
 
     The new K/V entry is written in place into the slot's tail page with an
-    index write; rows with ``active`` False are redirected to the null page
-    0, which is never read (the FREEZE contract: their pages stay
+    index write; rows with ``active`` False are redirected to a null page,
+    which is never read (the FREEZE contract: their pages stay
     bit-identical). Then the fused ``paged_attention`` kernel reads every
-    mapped page through the block table. Returns (out (B,1,D), cache)."""
+    mapped page through the block table.
+
+    ``shards`` is the caller's decode plan (the engine derives it from its
+    mesh): 1, one kernel launch over the whole pool; n > 1, the JAX
+    package's ``_sharded_write_attend`` over a slot-affinity pool of n
+    shards: every row's target page lies in its shard's page range (an
+    inactive row's is its shard's null page), and the attend is one launch
+    a shard over the shard's rows and page range
+    (``paged_attention_sharded``: views, the block table rebased to local
+    ids, the whole pool's page split, so bit-equal to one launch); None,
+    a mesh with no plan: the ``_gather_pages`` + ``_sdpa`` reference.
+    Returns (out (B,1,D), cache)."""
     B = x.shape[0]
     hd = cfg.resolved_head_dim
     G, R = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
     q, k_store, v_store = _qkv(params, x, position[:, None], cfg, kv_scale,
                                cache.kp.dtype)
-    P = cache.ppos.shape[1]
+    n_pages, P = cache.ppos.shape
+    DISPATCH_COUNTS["gather_mesh" if shards is None else
+                    "kernel_single" if shards == 1 else "kernel_sharded"] += 1
     pos = position.long()
-    phys = torch.gather(cache.block, 1, (pos // P)[:, None])[:, 0].long()
-    tgt = phys if active is None else torch.where(active, phys, 0)
+    pos32 = position.to(torch.int32).contiguous()
+    tgt = torch.gather(cache.block, 1, (pos // P)[:, None])[:, 0].long()
+    if active is not None:
+        null = 0 if not shards or shards == 1 else \
+            torch.arange(B, device=x.device) // (B // shards) \
+            * (n_pages // shards)
+        tgt = torch.where(active, tgt, null)
     off = pos % P
     cache.kp[tgt, off] = k_store[:, 0]
     cache.vp[tgt, off] = v_store[:, 0]
-    cache.ppos[tgt, off] = position.to(torch.int32)
-    o = kops.paged_attention(
-        q[:, 0].reshape(B, G, R, hd).contiguous(), cache.kp, cache.vp,
-        cache.ppos, cache.block, position.to(torch.int32).contiguous(),
-        window=window, kv_scale=kv_scale, cap=cfg.attn_softcap)
+    cache.ppos[tgt, off] = pos32
+    qk = q[:, 0].reshape(B, G, R, hd).contiguous()
+    kw = dict(window=window, kv_scale=kv_scale, cap=cfg.attn_softcap)
+    if shards is None:
+        kk, vv, _, valid = _gather_pages(cache, cache.block,
+                                         position[:, None], window=window)
+        o = _sdpa(q.reshape(B, 1, G, R, hd), _as_q(kk, q.dtype, kv_scale),
+                  _as_q(vv, q.dtype, kv_scale), mask=valid[:, None, None],
+                  cap=cfg.attn_softcap)
+    elif shards == 1:
+        o = kops.paged_attention(qk, cache.kp, cache.vp, cache.ppos,
+                                 cache.block, pos32, **kw)
+    else:
+        o = pa_mod.paged_attention_sharded(qk, cache.kp, cache.vp, cache.ppos,
+                                           cache.block, pos32, shards, **kw)
     return o.reshape(B, 1, cfg.q_dim) @ params.wo, cache
 
 

@@ -139,7 +139,8 @@ def block_prefill_paged(kind: str, params, h, positions, cache,
 
 
 def block_decode(kind: str, params, h, position, cache, cfg: ModelConfig,
-                 knobs: ApproxKnobs = PRECISE, *, active=None, enc_out=None):
+                 knobs: ApproxKnobs = PRECISE, *, active=None, enc_out=None,
+                 shards=1):
     """Single-token decode on a ``PagedKVCache``, a dense ``KVCache`` ring
     or a ``MambaCache``, chosen by the kind and the cache's type. Returns
     (h, cache), the cache updated in place.
@@ -150,7 +151,8 @@ def block_decode(kind: str, params, h, position, cache, cfg: ModelConfig,
     comes back bit-identical, because its page write is redirected to the
     never-read null page and its Mamba update is where-masked. A dense
     ring takes no mask: every row writes at the shared cursor. Given
-    ``enc_out`` the cross sublayer follows the self-attention."""
+    ``enc_out`` the cross sublayer follows the self-attention. ``shards``
+    is the paged decode's plan (``attention.paged_decode_attention``)."""
     if kind == MAMBA:
         y, cache = mamba_mod.mamba_decode(
             params.mixer, rms_norm(h, params.norm, cfg.norm_eps), cache,
@@ -161,7 +163,7 @@ def block_decode(kind: str, params, h, position, cache, cfg: ModelConfig,
     if isinstance(cache, attn_mod.PagedKVCache):
         y, cache = attn_mod.paged_decode_attention(
             params.attn, hn, position, cache, cfg, window=window,
-            kv_scale=kv_scale, active=active)
+            kv_scale=kv_scale, active=active, shards=shards)
     else:
         y, cache = attn_mod.decode_attention(
             params.attn, hn, position, cache, cfg, window=window,

@@ -298,18 +298,20 @@ def layer_cache(caches, cfg: ModelConfig, layer: int):
 
 
 def decode_step(params, tokens, position, caches, cfg: ModelConfig,
-                knobs: ApproxKnobs = PRECISE, *, active=None):
+                knobs: ApproxKnobs = PRECISE, *, active=None, shards=1):
     """tokens: (B,1) int; position: (B,) int32 absolute positions.
 
     Returns (logits (B,V) fp32, caches), the caches updated in place.
     ``caches`` are dense rings (``init_caches``) or the page pool
     (``init_paged_caches``); on the pool ``active`` (B,) bool masks
-    per-slot cache writes (attention pages and Mamba rows)."""
+    per-slot cache writes (attention pages and Mamba rows); ``shards`` is
+    the paged decode attention's plan (``attention.paged_decode_attention``:
+    1 one kernel launch, n one a slot-affinity shard, None the gather)."""
     h = params.embed[tokens[:, 0]][:, None, :]
     for i, kind in enumerate(cfg.kinds()):
         h, _ = block_decode(kind, layer_params(params, cfg, i), h, position,
                             layer_cache(caches, cfg, i), cfg, knobs,
-                            active=active)
+                            active=active, shards=shards)
     h = rms_norm(h, params.final_norm, cfg.norm_eps)
     return logits_fn(params, h[:, 0], cfg), caches
 
@@ -336,7 +338,7 @@ def sample_token(logits, uids, draws, *, temperature: float = 0.0,
 def decode_megastep(params, cur, pos, alive, uids, draws, budget, caches,
                     cfg: ModelConfig, knobs: ApproxKnobs = PRECISE, *,
                     k: int, temperature: float = 0.0, seed: int = 0,
-                    eos_id: int = -1):
+                    eos_id: int = -1, shards=1):
     """K fused decode steps with on-device sampling and stop masking; the
     host learns K tokens a row from one transfer.
 
@@ -360,7 +362,7 @@ def decode_megastep(params, cur, pos, alive, uids, draws, budget, caches,
     toks = []
     for _ in range(k):
         logits, caches = decode_step(params, cur.long()[:, None], pos, caches,
-                                     cfg, knobs, active=alive)
+                                     cfg, knobs, active=alive, shards=shards)
         tok = sample_token(logits, uids, draws, temperature=temperature,
                            seed=seed)
         out = torch.where(alive, tok, -1)

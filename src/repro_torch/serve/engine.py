@@ -65,10 +65,10 @@ megastep N is drained. On the card a megastep of K is K back-to-back
 replays of one CUDA graph of the decode step per variant, each writing its
 token into column j of a (B, megastep_k) buffer, and the tokens reach the
 host through a pinned buffer and an event; on the CPU the same step runs K
-times eagerly. Graphs hold raw addresses, so a variant swap (the only
-place the caches are rebuilt) flushes the pipeline and drops every graph,
-and a graph whose cached int8 weights were dropped is recaptured before it
-could replay over freed memory.
+times eagerly. Graphs hold raw addresses, so a variant swap or an elastic
+re-home (the places the caches are rebuilt) flushes the pipeline and drops
+every graph, and a graph whose cached int8 weights were dropped is
+recaptured before it could replay over freed memory.
 
 With a ``mesh`` (``launch.mesh.Mesh``, every position on ``device``),
 admission chunks (dense or paged) run their attention as a sequence ring
@@ -76,7 +76,26 @@ when ``dist.sharding.prefill_plan`` finds a layout for the chunk length
 (``ring_chunk_attention``, the ``ring_hop`` kernel on the card): the plan is
 derived once for ``prefill_chunk`` and again by the chunk cell for each
 chunk length, so a ragged tail re-plans and a tail shorter than the shard
-count takes the loud single-device path. Decode stays single-device.
+count takes the loud single-device path. The paged engine's decode is
+sharded by slot affinity when ``dist.sharding.paged_decode_plan`` finds a
+layout: the pool is sized and split into ``n_shards`` page ranges, each
+slot's pages on its own shard, and each decode layer makes one
+``paged_attention`` launch a shard over the shard's rows and page range
+(``kernels.paged_attention.paged_attention_sharded``, called by
+``attention.paged_decode_attention`` with the plan's shard count); without
+a plan, decode takes the loud gather path. The dense engine's decode stays
+single-device.
+
+Capacity events (``dist.elastic``) arrive through ``inject`` (a driver's
+``FaultInjector``, or the runtime's fan-out through ``ServeTenant``) and
+apply at the next step boundary once their grace deadline has passed: a
+revocation or restore re-homes the live engine onto the surviving mesh
+(``_rehome``: the megastep pipeline drained and its graph dropped, the
+plans re-derived, ``PagePool.migrate`` and one indexed copy a paged cache
+leaf into the new page layout); a quota cut floors the pool's budget; a
+collective failure re-runs the next decode step from a snapshot of what
+the step updates in place. ``elastic_log`` records each event with its
+cutover and recovery times.
 """
 from __future__ import annotations
 
@@ -94,7 +113,8 @@ from repro_torch.core import tenant as tenant_mod
 from repro_torch.core.controller import headroom_burst
 from repro_torch.core.runtime import PliantRuntime
 from repro_torch.core.variants import VariantTable
-from repro_torch.dist.sharding import prefill_plan
+from repro_torch.dist import elastic
+from repro_torch.dist.sharding import paged_decode_plan, prefill_plan
 from repro_torch.kernels import int8_matmul, paged_attention, quantize_rows
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn_mod
@@ -222,7 +242,8 @@ class ServeEngine:
                                        # overlap, but per-token stamps
                                        # measure compute, not enqueue
     device: object = "cuda"
-    mesh: object = None                # launch.mesh.Mesh: ring admission
+    mesh: object = None                # launch.mesh.Mesh: ring admission,
+                                       # slot-affinity sharded decode
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -244,7 +265,8 @@ class ServeEngine:
         self._page_spec = None
         if self.paged:
             self._page_spec = pages_mod.spec_for(
-                self.batch_slots, self.max_len, self.page_size, self.n_pages)
+                self.batch_slots, self.max_len, self.page_size, self.n_pages,
+                n_shards=self._plan_shards())
             self.pool = pages_mod.PagePool(
                 self._page_spec, self.batch_slots,
                 snapshot_budget=SNAPSHOT_BUDGET)
@@ -302,8 +324,17 @@ class ServeEngine:
         self.step_count = 0
         self._backoff: Dict[int, Tuple[int, int]] = {}  # uid -> (retry, dly)
         self.rejected: List[Request] = []
-        self.stats: Dict[str, int] = dict(admission_timeouts=0,
-                                          backoff_skips=0)
+        self.stats: Dict[str, int] = dict(
+            admission_timeouts=0, backoff_skips=0, collective_retries=0,
+            capacity_events=0, rehomes=0)
+        # ---- elasticity / fault state (dist.elastic) ----
+        self._base_mesh = self.mesh          # full-capacity mesh (restore)
+        self._revoked: Set[int] = set()      # position ids now revoked
+        self._pending_capacity: List[Tuple[int, object]] = []  # (due, ev)
+        self._collective_failures = 0        # queued transient failures
+        self._recovering: List[dict] = []    # re-home entries awaiting the
+                                             # first completed decode step
+        self.elastic_log: List[dict] = []
         self._tenant = None
         self._bound = False
         if (self.runtime is not None and self.runtime.auto_tenant
@@ -315,13 +346,41 @@ class ServeEngine:
             self._bound = True
 
     def _derive_plans(self) -> None:
-        """The ring-prefill sequence plan for full-size chunks, from (cfg,
-        mesh, prefill_chunk) by the pure plan function the chunk cell
-        re-derives for each chunk length."""
+        """The slot-affinity decode plan (paged) and the ring-prefill
+        sequence plan for full-size chunks, from (cfg, current mesh, slots
+        or chunk) by the pure plan functions (the chunk cell re-derives the
+        prefill plan for each chunk length); again by ``_rehome`` when the
+        mesh changes. A paged mesh with no decode plan warns once a
+        reason: decode takes the gather path."""
+        self._decode_plan, self._plan_reason = None, "single device"
         self._prefill_plan, self._prefill_reason = None, "single device"
-        if self.mesh is not None:
-            self._prefill_plan, self._prefill_reason = prefill_plan(
-                self.cfg, self.mesh, self.prefill_chunk)
+        if self.mesh is None:
+            return
+        if self.paged:
+            self._decode_plan, self._plan_reason = paged_decode_plan(
+                self.cfg, self.mesh, self.batch_slots, self.n_pages)
+            if self._decode_plan is None:
+                attn_mod._warn_gather(self._plan_reason)
+        self._prefill_plan, self._prefill_reason = prefill_plan(
+            self.cfg, self.mesh, self.prefill_chunk)
+
+    def _plan_shards(self) -> int:
+        return (self._decode_plan.n_shards
+                if self._decode_plan is not None else 1)
+
+    def _decode_shards(self):
+        """``attention.paged_decode_attention``'s ``shards``: the plan's
+        shard count, 1 without a mesh, None (the gather path) under a mesh
+        with no plan."""
+        if self.mesh is not None and self._decode_plan is None:
+            return None
+        return self._plan_shards()
+
+    @property
+    def sharded_kernel(self) -> bool:
+        """True when decode runs the fused kernel once per slot-affinity
+        shard (a mesh with a plan)."""
+        return self.paged and self._decode_plan is not None
 
     @property
     def sharded_prefill(self) -> bool:
@@ -330,32 +389,34 @@ class ServeEngine:
         return self._prefill_plan is not None
 
     def explain_dispatch(self) -> str:
-        """One-line decode dispatch description (startup banner);
-        ``megastep_k`` > 0 notes that the decode step runs inside a fused
-        K-token megastep (the attention dispatch is the same each step)."""
-        where = (f"{self.device}, single device (decode is not sharded "
-                 "over the mesh)" if self.mesh is not None
-                 else f"{self.device}")
+        """One-line decode dispatch description (startup banner):
+        ``attention.explain_dispatch``'s paged decode path, then the int8
+        products, the Mamba rows and the megastep. ``megastep_k`` > 0
+        notes that the decode step runs inside a fused K-token megastep
+        (the attention dispatch is the same each step)."""
+        mm = ("int8_matmul on int8 rungs" if self.device.type == "cuda"
+              else "int8_matmul's plain version on int8 rungs")
+        where = ""
         if MAMBA in self.cfg.pattern:
-            where += (", Mamba rows updated in plain PyTorch (admission "
-                      "scans through ssd_scan"
-                      + ("" if self.device.type == "cuda"
-                         else "'s plain version") + ")")
+            where = (", Mamba rows updated in plain PyTorch (admission "
+                     "scans through ssd_scan"
+                     + ("" if self.device.type == "cuda"
+                        else "'s plain version") + ")")
         if not self.paged:
-            mm = ("int8_matmul on int8 rungs" if self.device.type == "cuda"
-                  else "int8_matmul's plain version on int8 rungs")
+            mesh = (", single device (decode is not sharded over the mesh)"
+                    if self.mesh is not None else "")
             return ("dense decode: ring caches (no paged dispatch), _sdpa "
-                    f"over the ring in plain PyTorch, {mm}, {where}")
+                    f"over the ring in plain PyTorch, {mm}, "
+                    f"{self.device}{mesh}{where}")
         mega = ""
         if self.megastep_k > 0:
             mega = (f", inside a fused {self.megastep_k}-token megastep "
                     + ("replayed as a CUDA graph" if self.device.type ==
                        "cuda" else "run eagerly"))
-        if self.device.type == "cuda":
-            return ("paged decode: fused CUDA paged_attention kernel, "
-                    f"int8_matmul on int8 rungs, {where}{mega}")
-        return ("paged decode: plain PyTorch versions of the kernels, "
-                f"{where}{mega}")
+        line = attn_mod.explain_dispatch(
+            self.cfg, self.mesh, batch_slots=self.batch_slots,
+            n_pages=self.n_pages, device=self.device)
+        return f"{line}, {mm}, {self.device}{where}{mega}"
 
     def explain_megastep(self) -> str:
         """One-line megastep/pipeline description (startup banner)."""
@@ -512,6 +573,206 @@ class ServeEngine:
             else:
                 keep.append(req)
         self.pending = keep
+
+    # ---------------------------------------------------------- elasticity --
+
+    def inject(self, ev, *, notify_runtime: bool = True) -> None:
+        """Entry point for a ``dist.elastic.CapacityEvent`` (fault injector,
+        driver or tenant adapter). A revocation with a grace deadline is
+        deferred to ``step + deadline_steps`` and logged as a
+        ``revoke_notice``: through the grace window the engine keeps
+        serving on the doomed mesh while the runtime, notified here, treats
+        the pending loss as contention. Everything else applies at the next
+        step boundary. ``notify_runtime=False`` is for tenant adapters whose
+        runtime already saw the event (``PliantRuntime.inject``). The JAX
+        engine compiles the surviving mesh's decode during the grace
+        window; the port has nothing to compile ahead: the first megastep
+        after a cutover captures its graph, and its seconds go into the
+        re-home's log entry (``capture_s``)."""
+        self.stats["capacity_events"] += 1
+        if notify_runtime and self.runtime is not None:
+            self.runtime.notify_capacity(ev)
+        due = self.step_count
+        if ev.kind == elastic.REVOKE and ev.deadline_steps > 0:
+            due += ev.deadline_steps
+            self.elastic_log.append(dict(
+                step=self.step_count, kind="revoke_notice", count=ev.count,
+                devices=list(ev.devices), deadline_step=due))
+        self._pending_capacity.append((due, ev))
+
+    def _process_capacity(self) -> None:
+        """Apply every capacity event whose (grace) deadline has arrived;
+        called at the top of ``step()``, so cutovers happen at step
+        boundaries only."""
+        if not self._pending_capacity:
+            return
+        due = [e for s, e in self._pending_capacity if s <= self.step_count]
+        self._pending_capacity = [(s, e) for s, e in self._pending_capacity
+                                  if s > self.step_count]
+        for ev in due:
+            self._apply_capacity(ev)
+
+    def _apply_capacity(self, ev) -> None:
+        entry = dict(step=self.step_count, kind=ev.kind)
+        if ev.kind in (elastic.REVOKE, elastic.RESTORE):
+            if self._base_mesh is None:
+                # single-device engine: no mesh to shrink; the event still
+                # reached the runtime as pressure, which is all it can mean
+                entry["ignored"] = "no mesh"
+                self.elastic_log.append(entry)
+                return
+            if ev.kind == elastic.REVOKE:
+                ids = ev.devices or elastic.pick_revoked(
+                    self.mesh if self.mesh is not None else self._base_mesh,
+                    ev.count, already=self._revoked)
+                self._revoked |= {int(i) for i in ids}
+            else:
+                self._revoked -= ({int(i) for i in ev.devices}
+                                  if ev.devices else set(self._revoked))
+            new_mesh, why = elastic.surviving_mesh(
+                self._base_mesh, self._revoked,
+                prefer_divisor_of=self.batch_slots)
+            entry.update(self._rehome(new_mesh, why))
+            entry["revoked"] = sorted(self._revoked)
+            self._recovering.append(entry)
+        elif ev.kind == elastic.QUOTA_CUT:
+            if self.pool is not None:
+                self.pool.set_capacity_cut(self.pool.capacity_cut + ev.quanta)
+                entry["capacity_cut"] = self.pool.capacity_cut
+        elif ev.kind == elastic.QUOTA_RESTORE:
+            if self.pool is not None:
+                cut = (self.pool.capacity_cut - ev.quanta if ev.quanta else 0)
+                self.pool.set_capacity_cut(max(cut, 0))
+                entry["capacity_cut"] = self.pool.capacity_cut
+        elif ev.kind == elastic.COLLECTIVE_FAILURE:
+            self._collective_failures += max(ev.count, 1)
+            entry["queued_failures"] = self._collective_failures
+        self.elastic_log.append(entry)
+
+    def _rehome(self, new_mesh, why: str = "") -> dict:
+        """Cut the live engine over to ``new_mesh`` (shrink on revocation,
+        grow on restore) without dropping anything. The durable decode
+        state (pool, caches, positions, tokens, admission cursors) does not
+        depend on the mesh; only the layout does:
+
+        1. drain the megastep pipeline (the in-flight megastep's tokens
+           land, the device carry is invalidated) and drop the captured
+           graph, which holds the old cache tensors' addresses; host-stage
+           the logits of admissions in flight;
+        2. re-derive the decode and prefill plans for the new mesh (a mesh
+           with no plan takes the loud gather path, it never corrupts);
+        3. migrate the page pool (``PagePool.migrate``: live pages re-homed
+           onto their slots' new shards, prefix entries evicted) and move
+           each paged cache leaf into the new layout with one indexed copy
+           on the device (the positions share it: params stay put);
+        4. drop the megastep functions; the first megastep after the
+           cutover captures its graph again."""
+        t0 = time.perf_counter()
+        self._drain_pipeline()
+        self._graph = None
+        for adm in list(self._admissions.values()) \
+                + list(self._await_admit.values()):
+            if adm.logits is not None:
+                adm.logits = adm.logits.cpu()
+        old_shards = self._plan_shards()
+        self.mesh = new_mesh
+        self._derive_plans()
+        migrated = 0
+        if self.paged:
+            new_spec = pages_mod.spec_for(
+                self.batch_slots, self.max_len, self.page_size, self.n_pages,
+                n_shards=self._plan_shards())
+            new_pool, perm = self.pool.migrate(new_spec)
+            self._page_spec = new_spec
+            self.caches = self._migrate_paged_caches(perm, new_pool)
+            self.pool = new_pool
+            migrated = int((perm >= 0).sum())
+        self._megasteps.clear()
+        self.stats["rehomes"] += 1
+        assert self._inflight is None and self._carry is None
+        return dict(
+            step_index=len(self.step_latencies), why=why,
+            mesh_shape=(dict(new_mesh.shape) if new_mesh is not None
+                        else None),
+            n_shards=(old_shards, self._plan_shards()),
+            pages_migrated=migrated,
+            cutover_s=time.perf_counter() - t0,
+            recovery_steps=None, _t_rehome=t0,
+            _graphs=len(self.graph_log))
+
+    def _migrate_paged_caches(self, perm: np.ndarray, new_pool):
+        """The caches in the new pool's page layout: ``perm[new_pid] =
+        old_pid`` (-1: the page starts empty, zero K/V and -1 positions,
+        masked out of attention). Leaves are group-stacked, so the page
+        dim is axis 1; each paged leaf moves with one indexed copy on its
+        device, and the block tables are the new pool's. Mamba rows are
+        slot-major and stay as they are."""
+        dst_np = np.flatnonzero(perm >= 0)
+        dst = torch.from_numpy(dst_np).to(self.device)
+        src = torch.from_numpy(perm[dst_np].astype(np.int64)).to(self.device)
+        bt = self._to_device(new_pool.blocks)
+        n_new = new_pool.spec.n_pages
+
+        def move(x, fill):
+            y = torch.full((x.shape[0], n_new) + tuple(x.shape[2:]), fill,
+                           dtype=x.dtype, device=x.device)
+            y[:, dst] = x[:, src]
+            return y
+
+        caches = []
+        for c in self.caches:
+            if isinstance(c, attn_mod.PagedKVCache):
+                caches.append(attn_mod.PagedKVCache(
+                    kp=move(c.kp, 0), vp=move(c.vp, 0),
+                    ppos=move(c.ppos, -1),
+                    block=bt.expand_as(c.block).clone()))
+            else:
+                caches.append(c)
+        return tuple(caches)
+
+    def _stamp_recovery(self, now: float) -> None:
+        """Recovery = event application -> the first completed decode step
+        (or megastep) on the re-homed mesh, the graph capture of the
+        cutover's first megastep included (its seconds: ``capture_s``)."""
+        for entry in self._recovering:
+            entry["recovery_steps"] = \
+                len(self.step_latencies) - entry["step_index"]
+            entry["recovery_s"] = now - entry.pop("_t_rehome")
+            entry["capture_s"] = sum(
+                g["capture_s"] for g in self.graph_log[entry.pop("_graphs"):])
+        self._recovering.clear()
+
+    def _step_snapshot(self) -> list:
+        """What a decode step updates in place that a re-run would not
+        rewrite the same way, as (tensor, copy) pairs: the Mamba rows, the
+        dense rings' cursors and the megastep carry. (The paged K/V writes
+        of a re-run land where the first run's did, with the same
+        values.)"""
+        leaves = []
+        for c in self.caches:
+            if isinstance(c, MambaCache):
+                leaves.extend(c)
+            elif isinstance(c, attn_mod.KVCache):
+                leaves.append(c.cursor)
+        if self.megastep_k:
+            leaves.extend(self._state)
+        return [(x, x.clone()) for x in leaves]
+
+    def _call_decode(self, run):
+        """Run a decode step or megastep (``run()``), re-running it while
+        injected collective failures are queued: each failed run's results
+        are discarded and the in-place state it advanced is restored from
+        the snapshot taken before it, bounded by the injected count."""
+        while True:
+            retry = self._collective_failures > 0
+            snap = self._step_snapshot() if retry else None
+            out = run()
+            if not retry:
+                return out
+            self._collective_failures -= 1
+            self.stats["collective_retries"] += 1
+            for x, saved in snap:
+                x.copy_(saved)
 
     # ------------------------------------------------------ paged plumbing --
 
@@ -827,7 +1088,7 @@ class ServeEngine:
                else torch.tensor(rows_active, device=self.device))
         logits, self.caches = lm.decode_step(
             self.params, toks, pos, self.caches, self.cfg, self.active_knobs,
-            active=act)
+            active=act, shards=self._decode_shards())
         if self._fused_sample:
             return torch.argmax(logits, dim=-1).to(torch.int32)
         return logits
@@ -887,7 +1148,7 @@ class ServeEngine:
             fn = step_mod.make_paged_megastep(
                 self.cfg, self.active_knobs, k=k,
                 temperature=self.temperature, seed=self.seed,
-                eos_id=self.eos_id)
+                eos_id=self.eos_id, shards=self._decode_shards())
             self._megasteps[key] = fn
         return fn
 
@@ -1018,7 +1279,7 @@ class ServeEngine:
             self._push_blocks()
         t0 = time.perf_counter()
         self._merge_carry(np.array([s is not None for s in self.slots]))
-        toks = self._launch_megastep(k)
+        toks = self._call_decode(lambda: self._launch_megastep(k))
         self._inject_slots.clear()
         self.decode_dispatches += 1
         return dict(toks=toks, rows=[(i, self.slots[i]) for i in rows],
@@ -1041,6 +1302,7 @@ class ServeEngine:
         self.drain_block_s += now - t0
         wall = now - flight["t0"]
         self.step_latencies.append(wall)
+        self._stamp_recovery(now)
         freed = False
         emitted: List[int] = []
         for i, req in flight["rows"]:
@@ -1077,7 +1339,8 @@ class ServeEngine:
             self.runtime.monitor.record_megastep(wall, emitted)
 
     def _drain_pipeline(self) -> None:
-        """Flush the double buffer before state surgery (a variant swap):
+        """Flush the double buffer before state surgery (a variant swap or
+        an elastic re-home):
         drain the in-flight megastep so its tokens land, and invalidate the
         device carry; the next dispatch cold-starts from the host
         mirrors."""
@@ -1114,7 +1377,8 @@ class ServeEngine:
         point. Dense: synchronous admission, then one decode of every slot.
         All tick the Pliant control loop at the step boundary."""
         self.step_count += 1
-        self._expire_pending()
+        self._process_capacity()   # deadline-reached capacity events cut
+        self._expire_pending()     # over first, at the step boundary
         if self.megastep_k > 0:
             self._megastep_round()
             return
@@ -1139,8 +1403,9 @@ class ServeEngine:
             if dirty:
                 self._push_blocks()
         t0 = time.perf_counter()
-        out = self._decode(np.array([s is not None for s in self.slots])
-                           if self.paged else None)
+        act = (np.array([s is not None for s in self.slots])
+               if self.paged else None)
+        out = self._call_decode(lambda: self._decode(act))
         self.decode_dispatches += 1
         if self.paged:
             self._drain_admissions()
@@ -1149,6 +1414,7 @@ class ServeEngine:
         self.drain_block_s += time.perf_counter() - tb
         dt = time.perf_counter() - t0
         self.step_latencies.append(dt)
+        self._stamp_recovery(time.perf_counter())
         now = time.perf_counter()
         if self._fused_sample:
             nxt_tokens = out[rows]

@@ -111,7 +111,7 @@ def make_prefill_fn(cfg: ModelConfig, knobs: ApproxKnobs = PRECISE, *,
 
 def make_paged_megastep(cfg: ModelConfig, knobs: ApproxKnobs = PRECISE, *,
                         k: int, temperature: float = 0.0, seed: int = 0,
-                        eos_id: int = -1):
+                        eos_id: int = -1, shards=1):
     """Returns step(params, cur, pos, alive, uids, draws, budget, caches)
     -> (toks (B, K), cur, pos, alive, draws, budget, caches): K decode steps
     with on-device sampling and stop masking (``lm.decode_megastep``). The
@@ -122,5 +122,6 @@ def make_paged_megastep(cfg: ModelConfig, knobs: ApproxKnobs = PRECISE, *,
     def step(params, cur, pos, alive, uids, draws, budget, caches):
         return lm_mod.decode_megastep(
             params, cur, pos, alive, uids, draws, budget, caches, cfg, knobs,
-            k=k, temperature=temperature, seed=seed, eos_id=eos_id)
+            k=k, temperature=temperature, seed=seed, eos_id=eos_id,
+            shards=shards)
     return step

@@ -341,7 +341,7 @@ def test_mesh_shape_and_single_device_rule():
     mesh = make_mesh((2, 4), ("data", "model"), "cpu")
     assert list(mesh.shape.items()) == [("data", 2), ("model", 4)]
     assert len(mesh.devices) == 8 and mesh.device == CPU
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
+    with pytest.raises(NotImplementedError, match="Multi-GPU, the rest"):
         Mesh((2,), ("data",), ["cpu", "meta"])
     with pytest.raises(ValueError):
         Mesh((2, 2), ("data", "model"), ["cpu"] * 3)
@@ -434,7 +434,8 @@ def test_ring_engine_token_parity(jax_side, port_model, capsys, monkeypatch,
     assert ring == single == jax_side[1]["streams"][key], (ring, single)
     assert eng.sharded_prefill
     assert "ring attention over 'data'" in eng.explain_prefill_dispatch()
-    assert "decode is not sharded" in eng.explain_dispatch()
+    assert eng.sharded_kernel and \
+        "one launch per shard over 'data'" in eng.explain_dispatch()
     assert jax_side[1]["counts"][key].get("ring_prefill", 0) > 0
     n_layers = port_model[0].n_layers
     assert ra.hops_run > 0 and ra.launches == 0
