@@ -18,9 +18,11 @@ Phases, each reported on its own line:
              perforation, ragged Sq != Skv cases, hd 64 and a caller
              grid of 48 x 80 that leaves rows fully masked, each in fp32
              and in bf16 and through the design ``select_flash_design``
-             names, the tiled one for fp32 and tc for bf16 at hd 64 and
-             128, with the transcendentals' floor beside the bound), fp32
-             and bf16, with
+             names, the tiled one for fp32 and tc for bf16 at hd 64, 80,
+             128 and 256 (ragged cases at hd 80 and 256), and "simple" at
+             the smoke configs' hd 16 (GQA and MQA, causal, and gemma2's
+             smoke window and softcap), with the transcendentals' floor
+             beside the bound), fp32 and bf16, with
              its time beside the plain version's, a library call's where one
              computes the same function, and its bound. Then the training
              path's gradients: ``ssd_scan``'s backward kernels against
@@ -183,7 +185,11 @@ Phases, each reported on its own line:
              ``prefill_with_cache``, and at mamba2-780m's (H 48, N 128),
              fp32 and bf16, against the plain version unpadded at the JAX
              package's chunk, y and the final state, timed beside the
-             plain version and the bound; ``paged_attention`` at zamba2's
+             plain version and the bound; ``flash_attention`` at the
+             handoff's shape (MHA, 32 heads of 80, 2048 tokens, causal),
+             bf16 through tc and fp32 through tiled, beside cuDNN and
+             ``scaled_dot_product_attention`` and the bound;
+             ``paged_attention`` at zamba2's
              shared-attention decode (MHA, R 1, hd 80, page 16, M 256, bf16
              and int8 K/V), ``int8_matmul`` and ``quantize_rows`` at its
              int8 products (2560 -> 5120, 5120 -> 2560, 2560 -> 10240,
@@ -215,7 +221,9 @@ Phases, each reported on its own line:
              a token; a prefix hit (256 tokens, 192 shared) that restores
              an SSM snapshot, its stream equal to a cold run's, no host
              sync in taking a snapshot; ``prefill_with_cache`` on a
-             2048-token prompt against chunked admission: in bf16 the
+             2048-token prompt against chunked admission (one
+             ``flash_attention`` a shared-attention call, tc in bf16 and
+             tiled in fp32, none simple): in bf16 the
              first-token logits within 0.5 of their rms and the Mamba
              states within 0.1 (relative Frobenius norm, worst layer), and
              on the same weights in fp32 logits within 1e-3 of their rms
@@ -267,7 +275,7 @@ Phases, each reported on its own line:
              cross attention, 448 queries over 1500 frames; the decode
              step's cross attention, one query a row over 1500 frames) and
              paligemma-3b's (MQA, 8 heads of 256 over one K/V head, 512
-             tokens, design "simple"), fp32 and bf16, beside
+             tokens, design tiled in fp32 and tc in bf16), beside
              ``scaled_dot_product_attention`` and the bound;
              ``int8_matmul`` and ``quantize_rows`` at their int8 MLP
              products (whisper 6000 and 1792 rows of 1280 <-> 5120,
@@ -296,8 +304,8 @@ Phases, each reported on its own line:
              paligemma-3b at full width and depth (18 layers, 2 x (256 +
              256) tokens, remat "full"): one step through the driver, 3
              steps a rung pinned, and ``make_prefill_fn`` in bf16 (one
-             "simple" flash launch a layer); device memory before, at
-             peak and after each run.
+             tc flash launch a layer; the training's are tiled, none
+             simple); device memory before, at peak and after each run.
 
 14. serve-elastic  (run after serve-ring) elastic serving with the paged
              decode sharded by slot affinity: ``paged_attention`` as the
@@ -326,6 +334,21 @@ Phases, each reported on its own line:
              beside the single-device engine's; and, as the witness, the
              same at 4 layers in fp32: the faulted run's tokens equal the
              unfaulted run's and the single-device engine's.
+
+15. serve-gemma3  (run after serve-dense) gemma3-12b's prefill:
+             ``flash_attention`` at its shapes over one 8192-token prompt
+             (16 heads of 256 over 8 KV heads, bf16, causal for the global
+             layer and window 1024 for the local ones) through tc, beside
+             its plain version, the bound and
+             ``scaled_dot_product_attention`` with cuDNN forced; then
+             gemma3-12b at full width cut to 6 of its 48 layers (one 5:1
+             period; bf16, random weights): ``prefill_with_cache`` on one
+             8192-token prompt, launch counters zeroed just before and read
+             just after (one tc ``flash_attention`` a layer, none simple,
+             each timed by CUDA events), its first-token logits and the
+             rings it hands to decode against chunked admission's (chunks
+             of 512) within 0.5 of their rms; device memory before, at
+             peak and after.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``. Any
@@ -976,9 +999,10 @@ def check_flash(device, cases, iters=10):
     caller grid), with the kernels it ran. A case may name
     the caller's block ``grid`` (bq, bk), the ``design`` it must take and
     a ``q_scale`` (``flash_case``: at unit scale cap tanh(s / cap) ~ s for
-    the caps here, so a softcap is only tested where q is scaled up);
+    the caps here, so a softcap is only tested where q is scaled up), and
+    its inputs ``qkv`` where the caller has drawn them;
     the design ``select_flash_design`` gives is asserted in any case, the
-    tiled one for fp32 and tc for bf16 at hd 64 and 128."""
+    tiled one for fp32 and tc for bf16 at hd 64, 80, 128 and 256."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -990,15 +1014,17 @@ def check_flash(device, cases, iters=10):
                   cap=c.get("cap", 0.0),
                   kv_keep_stride=c.get("stride", 1))
         kwg = dict(kw, bq=grid[0], bk=grid[1])
-        q, k, v = flash_case(B, H, KVH, Sq, Skv, hd, c["dtype"], device,
-                             q_scale=c.get("q_scale", 1.0))
+        q, k, v = c.get("qkv") or flash_case(
+            B, H, KVH, Sq, Skv, hd, c["dtype"], device,
+            q_scale=c.get("q_scale", 1.0))
         design = fa.select_flash_design(c["dtype"], hd)
         for key in fa.design_launches:
             fa.design_launches[key] = 0
         out = fa.flash_attention(q, k, v, **kwg)
         assert fa.design_launches[design] == 1, (c["name"], design,
                                                 fa.design_launches)
-        if hd in (64, 128) and c["dtype"] in (torch.float32, torch.bfloat16):
+        if hd in fa.FAST_HD and c["dtype"] in (torch.float32,
+                                               torch.bfloat16):
             want = "tiled" if c["dtype"] == torch.float32 else "tc"
             assert design == want, (c["name"], design)
         assert design == c.get("design", design), (c["name"], design)
@@ -1071,10 +1097,27 @@ def phi4_flash_cases():
              dtype=torch.float32, window=512, cap=50.0),
         dict(name="stride2", shape=(2, 24, 8, 2048, 2048, 128),
              dtype=torch.float32, stride=2),
+        # hd 80 (the tiled hd-128 instance, dims past 80 zero-filled) and
+        # hd 256 (tc's blocks of one head, R 4 over a small grid)
         dict(name="ragged", shape=(2, 8, 2, 1000, 1500, 80),
-             dtype=torch.float32, causal=True, window=300),
+             dtype=torch.float32, causal=True, window=300, design="tiled"),
         dict(name="ragged-bf16-hd256", shape=(1, 4, 1, 777, 333, 256),
-             dtype=torch.bfloat16, causal=False),
+             dtype=torch.bfloat16, causal=False, design="tc"),
+        # "simple", which every other head size still runs: the smoke
+        # configs' (4 heads of 16 over 2 KV heads, or 1) as their training
+        # on the card gives it (2 x 1024 tokens, causal; gemma2's smoke
+        # window 32 and softcap 50, q x 16 so that the cap bites)
+        dict(name="smoke-gqa-fp32", shape=(2, 4, 2, 1024, 1024, 16),
+             dtype=torch.float32, design="simple"),
+        dict(name="smoke-gqa-bf16", shape=(2, 4, 2, 1024, 1024, 16),
+             dtype=torch.bfloat16, design="simple"),
+        dict(name="smoke-mqa-fp32", shape=(2, 4, 1, 1024, 1024, 16),
+             dtype=torch.float32, design="simple"),
+        dict(name="smoke-mqa-bf16", shape=(2, 4, 1, 1024, 1024, 16),
+             dtype=torch.bfloat16, design="simple"),
+        dict(name="smoke-gqa-window-softcap-q16-fp32",
+             shape=(2, 4, 2, 1024, 1024, 16), dtype=torch.float32,
+             window=32, cap=50.0, q_scale=16.0, design="simple"),
         # the tiled design off its cell: ragged Sq != Skv both ways, a
         # window over the KV tail, and hd 64
         dict(name="ragged-hd128", shape=(2, 6, 2, 1000, 1500, 128),
@@ -4070,21 +4113,26 @@ def gemma2_flash_cases():
                  dtype=torch.bfloat16, cap=50.0, q_scale=16.0, design="tc")]
 
 
-def gemma2_flash(device, iters=5):
-    """``check_flash`` at ``gemma2_flash_cases``, then the same shapes
-    through ``scaled_dot_product_attention`` without the softcap (no single
-    library call computes one): the library column, with the backend
-    PyTorch picks and with cuDNN's forced (None where cuDNN refuses the
-    call)."""
+def flash_cudnn(device, cases, iters=5):
+    """``check_flash`` at ``cases`` (causal or windowed), then the same
+    shapes through ``scaled_dot_product_attention`` without a softcap (no
+    single library call computes one): the library column, with the
+    backend PyTorch picks and with cuDNN's forced (None where cuDNN refuses
+    the call). Each case's inputs are drawn once for both. Returns
+    ``check_flash``'s rows, each with ``cudnn_ms``."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
-    rows = check_flash(device, gemma2_flash_cases(), iters=iters)
-    for c, r in zip(gemma2_flash_cases(), rows):
+    rows = []
+    for c in cases:
+        B, H, KVH, Sq, Skv, hd = c["shape"]
+        q, k, v = flash_case(B, H, KVH, Sq, Skv, hd, c["dtype"], device,
+                             q_scale=c.get("q_scale", 1.0))
+        r, = check_flash(device, [dict(c, qkv=(q, k, v))], iters=iters)
+        rows.append(r)
+        r["cudnn_ms"] = None
         if "q_scale" in c:           # the unscaled case's library column
             continue
-        B, H, KVH, Sq, Skv, hd = c["shape"]
-        q, k, v = flash_case(B, H, KVH, Sq, Skv, hd, c["dtype"], device)
         kw = (dict(attn_mask=flash_kept(Sq, Skv, dict(
             causal=True, window=c["window"], kv_keep_stride=1), device))
               if c.get("window") else dict(is_causal=True))
@@ -4099,12 +4147,14 @@ def gemma2_flash(device, iters=5):
         except RuntimeError as e:
             print(f"flash_attention {c['name']}: cuDNN refuses: "
                   f"{str(e).splitlines()[0][:160]}")
+        r["cudnn_ms"] = cudnn
         print(f"flash_attention {c['name']}: scaled_dot_product_attention "
               f"without the softcap {lib:.4f} ms (cuDNN forced: "
               f"{'null' if cudnn is None else f'{cudnn:.4f} ms'}), kernel "
               f"{r['ms']:.4f} ms ({r['ms'] / lib:.2f}x)")
         del q, k, v
         torch.cuda.empty_cache()
+    return rows
 
 
 def dense_cell(device):
@@ -4138,7 +4188,7 @@ def dense_cell(device):
     drop_int8_weights()
     gc.collect()
     torch.cuda.empty_cache()
-    gemma2_flash(device)
+    flash_cudnn(device, gemma2_flash_cases())
     gc.collect()
     torch.cuda.empty_cache()
     done("flash")
@@ -4148,6 +4198,144 @@ def dense_cell(device):
     print(f"serve-dense memory: before {before / 2 ** 30:.2f} GiB, peak "
           f"{peak / 2 ** 30:.2f} GiB, after {after / 2 ** 30:.2f} GiB")
     return launches
+
+
+# ----------------------------------------------------------- serve-gemma3 --
+
+GEMMA3_ARCH = "gemma3-12b"
+# 6 of its 48 layers: one 5:1 period, five local layers (window 1024) and
+# one global, at full width (16 heads of 256 over 8 KV heads); cut to keep
+# the phase in ~30 s of the script's time limit
+GEMMA3_LAYERS = 6
+GEMMA3_LEN = 8192             # prefill_with_cache's prompt, and max_len
+GEMMA3_CHUNK = 512            # chunked admission's chunk
+
+
+def gemma3_flash_cases():
+    """``flash_attention`` at the handoff's shapes: gemma3-12b's heads over
+    one ``GEMMA3_LEN``-token prompt in bf16, causal (the global layer) and
+    window 1024 (the local ones); gemma3 has no softcap."""
+    import torch
+    shape = (1, 16, 8, GEMMA3_LEN, GEMMA3_LEN, 256)
+    return [dict(name="gemma3-global-bf16", shape=shape,
+                 dtype=torch.bfloat16, design="tc"),
+            dict(name="gemma3-local-bf16", shape=shape, dtype=torch.bfloat16,
+                 window=1024, design="tc")]
+
+
+def gemma3_handoff(device):
+    """gemma3-12b cut to ``GEMMA3_LAYERS`` layers at full width, bf16,
+    random weights from seed 0: ``prefill_with_cache`` on one prompt of
+    ``GEMMA3_LEN`` tokens, its attention through ``ops.flash`` (one
+    ``flash_attention`` launch a layer, all of design tc, none simple, each
+    timed by CUDA events around the call), launch counters zeroed just
+    before and read just after; its first-token logits against chunked
+    admission's (``_chunked_prefill``, chunks of ``GEMMA3_CHUNK``) within
+    ``DENSE_LOGIT_TOL`` of their rms, and the rings each hands to decode
+    within the same of theirs. Returns the launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.lm import init_lm
+    from repro_torch.serve import prefill as prefill_mod
+    from repro_torch.serve.engine import ServeEngine
+    cfg = dataclasses.replace(get_config(GEMMA3_ARCH),
+                              n_layers=GEMMA3_LAYERS)
+    t0 = time.perf_counter()
+    params = init_lm(cfg, 0, torch.bfloat16, device)
+    S = GEMMA3_LEN
+    prompt = list(map(int, np.random.default_rng(13).integers(
+        1, cfg.vocab_size, S)))
+    calls, flash = [], kops.flash
+
+    def timed_flash(*a, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        o = flash(*a, **kw)
+        ev[1].record()
+        calls.append((ev, kw.get("window", 0)))
+        return o
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    reset_launches()
+    kops.flash = timed_flash
+    try:
+        t0 = time.perf_counter()
+        logits_pf, caches_pf = prefill_mod.prefill_with_cache(
+            params, torch.tensor([prompt], device=device), cfg, S)
+        torch.cuda.synchronize()
+        pf_s = time.perf_counter() - t0
+    finally:
+        kops.flash = flash
+    launches = read_launches()
+    designs = {k: n for k, n in fa.design_launches.items() if n}
+    assert launches["flash_attention"] == cfg.n_layers == len(calls), \
+        (launches, len(calls))
+    assert designs == {"tc": cfg.n_layers}, designs
+    assert torch.isfinite(logits_pf).all()
+    assert logits_pf.shape == (1, cfg.vocab_size), logits_pf.shape
+    ms = [(w, a.elapsed_time(b)) for (a, b), w in calls]
+    eng = ServeEngine(cfg, batch_slots=1, max_len=S, params=params,
+                      prefill_chunk=GEMMA3_CHUNK, cache_dtype=torch.bfloat16,
+                      device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits_ck, caches_ck = eng._chunked_prefill(prompt)
+    torch.cuda.synchronize()
+    ck_s = time.perf_counter() - t0
+    a, b = logits_pf.float(), logits_ck.float()
+    gate = float((a - b).abs().max() / b.pow(2).mean().sqrt())
+    assert gate <= DENSE_LOGIT_TOL, gate
+    kv_err = ring_kv_err(caches_pf, caches_ck, S)
+    assert kv_err <= DENSE_LOGIT_TOL, kv_err
+    print(f"serve-gemma3 {GEMMA3_ARCH} ({GEMMA3_LAYERS} layers) "
+          f"prefill_with_cache: {S} tokens in {1e3 * pf_s:.1f} ms (init "
+          f"{init_s:.1f} s; chunked admission {1e3 * ck_s:.1f} ms), "
+          f"launches {launches}, flash_attention by design {designs}; "
+          f"first-token logits max |diff| {gate:.4f} of their rms (tol "
+          f"{DENSE_LOGIT_TOL}); rings hold the same positions, K/V max "
+          f"|diff| {kv_err:.4f} of their rms; greedy first tokens equal "
+          f"{int(logits_pf.argmax(-1) == logits_ck.argmax(-1))}")
+    for kind in sorted({w for w, _ in ms}):
+        each = [t for w, t in ms if w == kind]
+        print(f"serve-gemma3 prefill_with_cache flash_attention "
+              f"{'window ' + str(kind) if kind else 'causal'}: "
+              f"{len(each)} calls, ms {[round(t, 4) for t in each]}")
+    return launches
+
+
+def gemma3_cell(device):
+    """Phase ``serve-gemma3``: ``flash_attention`` at gemma3-12b's prefill
+    shapes (with cuDNN's time beside it), then the ``prefill_with_cache``
+    handoff; device memory before, at peak and after. Returns the
+    handoff's launches and the flash rows."""
+    import gc
+
+    import torch
+    drop_int8_weights()
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    rows = flash_cudnn(device, gemma3_flash_cases())
+    flash_s = time.perf_counter() - t
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = gemma3_handoff(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"serve-gemma3 seconds: flash {flash_s:.1f}, handoff "
+          f"{time.perf_counter() - t - flash_s:.1f}")
+    peak = torch.cuda.max_memory_allocated()
+    after = torch.cuda.memory_allocated()
+    print(f"serve-gemma3 memory: before {before / 2 ** 30:.2f} GiB, peak "
+          f"{peak / 2 ** 30:.2f} GiB, after {after / 2 ** 30:.2f} GiB")
+    return launches, rows
 
 
 # -------------------------------------------------------------- serve-ssm --
@@ -4289,6 +4477,19 @@ def check_ssd_state(device, cases, iters=10):
                   f"plain_ms={plain:.4f} library_ms=null "
                   f"bound_ms={bound:.5f} ({by})")
     return rows
+
+
+def zamba2_flash_cases():
+    """``flash_attention`` at the handoff's shape: zamba2-2.7b's shared
+    attention (MHA, 32 heads of 80) over one ``SSM_HANDOFF_LEN``-token
+    prompt, causal, in bf16 ("tc") and fp32 ("tiled", the witness's
+    dtype)."""
+    import torch
+    shape = (1, 32, 32, SSM_HANDOFF_LEN, SSM_HANDOFF_LEN, 80)
+    return [dict(name="zamba2-handoff-bf16", shape=shape,
+                 dtype=torch.bfloat16, design="tc"),
+            dict(name="zamba2-handoff-fp32", shape=shape,
+                 dtype=torch.float32, design="tiled")]
 
 
 def zamba2_paged_cases():
@@ -4648,8 +4849,8 @@ def state_gaps(caches_a, caches_b):
 def ssm_handoff(res, device):
     """``prefill_with_cache`` on one prompt of ``SSM_HANDOFF_LEN`` tokens at
     the cell's width (precise): an ``ssd_scan`` call with the final state
-    out a Mamba layer and a ``flash_attention`` call (hd 80: design
-    simple) a shared-attention layer, against
+    out a Mamba layer and a ``flash_attention`` call (hd 80: design tc in
+    bf16, tiled in fp32, none simple) a shared-attention layer, against
     chunked admission (the dense engine's ``_chunked_prefill``). In bf16
     (the cell's weights): the first-token logits within ``SSM_LOGIT_TOL``
     of their rms, the Mamba states each hands to decode within
@@ -4691,8 +4892,9 @@ def ssm_handoff(res, device):
         n_attn = sum(k == SHARED_ATTN for k in cfg.kinds())
         assert launches["ssd_scan"] == ssd_scan.FWD_PASSES * (
             cfg.n_layers - n_attn), launches
+        want = "tiled" if cache_dtype == torch.float32 else "tc"
         assert launches["flash_attention"] == n_attn \
-            and designs == {"simple": n_attn}, (launches, designs)
+            and designs == {want: n_attn}, (launches, designs)
         eng = ServeEngine(cfg, batch_slots=1, max_len=SSM_CTX,
                           params=params, prefill_chunk=SSM_CHUNK,
                           cache_dtype=cache_dtype, device=device)
@@ -4729,12 +4931,12 @@ def ssm_handoff(res, device):
 
 def ssm_cell(device):
     """Phase ``serve-ssm``: ``ssd_scan`` with the state in and out,
-    ``paged_attention``, ``int8_matmul`` and ``quantize_rows`` at the
-    path's zamba2-2.7b shapes, small-config parity, the cell's serve run,
-    the rung walk, the megastep, a prefix hit and the
-    ``prefill_with_cache`` handoff; device memory before, at peak and
-    after. Returns (the serve run's launches, the ``ssd_scan`` rows, the
-    ``paged_attention`` rows)."""
+    ``flash_attention``, ``paged_attention``, ``int8_matmul`` and
+    ``quantize_rows`` at the path's zamba2-2.7b shapes, small-config
+    parity, the cell's serve run, the rung walk, the megastep, a prefix hit
+    and the ``prefill_with_cache`` handoff; device memory before, at peak
+    and after. Returns (the serve run's launches, the ``ssd_scan`` rows,
+    the ``paged_attention`` rows, the ``flash_attention`` rows)."""
     import gc
 
     import torch
@@ -4750,6 +4952,7 @@ def ssm_cell(device):
         secs[name] = round(time.perf_counter() - t, 1)
         t = time.perf_counter()
     rows = check_ssd_state(device, ssd_state_cases())
+    fa_rows = check_flash(device, zamba2_flash_cases(), iters=5)
     pa_rows = check_paged(device, zamba2_paged_cases())
     check_int8(device, zamba2_int8_shapes())
     check_quantize(device, zamba2_quantize_shapes())
@@ -4775,7 +4978,7 @@ def ssm_cell(device):
     after = torch.cuda.memory_allocated()
     print(f"serve-ssm memory: before {before / 2 ** 30:.2f} GiB, peak "
           f"{peak / 2 ** 30:.2f} GiB, after {after / 2 ** 30:.2f} GiB")
-    return launches, rows, pa_rows
+    return launches, rows, pa_rows, fa_rows
 
 
 # -------------------------------------------------------------- serve-moe --
@@ -5478,7 +5681,8 @@ def encdec_flash_cases():
     decoder's causal self-attention (448 tokens) and cross attention (448
     queries over 1500 frames), the decode step's cross attention (8 rows,
     one query over 1500 frames), and paligemma-3b's MQA (8 heads of 256
-    over one K/V head, 512 tokens), each in fp32 and bf16."""
+    over one K/V head, 512 tokens), each in fp32 ("tiled") and bf16
+    ("tc")."""
     import torch
     B, H = ENC_BATCH, 20
     F, T = 1500, ENC_SEQ
@@ -5496,7 +5700,7 @@ def encdec_flash_cases():
                      causal=False, design=tc),
                 dict(name=f"paligemma-{tag}",
                      shape=(VLM_BATCH, 8, 1, 2 * VLM_TEXT, 2 * VLM_TEXT, 256),
-                     dtype=dt, design="simple")]
+                     dtype=dt, design=tc)]
     return out
 
 
@@ -5828,7 +6032,7 @@ def vlm_train(device):
     each rung pinned by ``table.executable(i)`` (median step time, peak
     memory, launches a step); then ``make_prefill_fn`` in bf16 on the same
     batch shape: logits finite, one ``flash_attention`` launch of design
-    "simple" a layer (hd 256). Returns the run's launches."""
+    "tc" a layer (hd 256), none "simple". Returns the run's launches."""
     import numpy as np
     import torch
     from repro_torch.kernels import flash_attention as fa
@@ -5880,7 +6084,8 @@ def vlm_train(device):
         ms = timed(lambda: prefill(p16, batch), device, 3, warmup=1)
     assert logits.shape == (VLM_BATCH, cfg.vocab_size), logits.shape
     assert torch.isfinite(logits).all()
-    assert n == cfg.n_layers and designs["simple"] == n, (n, designs)
+    assert n == cfg.n_layers and designs["tc"] == n \
+        and designs["simple"] == 0, (n, designs)
     print(f"prefill {VLM_ARCH} bf16: logits {tuple(logits.shape)} finite, "
           f"{n} flash_attention launches by design {designs}, {ms:.2f} ms")
     del p16
@@ -5972,7 +6177,10 @@ def main():
 
     t0 = time.perf_counter()
     secs = _build.build_all()
-    print(f"build: {secs:.2f}s for {', '.join(_build.SOURCES)}")
+    print(f"build: {secs:.2f}s for "
+          + ", ".join(f"{n} {_build.build_seconds[n]:.2f}s"
+                      if n in _build.build_seconds else n
+                      for n in _build.SOURCES))
     for name, log in _build.ptxas_log.items():
         seen = dict.fromkeys(line.split(":", 1)[-1].strip()
                              for line in log.splitlines()
@@ -6131,7 +6339,9 @@ def main():
     phase_done("colocate")
     dense_launches = dense_cell(device)
     phase_done("serve-dense")
-    ssm_launches, ssm_rows, ssm_pa_rows = ssm_cell(device)
+    gemma3_launches, gemma3_fa_rows = gemma3_cell(device)
+    phase_done("serve-gemma3")
+    ssm_launches, ssm_rows, ssm_pa_rows, ssm_fa_rows = ssm_cell(device)
     phase_done("serve-ssm")
     moe_launches, moe_i8_rows = moe_cell(device)
     phase_done("serve-moe")
@@ -6165,6 +6375,7 @@ def main():
                       "serve-elastic": elastic_launches[name],
                       "colocate": colo_launches[name],
                       "serve-dense": dense_launches[name],
+                      "serve-gemma3": gemma3_launches[name],
                       "serve-ssm": ssm_launches[name],
                       "serve-moe": moe_launches[name],
                       "train-encdec": enc_launches[name],
@@ -6182,6 +6393,16 @@ def main():
     fa_encdec = [{k: r[k] for k in (
         "name", "shape", "design", "ms", "plain_ms", "library_ms",
         "bound_ms", "bound_by", "max_abs_err")} for r in enc_fa_rows]
+    # hd 80 (zamba2's handoff) and hd 256 (gemma3-12b's prefill)
+    fa_hd = [{k: r.get(k) for k in (
+        "name", "shape", "design", "ms", "plain_ms", "library_ms",
+        "cudnn_ms", "bound_ms", "bound_by", "max_abs_err")}
+        for r in ssm_fa_rows + gemma3_fa_rows]
+    # "simple" at the smoke configs' hd 16
+    fa_simple = [{k: r[k] for k in (
+        "name", "shape", "ms", "plain_ms", "library_ms", "bound_ms",
+        "bound_by", "max_abs_err")} for r in fa_rows
+        if r["design"] == "simple"]
     # ssd_scan with the state in and out at zamba2's admission chunk
     ssm_row = next(r for r in ssm_rows if r["shape"] == (1, 128, 80, 64, 64)
                    and r["dtype"] == "bf16")
@@ -6220,11 +6441,14 @@ def main():
                          **(paged_ring if name == "paged_attention"
                             else {}),
                          **(ssd_state if name == "ssd_scan" else {}),
-                         **({"design": r["design"], "tc": {
+                         **({"design": r["design"],
+                             "tc_source": "src/repro_torch/csrc/flash_tc.cu",
+                             "tc": {
                              k: tc_row[k] for k in (
                                  "name", "ms", "plain_ms", "library_ms",
                                  "bound_ms", "sfu_ms", "max_abs_err")},
-                             "encdec": fa_encdec}
+                             "encdec": fa_encdec, "hd80_256": fa_hd,
+                             "simple": fa_simple}
                             if name == "flash_attention" else {})))
     print(f"chip_smoke: {time.perf_counter() - t0:.1f}s by its own clock")
     print(json.dumps({"kernels": line}))

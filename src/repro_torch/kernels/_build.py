@@ -17,11 +17,12 @@ import pathlib
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Set, Tuple
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD = pathlib.Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("flash_attention", "int8_matmul", "paged_attention",
+SOURCES = ("flash_attention", "flash_tc", "int8_matmul", "paged_attention",
            "quantize_rows", "ring_hop", "ssd_scan")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -29,6 +30,7 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _TYPED: Set[Tuple[str, str]] = set()   # (library, entry) given argtypes
 ptxas_log: Dict[str, str] = {}       # nvcc's -Xptxas -v report per source
+build_seconds: Dict[str, float] = {}  # each source's nvcc wall seconds
 
 
 def _nvcc() -> str:
@@ -50,7 +52,8 @@ def _so_path(name: str) -> pathlib.Path:
 
 def build_all() -> float:
     """Compile every source whose library is missing, in parallel. Returns
-    the wall seconds spent (0 when everything was already built)."""
+    the wall seconds spent (0 when everything was already built); each
+    source's own seconds go to ``build_seconds``."""
     t0 = time.perf_counter()
     todo = [(n, _so_path(n)) for n in SOURCES if not _so_path(n).exists()]
     procs = []
@@ -61,10 +64,16 @@ def build_all() -> float:
         cmd = [nvcc, *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs.append((name, so, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+
+    def wait(p):
+        out = p.communicate()
+        return out, time.perf_counter() - t0
+    with ThreadPoolExecutor(max(1, len(procs))) as pool:
+        done = list(pool.map(wait, [p for *_, p in procs]))
     failed = []
-    for name, so, tmp, p in procs:
-        out, err = p.communicate()
+    for (name, so, tmp, p), ((out, err), secs) in zip(procs, done):
         ptxas_log[name] = out + err
+        build_seconds[name] = secs
         if p.returncode:
             failed.append(f"nvcc failed on {name}.cu:\n{out}{err}")
         else:

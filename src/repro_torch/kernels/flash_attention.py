@@ -1,6 +1,7 @@
 """Blocked online-softmax (flash) attention: the CUDA kernel
-``csrc/flash_attention.cu``, its plain PyTorch version, and the autograd
-Function the model calls.
+``csrc/flash_attention.cu`` (its "tc" design in ``csrc/flash_tc.cu``, a
+library of its own), its plain PyTorch version, and the autograd Function
+the model calls.
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/flash_attention.py``
 (``flash_attention`` / ``_kernel``). q (B,H,Sq,hd) attends over k/v
@@ -33,14 +34,20 @@ the kernel at (128, 128) and stride 1, where causal rows are never fully
 masked and the grid changes no result.
 
 The kernel has three designs (``select_flash_design``), each bound by its
-products at the paths' shapes. "tc" for bf16 at hd 64 or 128 (serving's
-``prefill_with_cache``): ``wgmma`` on the tensor cores fed by TMA, a block
-holding one 64-row query tile of a KV head's query heads (up to 3, over
-key tiles of 128 keys, or 64 for a block of 3 heads), so each K/V tile is
-staged once for a GQA group. "tiled" for fp32 at hd 64 or 128 (the
-training path: 8 x 8 register tiles of fp32 FMAs, K/V streamed through
-``cp.async`` stages, 64-row query tiles over 128-key tiles). "simple" for other dtypes
-and head sizes. ``tile_walk`` mirrors the key tiles "tc" and "tiled" visit.
+products at the paths' shapes; "tc" and "tiled" take hd 64, 80, 128 and
+256 (hd 80 through their hd-128 instances, the dims past 80 zero-filled
+and never stored). "tc" for bf16 (serving's ``prefill_with_cache``, the
+VLM's bf16 prefill): ``wgmma`` on the tensor cores fed by TMA, a block
+holding one 64-row query tile of a KV head's query heads (up to 3 over
+key tiles of 128 keys, or 64 for a block of 3 heads; at hd 256 up to 2
+over 64-key tiles, a 64 x 256 fp32 output taking 128 registers of a
+consumer thread), so each K/V tile is staged once for a GQA group.
+"tiled" for fp32 (the training paths: register tiles of fp32 FMAs, K/V
+streamed through ``cp.async`` stages, 64-row query tiles over 128-key
+tiles; at hd 256 two halves of 128 threads, each owning half the keys of
+a score tile and half the output dims). "simple" for fp32 and bf16 at
+every other head size (the smoke configs' hd 16). ``tile_walk`` mirrors
+the key tiles "tc" and "tiled" visit.
 ``flash_attention`` runs the plain version for a CPU tensor and launches the
 kernel for a CUDA tensor, raising on anything else; it never falls back.
 ``FlashAttention`` wraps it for autograd. The Pallas call has no JVP rule,
@@ -65,17 +72,23 @@ TILE_Q, TILE_K = 64, 128   # the tiled design's query rows and keys a tile
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
 _DESIGNS = {"simple": 0, "tiled": 1, "tc": 2}
+# (library, C entry) of each design: tc is a source of its own, which
+# compiles beside flash_attention.cu
+_ENTRIES = {"simple": ("flash_attention", "flash_attention"),
+            "tiled": ("flash_attention", "flash_attention"),
+            "tc": ("flash_tc", "flash_attention_tc")}
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 \
     + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 _HD_MAX = 256
+FAST_HD = (64, 80, 128, 256)   # the head sizes "tc" and "tiled" take
 
 
 def select_flash_design(dtype, hd: int) -> str:
     """The kernel design for inputs of ``dtype`` and head size ``hd``:
-    "tc" for bf16 at hd 64 or 128 (TMA boxes of 64 dims), "tiled" for fp32
-    at hd 64 or 128 (a thread owns 4 output dims of every 64), "simple"
-    otherwise."""
-    if hd in (64, 128):
+    "tc" for bf16 and "tiled" for fp32 at a head size of ``FAST_HD`` (hd
+    80 on their hd-128 instances: TMA boxes and ``cp.async`` copies past
+    dim 80 land as zeros), "simple" otherwise."""
+    if hd in FAST_HD:
         if dtype == torch.bfloat16:
             return "tc"
         if dtype == torch.float32:
@@ -109,10 +122,12 @@ def tile_walk(Sq, Skv, *, causal, window, kv_keep_stride, bq, bk,
               tile_q=TILE_Q, tile_k=TILE_K):
     """The key tiles (of ``tile_k`` keys) a design visits for each query
     tile (of ``tile_q`` rows), in order: a list per query tile; the tiled
-    design's tiles by default, which are also tc's for blocks of 1 or 2
-    heads (tc takes 64-key tiles for blocks of 3, as the header of
-    ``csrc/flash_attention.cu`` sets out). The kernels' rule, on the
-    caller's (bq, bk) grid clipped to the shapes:
+    design's tiles by default (at every head size), which are also tc's
+    for blocks of 1 or 2 heads at hd 64-128 (tc takes 64-key tiles for
+    blocks of 3, and at hd 256, and for MHA 128 query rows a block, two
+    64-row tiles of one head, as the header of ``csrc/flash_tc.cu`` sets
+    out). The kernels' rule, on the caller's (bq, bk) grid clipped to the
+    shapes:
     causal keys stop at the running blocks' reach of the tile's last row,
     a window starts the walk at the first tile that can hold a running
     block's key, and a tile is visited when it keeps an entry
@@ -276,7 +291,8 @@ def _launch(q, k, v, causal, window, cap, stride, bq, bk):
         return out
     args, design = launch_args(q, k, v, out, causal, window, cap, stride, bq,
                                bk)
-    rc = _build.load("flash_attention", _ARGTYPES).flash_attention(*args)
+    lib, entry = _ENTRIES[design]
+    rc = getattr(_build.load(lib, _ARGTYPES, entry), entry)(*args)
     if rc:
         raise RuntimeError(f"flash_attention: launch failed, cudaError {rc}")
     launches += 1

@@ -2,10 +2,11 @@
 the CPU.
 
 The CUDA kernels take 64 query rows a block and visit key tiles of 128 keys
-(tiled; tc for blocks of 1 or 2 query heads) or 64 (tc for blocks of 3);
-which tiles they visit is a rule on the caller's (bq, bk) block grid that
-``tile_walk`` mirrors. Here the rule is held, for both tile widths, to what
-the function needs:
+(tiled; tc for blocks of 1 or 2 query heads) or 64 (tc for blocks of 3,
+and at hd 256); tc's row split (MHA) takes 128 query rows a block over
+either key tile; which tiles they visit is a rule on the caller's (bq, bk)
+block grid that ``tile_walk`` mirrors. Here the rule is held, for every
+tile shape, to what the function needs:
 every tile holding a kept entry (``block_runs & entry_mask``) and every tile
 a still-masked row needs (its entries of running blocks weigh 1 while the
 row has kept nothing), and attention computed from the visited tiles alone
@@ -45,18 +46,24 @@ CASES = {
     "card-stride2-hd64": (1100, 1100, dict(causal=True, kv_keep_stride=2),
                           128, 128),
     "card-grid48x80": (700, 500, dict(causal=True, window=97), 48, 80),
+    # gemma3-12b's local layers (window 1024), cut from 8192 tokens
+    "card-window1024": (2048, 2048, dict(causal=True, window=1024), 128,
+                        128),
 }
 
 # (tile_q, tile_k) of each walk: "tiled" is also tc's walk for blocks of 1
-# or 2 heads, "tc64" tc's for blocks of 3
-WALKS = {"tiled": (fa.TILE_Q, fa.TILE_K), "tc64": (64, 64)}
+# or 2 heads at hd <= 128, "tc64" tc's for blocks of 3 and at hd 256, and
+# "tc-rows" / "tc-rows64" tc's row split (R 1: two 64-row query tiles of
+# one head a block) over 128- and 64-key tiles
+WALKS = {"tiled": (fa.TILE_Q, fa.TILE_K), "tc64": (64, 64),
+         "tc-rows": (128, 128), "tc-rows64": (128, 64)}
 
 
 def _by_walk(names):
-    """The cases ``names`` over both walks; the tiled walk's keep their
+    """The cases ``names`` over every walk; the tiled walk's keep their
     case's name as id."""
-    return [pytest.param(n, "tiled", id=n) for n in names] \
-        + [pytest.param(n, "tc64", id=f"{n}-tc64") for n in names]
+    return [pytest.param(n, w, id=n if w == "tiled" else f"{n}-{w}")
+            for w in WALKS for n in names]
 
 
 def _masks(Sq, Skv, kw, bq, bk, tile_k):
@@ -171,14 +178,16 @@ def test_walk_skips_what_causal_and_stride_leave_out():
 
 @pytest.mark.parametrize("dtype,hd,design", [
     (torch.float32, 128, "tiled"), (torch.float32, 64, "tiled"),
-    (torch.float32, 16, "simple"), (torch.float32, 80, "simple"),
-    (torch.float32, 256, "simple"), (torch.bfloat16, 128, "tc"),
+    (torch.float32, 16, "simple"), (torch.float32, 80, "tiled"),
+    (torch.float32, 256, "tiled"), (torch.bfloat16, 128, "tc"),
     (torch.bfloat16, 64, "tc"), (torch.float64, 128, "simple"),
-    (torch.bfloat16, 16, "simple"), (torch.bfloat16, 80, "simple"),
-    (torch.bfloat16, 256, "simple")])
+    (torch.bfloat16, 16, "simple"), (torch.bfloat16, 80, "tc"),
+    (torch.bfloat16, 256, "tc")])
 def test_select_flash_design(dtype, hd, design):
-    """phi4-mini's training attention (fp32, hd 128) takes the tiled design,
-    bf16 at hd 64 and 128 (gemma2-27b's and phi4-mini's serving) the tc one;
-    other dtypes and head sizes the simple one."""
+    """Training attention (fp32) takes the tiled design and bf16 the tc one
+    at hd 64, 80, 128 and 256 (whisper's, zamba2-2.7b's, phi4-mini's and
+    gemma2-27b's, paligemma-3b's and gemma3-12b's heads); other dtypes and
+    head sizes (fp64, which the card's wrapper refuses; the smoke configs'
+    hd 16) the simple one."""
     assert fa.select_flash_design(dtype, hd) == design
 
