@@ -61,11 +61,12 @@ Phases, each reported on its own line:
              tokens, no remat) and phi4-mini-3.8b-smoke (2 x 1024 tokens,
              remat "full"; 2 x 4096 until its CPU run's ~45 s was cut to
              keep the script in its time limit) trained in fp32 three steps on each training
-             rung, on the card and on the CPU from the same weights: the
-             losses must agree. phi4-mini-3.8b-smoke served in fp32 under
-             a 4x1 mesh on every serving rung: the ring engine on the card,
-             the same engine on the CPU and the single-device engine on the
-             card give the same greedy streams.
+             rung, on the card (each rung's step one CUDA graph, its first
+             step the eager warm-up) and on the CPU (eager) from the same
+             weights: the losses must agree. phi4-mini-3.8b-smoke served in
+             fp32 under a 4x1 mesh on every serving rung: the ring engine
+             on the card, the same engine on the CPU and the single-device
+             engine on the card give the same greedy streams.
 4. serve     the serving slice at full width: ``repro_torch.launch.serve``
              on phi4-mini-3.8b (16 of its 32 layers, bf16, random
              weights) under a QoS
@@ -89,21 +90,29 @@ Phases, each reported on its own line:
 5. profile   ``torch.profiler`` over decode steps of a full batch per rung.
 6. train     the training slice at full width: ``repro_torch.launch.train``
              on mamba2-780m (24 of its 48 layers, fp32 params, batch 4 x
-             1024 tokens, random weights) under ``--pliant``, launch
-             counters zeroed just before and read just after; then each
-             training rung pinned by
-             ``table.executable(i)`` (median step time, peak memory) and one
-             profiled step per rung (device-busy share, largest kernels).
+             1024 tokens, random weights) under ``--pliant``, each rung's
+             step one CUDA graph (captured at its first step, which runs
+             eagerly), launch counters zeroed just before and read just
+             after, each graph's replays counted in; then, from one state,
+             three steps over a rung switch (precise, int8, int8+drop50%)
+             through the graphs and through the eager steps they wrap:
+             losses, grad norms, parameters and AdamW moments equal bit
+             for bit; then each training rung pinned, replayed and eager
+             (median step time, peak memory, the graph's capture seconds
+             and pool, host syncs in a replayed step: none), and one
+             profiled step per rung each way (device-busy share, largest
+             kernels, device time between CUDA events).
 7. train-attn  the dense-attention training slice at full width:
              ``repro_torch.launch.train.main(..., remat="full")`` on
              phi4-mini-3.8b (8 of its 32 layers, fp32 params and AdamW,
              batch 2 x 4096 tokens, random weights) under ``--pliant``,
-             launch
-             counters zeroed just before and read just after; then each
-             rung pinned (median step time, peak memory, launches a step),
-             the int8 rung again with its causal attention through
-             ``_causal_chunked`` at stride 1 (the stride rung less its
-             perforation), and one profiled step per rung.
+             as phase 6 (graphs, launches, the bit-for-bit witness over
+             precise, int8 and int8+drop50%); then each rung pinned,
+             replayed and eager, the int8 rung again with its causal
+             attention through ``_causal_chunked`` at stride 1 (the stride
+             rung less its perforation; eager, since the patch cannot
+             reach a graph captured before it), and one profiled replayed
+             step per rung.
 8. serve-ring  ring-attention admission at full width: phi4-mini-3.8b
              (32 layers, bf16, random weights) served under a 4x1 mesh on
              the one card (4 sequence shards run in turn), 4 slots, max_len
@@ -127,8 +136,9 @@ Phases, each reported on its own line:
              and mamba2-780m training (24 of its 48 layers, fp32 params
              and AdamW,
              1 x 512 tokens, 8 duty-cycle quanta, a decision every 1 s)
-             on the one card, serially on one stream; first each training
-             rung's step time at that shape. Four runs on the same
+             on the one card, serially on one stream, the train steps one
+             CUDA graph a rung; first each training rung's step time at
+             that shape, replayed and eager. Four runs on the same
              weights, requests and seeds: (a) serve alone in a loop of
              this script's, (b) precise colocation (QoS target 1000 s, no
              action), (c) Pliant with the interference-aware arbiter and
@@ -138,9 +148,11 @@ Phases, each reported on its own line:
              admission times, train steps, rungs, quality loss and final
              loss, actions and what the monitor read, final variants,
              pages and quanta reclaimed, int8 weight cache drops and
-             misses, device memory before, at peak and after; the streams
+             misses, the train graphs (captures, seconds, replays),
+             device memory before, at peak and after; the streams
              of (b) equal to (a)'s; launch counters zeroed just before
-             and read just after (c). Checks: every request done, train
+             and read just after (c), the train graphs' replays counted
+             in. Checks: every request done, train
              steps in (b)-(d), no action in (b), in (c) and (d) decisions
              made and an action for every one that read a violation,
              the int8 kernels launched where (c) ran an int8 rung, the
@@ -286,12 +298,14 @@ Phases, each reported on its own line:
              launch) bit for bit, timed; flash's backward at paligemma's
              shape, its gradients and peak memory. whisper-large-v3-smoke
              and paligemma-3b-smoke trained in fp32 three steps a rung on
-             the card and on the CPU from the same weights: the losses
-             agree. Then ``repro_torch.launch.train`` on whisper-large-v3
-             at full width and depth (32 + 32 layers, d_model 1280, fp32
-             and AdamW, 4 x 448 tokens over 1500 frames, random weights)
-             under ``--pliant``, remat "full", launch counters zeroed
-             just before and read just after; each rung
+             the card (graphs) and on the CPU from the same weights: the
+             losses agree. Then ``repro_torch.launch.train`` on
+             whisper-large-v3 at full width and depth (32 + 32 layers,
+             d_model 1280, fp32 and AdamW, 4 x 448 tokens over 1500
+             frames, random weights)
+             under ``--pliant``, remat "full", each rung's step one CUDA
+             graph, launch counters zeroed just before and read just
+             after, the replays counted in; each rung
              pinned (median step, peak memory); its decode (8 rows, 64
              teacher-forced steps, the cross K/V recomputed every step)
              against the full forward in bf16 and, as the witness, fp32
@@ -1460,6 +1474,45 @@ def read_launches():
     return out
 
 
+def graph_marks(steps):
+    """Over the train steps ``steps`` (a table's executables), each train
+    graph's launches counted at its capture, and at its capture times its
+    replays so far (``train.step.replayed_launches``)."""
+    from repro_torch.train.step import replayed_launches
+    cap = dict.fromkeys(COUNTERS, 0)
+    for s in steps:
+        for k, n in getattr(s, "stats", {}).get("launches", {}).items():
+            cap[k] += n
+    return cap, replayed_launches(steps)
+
+
+def card_launches(steps, marks=None):
+    """The kernel launches that ran on the card since the last
+    ``reset_launches``: the wrappers' counts, with each train graph of
+    ``steps`` captured since then taken out (a capture launches nothing)
+    and its replays since then put in (a replay calls no wrapper);
+    ``marks``: ``graph_marks(steps)`` at the reset (None: no graph of
+    ``steps`` existed then)."""
+    out = read_launches()
+    cap, rep = graph_marks(steps)
+    cap0, rep0 = marks or ({}, {})
+    for k in cap:
+        out[k] += rep.get(k, 0) - rep0.get(k, 0) - cap[k] + cap0.get(k, 0)
+    return out
+
+
+def graph_line(steps):
+    """The train graphs of ``steps``: how many, capture and warm-up
+    seconds, replays, and what the captures added to the reserved device
+    memory (the shared pool)."""
+    st = [s.stats for s in steps if getattr(s, "graph", None) is not None]
+    return (f"{len(st)} graphs, capture "
+            f"{[round(g['capture_s'], 3) for g in st]} s (warm-up step "
+            f"{[round(g['warmup_s'], 3) for g in st]} s), replays "
+            f"{[g['replays'] for g in st]}, pool "
+            f"{[gib(g['pool_bytes']) for g in st]} GiB")
+
+
 def int8_designs(tag):
     """``int8_matmul``'s launches per design since the last reset, printed
     under ``tag``: a model path must take designs A and B only, never the
@@ -1534,7 +1587,9 @@ def check_train_parity(device, arch="mamba2-780m-smoke", steps=3,
     on the CPU as ``launch/train.py`` draws them): every step's loss
     within 1e-4 relative (fp32 sums in other orders, carried through
     three AdamW steps). The card run's launches must be
-    ``per_step(cfg, knobs)`` a step."""
+    ``per_step(cfg, knobs)`` a step. The card runs each rung's step as
+    the training driver does, one CUDA graph (``graphed_train_step``; its
+    first step the eager warm-up), the CPU the eager step."""
     import copy
 
     import torch
@@ -1545,7 +1600,7 @@ def check_train_parity(device, arch="mamba2-780m-smoke", steps=3,
     from repro_torch.launch.train import extra_inputs
     from repro_torch.models import api
     from repro_torch.train import optim
-    from repro_torch.train.step import make_train_step
+    from repro_torch.train.step import graphed_train_step, make_train_step
     cfg = get_config(arch)
     table = explore(cfg, ShapeConfig("cli", seq, batch, "train"),
                     serving=False, max_variants=4)
@@ -1558,8 +1613,8 @@ def check_train_parity(device, arch="mamba2-780m-smoke", steps=3,
         for d in (device, torch.device("cpu")):
             params = copy.deepcopy(cpu_params).to(d)
             opt = optim.init_opt(params)
-            step = make_train_step(cfg, v.knobs, opt_cfg=opt_cfg,
-                                   remat=remat)
+            step = graphed_train_step(make_train_step(
+                cfg, v.knobs, opt_cfg=opt_cfg, remat=remat), d)
             losses.append([])
             reset_launches()
             for i in range(steps):
@@ -1568,7 +1623,8 @@ def check_train_parity(device, arch="mamba2-780m-smoke", steps=3,
                     "tokens": tokens, **extra_inputs(cfg, batch, 0, i, d)})
                 losses[-1].append(float(m["loss"]))
             if d == device:
-                launches = read_launches()
+                launches = card_launches([step])
+                assert step.stats["replays"] == steps - 1, step.stats
                 int8_designs(f"train parity {arch} {v.name}")
                 flash_designs(f"train parity {arch} {v.name}", cfg)
         want = {k: steps * n for k, n in per_step(cfg, v.knobs).items()}
@@ -1999,19 +2055,22 @@ def train_full(device, arch, steps, batch, seq, names, per_step,
     ``repro_torch.launch.train.main`` on ``arch`` (fp32 params, random
     weights from a seed) under ``--pliant``, decisions every step, so the
     burst in the middle of the run walks the ladder ``names`` down and
-    back; ``extra`` appended to its arguments. The kernels' launch
-    counters are zeroed just before and read just after, and must equal
+    back; ``extra`` appended to its arguments. Each rung's step is one
+    CUDA graph, captured at the rung's first step. The kernels' launch
+    counters are zeroed just before and read just after, the graphs'
+    replays counted in (``card_launches``), and must equal
     ``per_step(cfg, knobs)`` summed over the rungs the run took."""
     import numpy as np
     import torch
     from repro_torch.launch import train
+    from repro_torch.train.step import GraphedTrainStep
     argv = ["--arch", arch, "--steps", str(steps), "--batch", str(batch),
             "--seq", str(seq), "--pliant", "--decision-interval", "0",
             "--device", str(device), *extra]
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     res = train.main(argv, remat=remat)
-    launches = read_launches()
+    launches = card_launches(res["steps"])
     int8_designs(f"train {arch}")
     cfg, table = res["cfg"], res["table"]
     flash_designs(f"train {arch}", cfg)
@@ -2027,56 +2086,113 @@ def train_full(device, arch, steps, batch, seq, names, per_step,
           f"{remat}, losses {[round(x, 4) for x in res['losses']]}, rungs "
           f"{walk}, step_s {[round(x, 3) for x in res['step_s']]}, data "
           f"wait s {[round(x, 4) for x in res['wait_s']]}, peak "
-          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
-          f"launches={launches}")
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+          f"allocated, {torch.cuda.max_memory_reserved() / 2 ** 30:.2f} "
+          f"reserved, launches={launches}")
+    print(f"train {arch} graphs: {graph_line(res['steps'])}")
+    assert all(isinstance(s, GraphedTrainStep) for s in res["steps"])
     assert launches == want, (launches, want)
     return res, launches
 
 
 def train_rung_walk(res, device, steps=8, per_step=None, skip=1,
-                    rungs=None, tag=""):
-    """Each rung (or those named in ``rungs``) pinned by
-    ``table.executable(i)`` on the full-width state: ``steps`` steps, the
-    median of all but the first ``skip`` (and their spread), the peak
-    device memory of those steps, and the kernel launches a step (held to
-    ``per_step``). ``tag`` follows the rung's name in the report."""
+                    rungs=None, tag="", eager=0, syncs=False):
+    """Each rung (or those named in ``rungs``) pinned on the full-width
+    state: ``steps`` steps of ``table.executable(i)`` (the rung's CUDA
+    graph) and then ``eager`` steps of the eager ``TrainStep`` it wraps,
+    called directly; for each, the median of all but the first ``skip``
+    (and their spread), the peak device memory (allocated; with the
+    graphs also reserved, which holds their pool), and the kernel launches
+    a step (held to ``per_step``; the graph's replays counted in). With
+    ``syncs``, one more replayed step runs under ``host_syncs``, which
+    must find no wait for the stream in it (a profiler session: seconds
+    at whisper's depth). ``tag`` follows the rung's name in the
+    report."""
     import numpy as np
     import torch
     from repro_torch.launch.train import extra_inputs
     table, src, cfg = res["table"], res["source"], res["cfg"]
     params, opt = res["params"], res["opt"]
+    execs = list(table.executables.values())
     out = {}
-    for i, name in enumerate(res["names"]):
-        if rungs is not None and name not in rungs:
-            continue
-        step = table.executable(i)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches()
+    k = 0
+
+    def run(step, n):
+        nonlocal params, opt, k
         times = []
-        for k in range(steps):
+        for _ in range(n):
             tokens = torch.as_tensor(src.batch(100 + k), device=device)
             batch = {"tokens": tokens, **extra_inputs(
                 cfg, tokens.shape[0], 0, 100 + k, device)}
+            k += 1
             t0 = time.perf_counter()
             params, opt, m = step(params, opt, batch)
             float(m["loss"])
             times.append(time.perf_counter() - t0)
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        per = {k: n / steps for k, n in read_launches().items() if n}
-        int8_designs(f"train rung {cfg.name} {name}{tag}")
-        flash_designs(f"train rung {cfg.name} {name}{tag}", cfg)
-        want = {k: n for k, n in per_step(cfg, table.variants[i].knobs
-                                          ).items() if n}
+        return times
+
+    def median(times):
         kept = times[skip:]
-        ms = 1e3 * float(np.median(kept))
-        out[name] = dict(step_ms=ms, peak_gib=peak, launches=per)
-        print(f"train rung {cfg.name} {name}{tag}: median step {ms:.1f} ms "
-              f"over "
-              f"{len(kept)} steps (range {1e3 * min(kept):.1f}-"
-              f"{1e3 * max(kept):.1f}, first {1e3 * times[0]:.1f} ms), "
-              f"peak {peak:.2f} GiB, launches a step {per}")
-        assert per == want, (name, per, want)
+        return 1e3 * float(np.median(kept)), kept
+
+    for i, name in enumerate(res["names"]):
+        if rungs is not None and name not in rungs:
+            continue
+        label = f"train rung {cfg.name} {name}{tag}"
+        want = {key: n for key, n in per_step(cfg, table.variants[i].knobs
+                                              ).items() if n}
+        graph = table.executable(i)
+        row = {}
+        for kind, step, n in (("captured", graph, steps),
+                              ("eager", getattr(graph, "step", graph),
+                               eager)):
+            if not n:
+                continue
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            marks = graph_marks(execs)
+            reset_launches()
+            times = run(step, n)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            reserved = torch.cuda.max_memory_reserved() / 2 ** 30
+            per = {key: c / n for key, c in card_launches(execs, marks
+                                                          ).items() if c}
+            int8_designs(f"{label} {kind}")
+            flash_designs(f"{label} {kind}", cfg)
+            ms, kept = median(times)
+            row[kind] = dict(step_ms=ms, peak_gib=peak, reserved_gib=reserved,
+                             launches=per)
+            print(f"{label} {kind}: median step {ms:.1f} ms over "
+                  f"{len(kept)} steps (range {1e3 * min(kept):.1f}-"
+                  f"{1e3 * max(kept):.1f}, first {1e3 * times[0]:.1f} ms), "
+                  f"peak {peak:.2f} GiB allocated, {reserved:.2f} reserved, "
+                  f"launches a step {per}")
+            assert per == want, (name, kind, per, want)
+        if steps and syncs:
+            # one replayed step from the batch's copy to the loss's read:
+            # the batch already on the card, the loss read after
+            tokens = torch.as_tensor(src.batch(100 + k), device=device)
+            batch = {"tokens": tokens, **extra_inputs(
+                cfg, tokens.shape[0], 0, 100 + k, device)}
+            k += 1
+            got = []
+            n = host_syncs(lambda: got.append(graph(params, opt, batch)))
+            params, opt, m = got[0]
+            float(m["loss"])
+            st = graph.stats
+            row.update(syncs=n, capture_s=st["capture_s"],
+                       pool_gib=st["pool_bytes"] / 2 ** 30)
+            ratio = ""
+            if "eager" in row:
+                r = row["eager"]["step_ms"] / row["captured"]["step_ms"]
+                ratio = f"; eager / captured {r:.3f}"
+            print(f"{label}: graph captured in {st['capture_s']:.3f} s "
+                  f"after a {st['warmup_s']:.3f} s warm-up step, its pool "
+                  f"{st['pool_bytes'] / 2 ** 30:.2f} GiB, {st['replays']} "
+                  f"replays so far; host syncs in a replayed step {n}"
+                  + ratio)
+            assert n == 0, (name, n)
+        out[name] = row
     res["params"], res["opt"] = params, opt
     return out
 
@@ -2162,36 +2278,110 @@ def time_attention_paths(device, B=2, S=4096, H=24, KVH=8, hd=128,
     return out
 
 
-def profile_train(res, device):
+def profile_train(res, device, eager=True):
     """``torch.profiler`` over one training step per rung at full width,
-    the card's activity only: wall and device-busy time, the largest
-    kernels."""
+    the card's activity only, once replayed (the rung's CUDA graph) and,
+    with ``eager``, once eager (the ``TrainStep`` it wraps): wall and
+    device-busy time
+    (the kernels' sum), busy share, the largest kernels; beside them the
+    device time between CUDA events recorded around the step, which does
+    not rest on the profiler seeing the kernels inside a replayed graph.
+    Returns {rung: {kind: (wall ms, busy ms, events ms)}}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     table, src = res["table"], res["source"]
     params, opt = res["params"], res["opt"]
+    out = {}
     for i, name in enumerate(res["names"]):
-        step = table.executable(i)
-        tokens = torch.as_tensor(src.batch(200 + i), device=device)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            params, opt, m = step(params, opt, {"tokens": tokens})
-            float(m["loss"])
-            wall = 1e3 * (time.perf_counter() - t0)
-        kern = [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and dev_us(e) > 0]
-        busy = sum(dev_us(e) for e in kern) / 1e3
-        print(f"train profile {res['cfg'].name} {name}: wall {wall:.1f} ms, "
-              f"device busy {busy:.1f} ms ({busy / wall:.3f}), peak "
-              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-        for e in sorted(kern, key=dev_us, reverse=True)[:12]:
-            print(f"  {dev_us(e) / 1e3:9.3f} ms {e.count:6d} calls  "
-                  f"{e.key[:90]}")
+        graph = table.executable(i)
+        kinds = [("captured", graph)] + ([("eager", graph.step)]
+                                         if eager else [])
+        for kind, step in kinds:
+            tokens = torch.as_tensor(src.batch(200 + i), device=device)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                ev[0].record()
+                params, opt, m = step(params, opt, {"tokens": tokens})
+                ev[1].record()
+                float(m["loss"])
+                wall = 1e3 * (time.perf_counter() - t0)
+            kern = [e for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and dev_us(e) > 0]
+            busy = sum(dev_us(e) for e in kern) / 1e3
+            span = ev[0].elapsed_time(ev[1])
+            out.setdefault(name, {})[kind] = (wall, busy, span)
+            print(f"train profile {res['cfg'].name} {name} {kind}: wall "
+                  f"{wall:.1f} ms, device busy {busy:.1f} ms "
+                  f"({busy / wall:.3f}), events {span:.1f} ms, peak "
+                  f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+            for e in sorted(kern, key=dev_us, reverse=True)[:8]:
+                print(f"  {dev_us(e) / 1e3:9.3f} ms {e.count:6d} calls  "
+                      f"{e.key[:90]}")
     res["params"], res["opt"] = params, opt
+    return out
+
+
+def train_graph_witness(res, device, rungs=(0, 1, -1)):
+    """The captured steps held to the eager step on the card: from one
+    state (the run's, and a copy of it), one step on each rung of
+    ``rungs`` in turn (a rung switch at every step), once through the
+    table's CUDA graphs and once through the eager ``TrainStep``s they
+    wrap (``make_train_step``'s, called directly) on the same batches:
+    every step's metrics (loss, grad norm, learning rate, the loss's
+    parts) and, after every step, the parameters and both AdamW moments
+    equal bit for bit. Reports the first tensor that differs, if any."""
+    import copy
+
+    import torch
+    from repro_torch.launch.train import extra_inputs
+    from repro_torch.train import optim
+    from repro_torch.train.step import state_tensors
+    table, src, cfg = res["table"], res["source"], res["cfg"]
+    params, opt = res["params"], res["opt"]
+    torch.cuda.synchronize()
+    eparams = copy.deepcopy(params)
+    eopt = optim.OptState(opt.step, {k: v.clone() for k, v in opt.m.items()},
+                          {k: v.clone() for k, v in opt.v.items()})
+    names = [n for n, _ in params.named_parameters()]
+    where = ([f"param {n}" for n in names] + [f"m {n}" for n in opt.m]
+             + [f"v {n}" for n in opt.v])
+    idx = [r % len(table) for r in rungs]
+    diffs, losses = [], []
+    for k, i in enumerate(idx):
+        tokens = torch.as_tensor(src.batch(300 + k), device=device)
+        batch = {"tokens": tokens, **extra_inputs(
+            cfg, tokens.shape[0], 0, 300 + k, device)}
+        graph = table.executable(i)
+        params, opt, gm = graph(params, opt, batch)
+        eparams, eopt, em = graph.step(eparams, eopt, batch)
+        assert opt.step == eopt.step, (opt.step, eopt.step)
+        losses.append((float(gm["loss"]), float(em["loss"])))
+        for key in em:
+            a, b = gm[key], em[key]
+            same = torch.equal(a, b) if torch.is_tensor(a) else a == b
+            if not same:
+                diffs.append((k, res["names"][i], f"metric {key}",
+                              float(a), float(b)))
+        for w, a, b in zip(where, state_tensors(params, opt),
+                           state_tensors(eparams, eopt)):
+            if not torch.equal(a, b):
+                diffs.append((k, res["names"][i], w,
+                              float((a - b).abs().max())))
+    steps = [res["names"][i] for i in idx]
+    print(f"train graphs vs eager {cfg.name}: {len(idx)} steps over "
+          f"{steps} from one state, losses (captured, eager) {losses}; "
+          f"{len(where)} state tensors and every metric compared after "
+          f"each step: {len(diffs)} differ"
+          + (f", first {diffs[:4]}" if diffs else " (bit for bit)"))
+    del eparams, eopt
+    torch.cuda.empty_cache()
+    res["params"], res["opt"] = params, opt
+    assert not diffs, diffs[:8]
 
 
 # -------------------------------------------------------------- ring_hop --
@@ -3387,13 +3577,18 @@ def colo_opt(flag):
 
 def colocate_sizing(device, cfg, shapes, steps=4):
     """Median ms of the train tenant's training step (``cfg``, fp32, seeded
-    weights) at
-    each (batch, seq) of ``shapes`` on each rung of the ladder the harness
-    builds (``max_variants=3``), over the last ``steps - 1`` of ``steps``
-    steps: what a colocated token waits for when a train step runs before
-    it. Also warms the kernels and cuBLAS for the train tenant's shapes."""
+    weights) at each (batch, seq) of ``shapes`` on each rung of the ladder
+    the harness builds (``max_variants=3``), twice: through the table's
+    step (the rung's CUDA graph, its first step the warm-up and capture)
+    and through the eager ``TrainStep`` it wraps, each over the last
+    ``steps - 1`` of ``steps`` steps: what a colocated token waits for
+    when a train step runs before it. Also warms the kernels and cuBLAS
+    for the train tenant's shapes. Returns {shape: {"captured": {rung:
+    ms}, "eager": {rung: ms}, "capture_s": {rung: s}}}; prints each rung's
+    replayed step's device-busy share and largest kernels."""
     import numpy as np
     import torch
+    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.explorer import explore
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
@@ -3407,23 +3602,49 @@ def colocate_sizing(device, cfg, shapes, steps=4):
         table = explore(cfg, ShapeConfig("cli", seq, batch, "train"),
                         serving=False, max_variants=3)
         build_variant_steps(cfg, table, optim.OptConfig(
-            lr=1e-3, warmup=5, total_steps=1000))
+            lr=1e-3, warmup=5, total_steps=1000), device=device)
         src = SyntheticLM(DataConfig(cfg.vocab_size, seq, batch, seed=0))
-        row = {}
+        rows = {"captured": {}, "eager": {}, "capture_s": {}}
+        k = 0
         for i, v in enumerate(table.variants):
-            times = []
-            for k in range(steps):
-                tokens = torch.as_tensor(src.batch(k), device=device)
+            graph = table.executable(i)
+            for kind, step in (("captured", graph), ("eager", graph.step)):
+                times = []
+                for _ in range(steps):
+                    tokens = torch.as_tensor(src.batch(k), device=device)
+                    k += 1
+                    t0 = time.perf_counter()
+                    params, opt, m = step(params, opt, {"tokens": tokens})
+                    float(m["loss"])
+                    times.append(time.perf_counter() - t0)
+                rows[kind][v.name] = 1e3 * float(np.median(times[1:]))
+            rows["capture_s"][v.name] = graph.stats["capture_s"]
+            # where a replayed step's device time goes
+            tokens = torch.as_tensor(src.batch(k), device=device)
+            k += 1
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
-                params, opt, m = table.executable(i)(params, opt,
-                                                     {"tokens": tokens})
+                params, opt, m = graph(params, opt, {"tokens": tokens})
                 float(m["loss"])
-                times.append(time.perf_counter() - t0)
-            row[v.name] = 1e3 * float(np.median(times[1:]))
-        out[(batch, seq)] = row
-        print(f"colocate sizing: {cfg.name} ({cfg.n_layers} layers) train "
-              f"step at {batch} x {seq} tokens, median ms a rung "
-              f"{ {k: round(x, 1) for k, x in row.items()} }")
+                wall = 1e3 * (time.perf_counter() - t0)
+            kern = sorted((e for e in prof.key_averages()
+                           if e.device_type == torch.autograd.DeviceType.CUDA
+                           and dev_us(e) > 0), key=dev_us, reverse=True)
+            busy = sum(dev_us(e) for e in kern) / 1e3
+            print(f"colocate sizing: {v.name} replayed step wall {wall:.1f} "
+                  f"ms, device busy {busy:.1f} ms ({busy / wall:.3f}); "
+                  f"largest: " + "; ".join(
+                      f"{dev_us(e) / 1e3:.2f} ms {e.count} x {e.key[:48]}"
+                      for e in kern[:6]))
+        out[(batch, seq)] = rows
+        for kind in ("eager", "captured"):
+            print(f"colocate sizing: {cfg.name} ({cfg.n_layers} layers) "
+                  f"train step at {batch} x {seq} tokens, {kind}, median ms "
+                  f"a rung "
+                  f"{ {n: round(x, 1) for n, x in rows[kind].items()} }")
+        print(f"colocate sizing: graphs "
+              f"{graph_line(table.executables.values())}")
         del params, opt, table
         torch.cuda.empty_cache()
     return out
@@ -3503,6 +3724,8 @@ def colocate_run(name, fn):
              ops.weight_cache_misses - misses)
     run = s.pop("run")
     eng, reqs = run["engine"], run["requests"]
+    ttable = run.get("train_table")
+    train_steps = list(ttable.executables.values()) if ttable else []
     history = list(run["runtime"].history) if "runtime" in run else []
     keep = dict(cache=cache,
                 streams={r.uid: list(map(int, r.out)) for r in reqs},
@@ -3519,8 +3742,10 @@ def colocate_run(name, fn):
                 abstained=sum(not h["violated"] and h["slack"] == 0.0
                               for h in history),
                 actions=[(h["action"], h["victim"]) for h in history
-                         if h["action"] != "hold"])
-    del run, eng, reqs
+                         if h["action"] != "hold"],
+                graphs=graph_marks(train_steps),
+                graph_line=graph_line(train_steps) if ttable else "")
+    del run, eng, reqs, ttable, train_steps
     gc.collect()
     after = torch.cuda.memory_allocated()
     drop_int8_weights()
@@ -3563,7 +3788,10 @@ def colocate_runs(device, sparams, rate, shape):
     reset_launches()
     runs["c"] = colocate_run("Pliant interference",
                              harness(*q, "--arbiter", "interference"))
-    out["launches"] = read_launches()
+    # the train graphs' replays in, their captures out (``card_launches``)
+    cap, rep = runs["c"]["graphs"]
+    out["launches"] = {k: n + rep.get(k, 0) - cap.get(k, 0)
+                       for k, n in read_launches().items()}
     int8_designs("colocate (c)")
     runs["d"] = colocate_run("Pliant round_robin",
                              harness(*q, "--arbiter", "round_robin"))
@@ -3612,6 +3840,8 @@ def colocate_report(out):
                      f"quanta yielded {s['train_yielded_quanta']}, serve "
                      f"swaps {r['swaps']}, int8 weight cache {r['cache'][0]} "
                      f"drops {r['cache'][1]} misses")
+        if r["graph_line"]:
+            line += f"; train {r['graph_line']}"
         line += (f"; memory before {m['before'] / gib:.2f} GiB, peak "
                  f"{m['peak'] / gib:.2f}, after {m['after'] / gib:.2f} "
                  f"({m['after_clear'] / gib:.2f} with the int8 weight cache "
@@ -3637,7 +3867,8 @@ def colocate_cell(device):
     shape = COLO_TRAIN_SHAPE
     with depth_cut(colo_opt("--train-arch"), "colocate",
                    n_layers=COLO_TRAIN_LAYERS) as tcfg:
-        sizing = colocate_sizing(device, tcfg, [shape])[shape]
+        sizes = colocate_sizing(device, tcfg, [shape])[shape]
+        sizing = sizes["captured"]
         sparams = init_lm(get_config(colo_opt("--serve-arch")), 0,
                           DTYPES[colo_opt("--dtype")], device)
         out = colocate_runs(device, sparams, COLO_RATE, shape)
@@ -3649,7 +3880,8 @@ def colocate_cell(device):
     print(f"colocate: precise train step {sizing['precise']:.1f} ms = "
           f"{sizing['precise'] / serve_step:.2f} serve-alone decode steps "
           f"(median {serve_step:.1f} ms); the rungs "
-          f"{ {k: round(x, 1) for k, x in sizing.items()} } ms")
+          f"{ {k: round(x, 1) for k, x in sizing.items()} } ms captured, "
+          f"{ {k: round(x, 1) for k, x in sizes['eager'].items()} } eager")
     n = int(colo_opt("--requests"))
     for key, r in runs.items():
         assert r["prompts"] == runs["a"]["prompts"], key
@@ -5860,7 +6092,10 @@ def encdec_train(device):
         encdec_launches("full"), remat="full")
     print(f"train {ENC_ARCH}: {time.perf_counter() - t:.1f}s for "
           f"{ENC_STEPS} steps (init included)")
-    train_rung_walk(res, device, steps=2, per_step=encdec_launches("full"))
+    # one replayed step a rung, timed: every rung's graph is warm from
+    # the run (2 eager steps a rung until the graphs)
+    train_rung_walk(res, device, steps=1, skip=0,
+                    per_step=encdec_launches("full"))
     torch.cuda.synchronize()
     return res, launches
 
@@ -6047,7 +6282,7 @@ def vlm_train(device):
     res = train.main(["--arch", VLM_ARCH, "--steps", "1", "--batch",
                       str(VLM_BATCH), "--seq", str(VLM_TEXT), "--device",
                       str(device)], remat="full")
-    launches = read_launches()
+    launches = card_launches(res["steps"])
     cfg = res["cfg"]
     int8_designs(f"train {VLM_ARCH}")
     flash_designs(f"train {VLM_ARCH}", cfg)
@@ -6296,8 +6531,11 @@ def main():
             device, "mamba2-780m", 12, 4, 1024,
             ["precise", "int8", "int8+drop12%", "int8+drop50%"],
             mamba_launches)
+    lap("run")
+    train_graph_witness(tres, device)
     phase_done("train")
-    train_rung_walk(tres, device, steps=5, per_step=mamba_launches)
+    train_rung_walk(tres, device, steps=3, per_step=mamba_launches, eager=2,
+                    syncs=True)
     lap("walk")
     profile_train(tres, device)
     phase_done("train-rungs")
@@ -6314,20 +6552,30 @@ def main():
             device, "phi4-mini-3.8b", 8, 2, 4096,
             ["precise", "int8", "int8+kvstride2", "int8+drop50%"],
             attn_launches, remat="full")
+    lap("run")
+    train_graph_witness(ares, device)
     phase_done("train-attn")
-    # 2 steps a rung (the second timed): cut from 4 with the serve-ring
-    # phase added and from 3 with serve-ssm, to keep the whole script
-    # under 1100 s
-    train_rung_walk(ares, device, steps=2, per_step=attn_launches)
+    # one step a rung each way, timed (the graph is warm from the run, and
+    # the eager step's kernels and cuBLAS): cut from 4 with the serve-ring
+    # phase added, from 3 with serve-ssm and from 2 with the graphs, to
+    # keep the whole script under 1100 s
+    train_rung_walk(ares, device, steps=1, skip=0, per_step=attn_launches,
+                    eager=1, syncs=True)
     lap("walk")
+    # the patch reaches only steps traced after it: the rung's graph,
+    # captured before, would replay the kernel, so this walk runs the
+    # eager step
     with chunked_causal_attention():
-        train_rung_walk(ares, device, steps=2, rungs=["int8"],
+        train_rung_walk(ares, device, steps=0, eager=1, skip=0,
+                        rungs=["int8"],
                         tag=" (attention chunked, stride 1)",
                         per_step=lambda cfg, knobs: {
                             **attn_launches(cfg, knobs),
                             "flash_attention": 0})
     lap("chunked")
-    profile_train(ares, device)
+    # the replayed step only: eager, the step is device-bound as well
+    # (busy 0.983-0.992 on an H100 80GB HBM3 at 700 W)
+    profile_train(ares, device, eager=False)
     phase_done("train-attn-rungs")
     del ares
     torch.cuda.empty_cache()

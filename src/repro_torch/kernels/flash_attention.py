@@ -193,8 +193,8 @@ def _plain_rows(q, k, v, row0, *, causal, window, cap, kv_keep_stride, bq,
     keep = run & entry_mask(qpos, kpos, causal=causal, window=window,
                             n_kv=n_kv)
     # masked entries of running blocks at -1e30, skipped blocks at -inf
-    fill = torch.where(run, torch.tensor(NEG_INF, dtype=f32, device=dev),
-                       torch.tensor(float("-inf"), dtype=f32, device=dev))
+    fill = torch.where(run, torch.full((), NEG_INF, dtype=f32, device=dev),
+                       torch.full((), float("-inf"), dtype=f32, device=dev))
     s = torch.where(keep, s, fill)
     m = s.amax(-1, keepdim=True).detach().clamp_min(NEG_INF)
     p = torch.exp(s - m)

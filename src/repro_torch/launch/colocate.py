@@ -11,7 +11,8 @@ between engine steps. Both are ``Tenant`` adapters under one
 
 * serve tenant — variant hot-swap (``request_variant``, deferred mid-
   admission) + ``pool_pages`` quanta (prefix cache evicted first);
-* train tenant — variant hot-swap (one step closure a variant) + a
+* train tenant — variant hot-swap (one step a variant, on the card one
+  CUDA graph a variant: ``build_variant_steps``) + a
   DUTY-CYCLE quanta actuator: reclaiming k of its ``--train-groups``
   quanta skips k of every ``--train-groups`` loop turns, yielding the
   device's step-loop share to the serving engine.
@@ -133,7 +134,7 @@ def main(argv=None, *, serve_params=None, train_params=None):
     opt_cfg = optim.OptConfig(lr=1e-3, warmup=5, total_steps=1000)
     shape = ShapeConfig("cli", args.train_seq, args.train_batch, "train")
     ttable = explore(tcfg, shape, serving=False, max_variants=3)
-    build_variant_steps(tcfg, ttable, opt_cfg)
+    build_variant_steps(tcfg, ttable, opt_cfg, device=device)
     yielded = {"k": 0}      # duty-cycle actuator state (absolute quanta out)
     train_tenant = TrainTenant(
         ttable, name="train", reshard_fn=lambda k: yielded.update(k=k),

@@ -23,14 +23,20 @@ runs the kernels' plain versions on the CPU.
 the end; ``--resume`` restores the newest loadable checkpoint in DIR first
 (a torn one is skipped with a warning), and the run continues from its
 step with the data the uninterrupted run would have read there. A
-checkpoint the JAX driver wrote restores as well. ``main(argv, remat=...,
-cfg=...)`` hands ``remat`` to ``build_variant_steps``: "none" by default,
-as in the JAX driver; full-width phi4-mini-3.8b at 2 x 4096 tokens needs
-"full" to fit one 80 GB card; ``cfg``, when given, is trained in place of
-``--arch``'s config (a depth cut, say). ``main`` prints the same ``step ... loss ...
-variant=...`` and ``final loss`` lines as the JAX driver and returns a dict
-with the table, the trained state and the per-step record (loss, wall
-seconds, seconds waiting for data, active variant).
+checkpoint the JAX driver wrote restores as well; a restore copies into
+the parameters and moments in place, where the captured steps read them.
+``main(argv, remat=...)`` hands ``remat`` to ``build_variant_steps``:
+"none" by default, as in the JAX driver; full-width phi4-mini-3.8b at 2 x
+4096 tokens needs "full" to fit one 80 GB card.
+
+On the card each variant's step runs as one CUDA graph
+(``build_variant_steps``): its first step is a real eager step that warms
+the kernels, after which the step is captured and every later step of
+that variant replays it; on the CPU the steps run eagerly. ``main``
+prints the same ``step ... loss ... variant=...`` and ``final loss`` lines
+as the JAX driver (and a ``train graphs:`` line on the card) and returns a
+dict with the table and its steps, the trained state and the per-step
+record (loss, wall seconds, seconds waiting for data, active variant).
 """
 from __future__ import annotations
 
@@ -57,10 +63,20 @@ from repro_torch.train import optim
 from repro_torch.train import step as step_mod
 
 
-def build_variant_steps(cfg, table: VariantTable, opt_cfg, remat="none"):
-    """One train-step closure per variant of ``table``."""
-    table.compile_all(lambda knobs: step_mod.make_train_step(
-        cfg, knobs, opt_cfg=opt_cfg, remat=remat))
+def build_variant_steps(cfg, table: VariantTable, opt_cfg, *, device,
+                        remat="none"):
+    """One train step per variant of ``table``, the counterpart of the JAX
+    driver's ``jax.jit`` of each: on a CUDA ``device`` a
+    ``GraphedTrainStep`` (captured at its first call, which is a real step;
+    every variant's graph draws on one memory pool), on the CPU the eager
+    ``TrainStep``. Returns the steps in the table's order; each graph's
+    capture seconds and launches are in its ``stats``."""
+    pool = (torch.cuda.graph_pool_handle()
+            if torch.device(device).type == "cuda" else None)
+    table.compile_all(lambda knobs: step_mod.graphed_train_step(
+        step_mod.make_train_step(cfg, knobs, opt_cfg=opt_cfg, remat=remat),
+        device, pool))
+    return [table.executable(i) for i in range(len(table))]
 
 
 def extra_inputs(cfg, batch: int, seed: int, step: int, device):
@@ -105,7 +121,8 @@ def main(argv=None, remat="none"):
 
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
     table = explore(cfg, shape, serving=False, max_variants=4)
-    build_variant_steps(cfg, table, opt_cfg, remat=remat)
+    steps = build_variant_steps(cfg, table, opt_cfg, device=device,
+                                remat=remat)
     names = [v.name for v in table.variants]
 
     monitor = LatencyMonitor(SERVICES["token-serve"].qos_target_s)
@@ -178,6 +195,12 @@ def main(argv=None, remat="none"):
                                     f"host copy {t['host_s']:.1f}s, write "
                                     f"{t['write_s']:.1f}s")
             for t in mgr.timings))
+    graphs = [s.stats for s in steps if isinstance(
+        s, step_mod.GraphedTrainStep) and s.graph is not None]
+    if graphs:
+        print(f"train graphs: captured={len(graphs)} capture_s="
+              f"{sum(g['capture_s'] for g in graphs):.3f} replays="
+              f"{sum(g['replays'] for g in graphs)}")
     final = float(np.mean(losses[-10:]))
     print(f"final loss {final:.4f} (first-10 {np.mean(losses[:10]):.4f})")
     if args.pliant:
@@ -187,7 +210,7 @@ def main(argv=None, remat="none"):
     return dict(final_loss=final, losses=losses, step_s=step_s,
                 wait_s=wait_s, variants=variants, names=names, table=table,
                 params=params, opt=opt, runtime=runtime, source=source,
-                cfg=cfg, start_step=start_step,
+                cfg=cfg, start_step=start_step, steps=steps,
                 ckpt_timings=mgr.timings if mgr is not None else [])
 
 

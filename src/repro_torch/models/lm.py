@@ -129,12 +129,17 @@ def remat_loop(body, carry: tuple, items, remat: str) -> tuple:
       back to "full";
     - "dots" saves the 2-D matmuls' outputs (``aten.mm`` / ``aten.addmm``,
       the projections: ``checkpoint_dots_with_no_batch_dims``) and
-      recomputes the rest of each body."""
+      recomputes the rest of each body.
+
+    No checkpoint keeps the RNG state (``preserve_rng_state=False``): the
+    model draws no random numbers, and a CUDA graph's capture of the train
+    step cannot read the generator's state."""
     if remat not in REMATS:
         raise ValueError(f"remat must be one of {REMATS}, got {remat!r}")
 
     def ckpt(fn, carry, **kw):
-        return checkpoint(fn, *carry, use_reentrant=False, **kw)
+        return checkpoint(fn, *carry, use_reentrant=False,
+                          preserve_rng_state=False, **kw)
 
     if remat == "2level":
         no, ni = near_sqrt_factors(len(items))
@@ -220,7 +225,8 @@ def chunked_xent(params, h, labels, mask, cfg: ModelConfig, *,
     for s0 in range(0, S, C):
         sl = slice(s0, s0 + C)
         l, w = checkpoint(_xent_chunk, h[:, sl], labels[:, sl], mask[:, sl],
-                          emb, cfg.final_softcap, use_reentrant=False)
+                          emb, cfg.final_softcap, use_reentrant=False,
+                          preserve_rng_state=False)
         loss_sum = loss_sum + l
         w_sum = w_sum + w
     return loss_sum / torch.clamp(w_sum, min=1.0)

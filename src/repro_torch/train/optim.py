@@ -5,12 +5,20 @@ moments. Counterpart of the JAX package's ``train/optim.py`` on one device
 Parameters are a ``ParamTree``; gradients and the moments are dicts keyed
 by the parameter's name (``named_parameters()``). Where the JAX package
 returns new trees, ``adamw_update`` writes the parameters and moments in
-place, which keeps one copy of each on the card.
+place, which keeps one copy of each on the card, at fixed addresses that a
+CUDA graph of the train step can hold.
+
+The step's schedule scalars (the learning rate and the two bias
+corrections) are computed on the host in fp32 from ``OptState.step`` (a
+host int) and read by the update from a (3,) fp32 tensor on the
+parameters' device (``schedule``, ``schedule_on``), which a captured step
+rewrites before each replay by one copy from pinned memory: the update's
+arithmetic is the same, eager or captured.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -52,16 +60,42 @@ def lr_at(cfg: OptConfig, step: int) -> float:
     return float(_f32(cfg.lr) * 0.5 * (1.0 + torch.cos(_f32(math.pi) * frac)))
 
 
+def schedule(cfg: OptConfig, step: int) -> torch.Tensor:
+    """``(lr, b1c, b2c)`` of the update that follows ``step`` as a (3,)
+    fp32 CPU tensor: ``lr_at(cfg, step)`` and the bias corrections ``1 -
+    b ** (step + 1)``, computed in fp32 as the JAX package does."""
+    t = step + 1
+    return torch.stack([_f32(lr_at(cfg, step)), 1.0 - _f32(cfg.b1) ** t,
+                        1.0 - _f32(cfg.b2) ** t])
+
+
+def schedule_on(cfg: OptConfig, step: int, device,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``schedule(cfg, step)`` on ``device``, written into ``out`` when
+    given. On the card it is one asynchronous copy from pinned memory (the
+    caching host allocator keeps the pinned block until the copy has run),
+    so writing it waits for nothing, and a copy written after a step's
+    kernels reaches the device after they have read the previous value."""
+    host = schedule(cfg, step)
+    if torch.device(device).type == "cuda":
+        host = host.pin_memory()
+    if out is None:
+        return host.to(device, non_blocking=True)
+    return out.copy_(host, non_blocking=True)
+
+
 def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(x.float().square().sum() for x in tensors))
 
 
 @torch.no_grad()
 def adamw_update(grads: Dict[str, torch.Tensor], opt: OptState, params,
-                 cfg: OptConfig):
+                 cfg: OptConfig, sched: Optional[torch.Tensor] = None):
     """One AdamW step. ``grads`` maps each parameter's name to its gradient.
     Updates ``params`` and the moments in place; returns (params, new_opt,
-    metrics).
+    metrics), ``metrics["lr"]`` a 0-dim fp32 tensor. ``sched`` is
+    ``schedule_on(cfg, opt.step, ...)`` on the parameters' device (made
+    here when None); the update reads the step only from it.
 
     Weight decay applies to the leaves that are at least 2-D in the JAX
     package's tree, where every layer's leaf is stacked over the layer
@@ -72,10 +106,9 @@ def adamw_update(grads: Dict[str, torch.Tensor], opt: OptState, params,
     gnorm = global_norm(grads.values())
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
                         max=1.0)
-    step = opt.step + 1
-    lr = lr_at(cfg, opt.step)
-    b1c = float(1.0 - _f32(cfg.b1) ** step)
-    b2c = float(1.0 - _f32(cfg.b2) ** step)
+    if sched is None:
+        sched = schedule_on(cfg, opt.step, gnorm.device)
+    lr, b1c, b2c = sched.unbind()
     for k, p in named.items():
         g = grads[k].float() * scale
         m, v = opt.m[k], opt.v[k]
@@ -86,5 +119,5 @@ def adamw_update(grads: Dict[str, torch.Tensor], opt: OptState, params,
         decay = cfg.weight_decay if p.ndim + stacked >= 2 else 0.0
         pf = p.float()
         p.copy_((pf - lr * (update + decay * pf)).to(p.dtype))
-    return params, OptState(step, opt.m, opt.v), {"grad_norm": gnorm,
-                                                  "lr": lr}
+    return params, OptState(opt.step + 1, opt.m, opt.v), {
+        "grad_norm": gnorm, "lr": lr}

@@ -1,23 +1,35 @@
 """Train and serve step factories, parameterised by ``ApproxKnobs``.
 Counterpart of the JAX package's ``train/step.py`` on one device (no mesh
 and no gradient-sync region): ``make_train_step`` for every family,
-``make_serve_step`` (one token against the caches, the encoder-decoder's
-with ``enc_out``), ``make_prefill_fn`` (a full forward's last-token
-logits), and the serving engine's K-step megastep
-(``make_paged_megastep``).
+``graphed_train_step`` (a train step captured as one CUDA graph, the
+counterpart of ``jax.jit``), ``make_serve_step`` (one token against the
+caches, the encoder-decoder's with ``enc_out``), ``make_prefill_fn`` (a
+full forward's last-token logits), and the serving engine's K-step
+megastep (``make_paged_megastep``).
 
-``make_train_step(cfg, knobs, ...)`` returns one plain Python closure per
-approximate variant; the Pliant actuator (``core/variants``) keeps one per
-variant and switches which one runs at a step boundary. Gradient
-accumulation over ``n_micro`` micro-batches splits every leaf of the batch
-(``tokens``, ``frames``, ``prefix_embeds``) and sums the gradients in fp32.
+``make_train_step(cfg, knobs, ...)`` returns a ``TrainStep``: forward, the
+autograd backward, clipping and the AdamW update, run eagerly, the
+schedule scalars read from a device tensor (``optim.schedule_on``).
+Gradient accumulation over ``n_micro`` micro-batches splits every leaf of
+the batch (``tokens``, ``frames``, ``prefix_embeds``) and sums the
+gradients in fp32. On the card the training driver (``launch/train.py``
+``build_variant_steps``) wraps each variant's step in a
+``GraphedTrainStep``: the Pliant actuator (``core/variants``) keeps one
+per variant and switches which one replays at a step boundary, as the JAX
+package switches between compiled executables. On the CPU the table holds
+the eager steps.
 """
 from __future__ import annotations
+
+import time
+from typing import Dict, Iterable
 
 import torch
 
 from repro_torch.approx.knobs import PRECISE, ApproxKnobs
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import flash_attention, int8_matmul, quantize_rows
+from repro_torch.kernels import ssd_scan
 from repro_torch.models import api
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import lm as lm_mod
@@ -32,42 +44,201 @@ def _micro_split(batch, n_micro: int):
     return [{k: v[i] for k, v in parts.items()} for i in range(n_micro)]
 
 
-def make_train_step(cfg: ModelConfig, knobs: ApproxKnobs = PRECISE, *,
-                    opt_cfg: optim.OptConfig = optim.OptConfig(),
-                    n_micro: int = 1, remat: str = "full"):
-    """Returns step(params, opt, batch) -> (params, opt, metrics); the
-    parameters and moments are updated in place."""
-    loss_fn = api.loss_fn(cfg)
+class TrainStep:
+    """One variant's eager train step: ``step(params, opt, batch) ->
+    (params, opt, metrics)``, the parameters and moments updated in place.
+    ``body`` is the step's device work on given tensors, which
+    ``GraphedTrainStep`` captures."""
 
-    def grad_fn(params, batch):
+    def __init__(self, cfg: ModelConfig, knobs: ApproxKnobs,
+                 opt_cfg: optim.OptConfig, n_micro: int, remat: str):
+        self.cfg, self.knobs, self.opt_cfg = cfg, knobs, opt_cfg
+        self.n_micro, self.remat = n_micro, remat
+        self._loss_fn = api.loss_fn(cfg)
+
+    def _grad(self, params, batch):
         named = dict(params.named_parameters())
-        loss, metrics = loss_fn(params, batch, knobs=knobs, remat=remat)
+        loss, metrics = self._loss_fn(params, batch, knobs=self.knobs,
+                                      remat=self.remat)
         grads = torch.autograd.grad(loss, list(named.values()),
                                     allow_unused=True)
         grads = {k: torch.zeros_like(p) if g is None else g
                  for (k, p), g in zip(named.items(), grads)}
         return loss.detach(), metrics, grads
 
-    def step(params, opt, batch):
+    def body(self, params, opt, batch, sched=None) -> Dict[str, object]:
+        """Forward, backward, clipping and the AdamW update of ``params``
+        and ``opt``'s moments in place, the schedule read from ``sched``
+        (``optim.schedule_on``; written here when None); returns the
+        metrics. Given ``sched``, reads nothing from the host and waits for
+        nothing."""
         params.requires_grad_(True)
-        if n_micro == 1:
-            loss, metrics, grads = grad_fn(params, batch)
+        if self.n_micro == 1:
+            loss, metrics, grads = self._grad(params, batch)
         else:
             gsum, loss = None, 0.0
-            for mb in _micro_split(batch, n_micro):
-                l, metrics, g = grad_fn(params, mb)
+            for mb in _micro_split(batch, self.n_micro):
+                l, metrics, g = self._grad(params, mb)
                 g = {k: v.float() for k, v in g.items()}
                 gsum = g if gsum is None else {k: gsum[k] + g[k] for k in g}
                 loss = loss + l
-            grads = {k: v / n_micro for k, v in gsum.items()}
-            loss = loss / n_micro
-        params, opt, opt_metrics = optim.adamw_update(grads, opt, params,
-                                                      opt_cfg)
+            grads = {k: v / self.n_micro for k, v in gsum.items()}
+            loss = loss / self.n_micro
+        _, _, opt_metrics = optim.adamw_update(grads, opt, params,
+                                               self.opt_cfg, sched)
         metrics = {k: v.detach() if torch.is_tensor(v) else v
                    for k, v in metrics.items()}
-        return params, opt, dict(metrics, loss=loss, **opt_metrics)
+        return dict(metrics, loss=loss, **opt_metrics)
 
-    return step
+    def __call__(self, params, opt, batch):
+        metrics = self.body(params, opt, batch)
+        return params, opt._replace(step=opt.step + 1), metrics
+
+
+def make_train_step(cfg: ModelConfig, knobs: ApproxKnobs = PRECISE, *,
+                    opt_cfg: optim.OptConfig = optim.OptConfig(),
+                    n_micro: int = 1, remat: str = "full") -> TrainStep:
+    """Returns step(params, opt, batch) -> (params, opt, metrics); the
+    parameters and moments are updated in place."""
+    return TrainStep(cfg, knobs, opt_cfg, n_micro, remat)
+
+
+def train_launches() -> Dict[str, int]:
+    """The train path's kernel wrappers' launch counts (the capture of a
+    graph counts as one call of each; its replays call none)."""
+    return {"flash_attention": flash_attention.launches,
+            "int8_matmul": int8_matmul.launches,
+            "quantize_rows": quantize_rows.launches,
+            "ssd_scan": ssd_scan.launches,
+            "ssd_scan_backward": ssd_scan.backward_launches}
+
+
+def state_tensors(params, opt):
+    """The parameters and both AdamW moments, in one order."""
+    return (list(params.parameters()) + list(opt.m.values())
+            + list(opt.v.values()))
+
+
+class GraphedTrainStep:
+    """``step`` (a ``TrainStep``) as one CUDA graph on ``device``: the
+    counterpart of ``jax.jit`` of the JAX package's train step, with the
+    same call, ``(params, opt, batch) -> (params, opt, metrics)``.
+
+    The first call allocates a static buffer for every leaf of the batch
+    and the schedule scalars, runs a real step of the body on a side stream
+    (the warm-up whole-network capture needs: it builds and loads the
+    kernels, grants their shared memory and sets up cuBLAS; its metrics are
+    that step's), then captures the body on those buffers into a graph
+    whose memory comes from ``pool`` (shared by every variant of a table:
+    one replays at a time). Each later call copies the batch into the
+    buffers, writes the schedule scalars from pinned memory, replays, and
+    copies the metrics out of the pool, so that another variant's replay
+    cannot overwrite them; nothing waits for the device. The graph holds
+    the addresses of the parameters and AdamW moments, which the update
+    and ``load_state`` write in place: every call checks that they have not
+    moved, and that the batch has the captured shapes, and raises if not.
+    A capture that fails raises; nothing falls back to the eager step.
+
+    On the CPU (no graphs) a call runs the same protocol uncaptured: the
+    batch copied in, the scalars written, the body run on the buffers, the
+    metrics copied out.
+
+    ``stats``: ``capture_s`` (the capture alone; ``warmup_s`` the warm-up
+    step), ``replays``, ``launches`` (each kernel's launches in the graph:
+    the wrappers' calls during the capture, which launched nothing),
+    ``pool_bytes`` (what the capture added to the reserved device
+    memory)."""
+
+    def __init__(self, step: TrainStep, device, pool=None):
+        self.step, self.device, self.pool = step, torch.device(device), pool
+        self.graph = None
+        self.stats = dict(capture_s=0.0, warmup_s=0.0, replays=0,
+                          launches={}, pool_bytes=0)
+        self._batch = self._sched = self._out = self._ptrs = None
+
+    def __call__(self, params, opt, batch):
+        if self._batch is None:
+            self._batch = {k: torch.empty_like(v, device=self.device)
+                           for k, v in batch.items()}
+            self._sched = torch.empty(3, dtype=torch.float32,
+                                      device=self.device)
+            self._ptrs = [t.data_ptr() for t in state_tensors(params, opt)]
+        self._check(params, opt, batch)
+        for k, buf in self._batch.items():
+            buf.copy_(batch[k], non_blocking=True)
+        optim.schedule_on(self.step.opt_cfg, opt.step, self.device,
+                          out=self._sched)
+        if self.device.type != "cuda":
+            out = self._body(params, opt)
+        elif self.graph is None:
+            out = self._warm_up_and_capture(params, opt)
+        else:
+            self.graph.replay()
+            self.stats["replays"] += 1
+            out = self._out
+        metrics = {k: v.clone() if torch.is_tensor(v) else v
+                   for k, v in out.items()}
+        return params, opt._replace(step=opt.step + 1), metrics
+
+    def _body(self, params, opt):
+        return self.step.body(params, opt, self._batch, self._sched)
+
+    def _check(self, params, opt, batch):
+        if [t.data_ptr() for t in state_tensors(params, opt)] != self._ptrs:
+            raise RuntimeError(
+                "GraphedTrainStep: the parameters or AdamW moments moved "
+                "since the first call; the step updates them in place, and "
+                "a restore must copy into them (ckpt.load_state)")
+
+        def spec(b):
+            return {k: (tuple(v.shape), v.dtype) for k, v in b.items()}
+        if spec(batch) != spec(self._batch):
+            raise ValueError(f"GraphedTrainStep: batch {spec(batch)} "
+                             f"differs from the first call's "
+                             f"{spec(self._batch)}")
+
+    def _warm_up_and_capture(self, params, opt):
+        dev = self.device
+        t0 = time.perf_counter()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            warm = self._body(params, opt)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()     # as the capture's entry does
+        t1 = time.perf_counter()
+        before, reserved = train_launches(), torch.cuda.memory_reserved(dev)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self.pool):
+            self._out = self._body(params, opt)
+        after = train_launches()
+        self.graph = graph
+        self.stats.update(
+            warmup_s=t1 - t0, capture_s=time.perf_counter() - t1,
+            launches={k: after[k] - before[k] for k in after},
+            pool_bytes=torch.cuda.memory_reserved(dev) - reserved)
+        return warm
+
+
+def graphed_train_step(step: TrainStep, device, pool=None):
+    """``step`` as a ``GraphedTrainStep`` on a CUDA ``device`` (its memory
+    from ``pool``, a ``torch.cuda.graph_pool_handle()``, when given), or
+    ``step`` itself on the CPU."""
+    if torch.device(device).type != "cuda":
+        return step
+    return GraphedTrainStep(step, device, pool)
+
+
+def replayed_launches(steps: Iterable) -> Dict[str, int]:
+    """Kernel launches of the replayed train graphs among ``steps``: each
+    graph's launches counted at its capture times its replays (the
+    wrappers' counters see only the capture)."""
+    out = dict.fromkeys(train_launches(), 0)
+    for s in steps:
+        for name, n in getattr(s, "stats", {}).get("launches", {}).items():
+            out[name] += n * s.stats["replays"]
+    return out
 
 
 def make_serve_step(cfg: ModelConfig, knobs: ApproxKnobs = PRECISE):
