@@ -364,6 +364,62 @@ Phases, each reported on its own line:
              of 512) within 0.5 of their rms; device memory before, at
              peak and after.
 
+16. train-pod  (run after train-rungs) the colocated approximate
+             co-runner trained data-parallel across pods: mamba2-780m at
+             full width (24 of its 48 layers, fp32 and AdamW, 4 x 1024
+             tokens) on a (pod 2, data 2) mesh of 4 positions of the card,
+             every step's gradients through the owned gradient-sync region
+             (``dist.collectives.grad_sync``: the in-pod mean, then the pod
+             mean, over the int8 wire on ``gint8``), each rung one CUDA
+             graph with the region inside it, 6 steps from one state: the
+             explorer's four rungs and ``gint8`` and ``sync/2`` forced by
+             name; precise also without the mesh (8 steps). Gates:
+             precise on the mesh equal to the single-device step (losses
+             equal, params within 1e-6 relative); ``sync/2``'s graph holds
+             no pod collective (``WIRE``) and its params after
+             ``pod_sync`` at step 2 equal precise's within 1e-6;
+             ``gint8``'s params after a step within the JAX test's rtol
+             0.02 / atol 1e-4 of precise's and within 1e-6 of the update
+             from the same gradients through the general per-position form
+             of the int8 pod mean (``collectives.compressed_pmean`` on
+             each position's blocks); no host sync in a replay. Each rung's replayed ms a step against
+             the single-device step, its wire bytes a step by axis, and
+             ``gint8``'s and ``sync/2``'s ratios to precise beside the
+             explorer's 0.3 and 0.5, capture seconds and pool; launch
+             counters zeroed just before and read just after. Then
+             ``repro_torch.launch.train --pod-mesh --positions 4 --chaos
+             "revoke@3:2,restore@6"`` (8 steps, precise): the mesh shrinks
+             to 1x2 and grows back, each re-home's seconds printed, its
+             losses equal to the unfaulted mesh run's within 1e-6.
+
+17. train-ep  (run after serve-moe) MoE training with the experts spread
+             over the model axis: olmoe-1b-7b at full width (64 experts,
+             top-8, d_model 2048, expert d_ff 1024) cut to 2 of its 16
+             layers, fp32, on a (data 2, model 4) mesh, ``ep_axis`` model,
+             8 x 512 tokens (512 a position). Gates: at capacity factor 8
+             EP's cross-entropy and its gradients equal the local MoE's
+             within the JAX test's rtol 2e-4 / atol 2e-5, and on the int8
+             rung the cross-entropy within 1e-4 and the gradients within
+             1e-4 relative / 2e-4 absolute but for at most a millionth of
+             the entries (upstream sums in another order flip a few int8
+             codes of the second layer's inputs); on one MoE
+             layer's equal inputs the experts' int8 backward a shard
+             within 1e-4 relative / 2e-4 absolute of the local int8
+             MoE's; at the config's capacity factor one
+             MoE layer's keep masks a position equal to a plain version's
+             written from the definition (``plain_ep``: its own routing,
+             capacity and aux loss, each expert applied to its kept rows,
+             no buffers and no exchange, independent of
+             ``models/moe.py``), its output within 1e-5, its aux loss
+             within 1e-5 relative, and the gradients of the output's
+             projection plus 0.01 x the aux loss (the train step's
+             coefficient) to the input, the router and the experts within
+             2e-5 of the plain version's (max |diff| over max |plain|); on
+             the int8 rung one ``int8_matmul`` launch an expert shard a
+             product in a forward (48 at 2 layers). The train step local and EP,
+             precise and int8, each one CUDA graph: ms a step, tokens
+             dropped a shard, the exchange's bytes.
+
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``. Any
 failure raises: the script then exits non-zero without the result line, as
@@ -6395,6 +6451,578 @@ def encdec_cell(device):
 
 # ------------------------------------------------------------------ main --
 
+# ------------------------------------------------------------- train-pod --
+
+POD_ARCH = "mamba2-780m"          # full width, TRAIN_LAYERS of its 48 layers
+POD_MESH = (2, 2)                 # (pod, data): 4 positions on the card
+POD_SHAPE = (4, 1024)             # batch, seq
+POD_STEPS = 6                     # steps a rung (precise: POD_CHAOS_STEPS)
+POD_CHAOS = "revoke@3:2,restore@6"
+POD_CHAOS_STEPS = 8
+POD_REL = 1e-6                    # mesh vs single device, and the syncs
+POD_REF_REL = 1e-6                # the graph's region vs the per-position form
+# the explorer's collective-term factors (core/explorer.py analytic_cost):
+# gint8 f_coll *= 0.3, sync/k f_coll /= k
+POD_PRICE = {"gint8": 0.3, "sync/2": 0.5}
+
+
+def rel_gap(a, b):
+    """max |a - b| over max |b| (0 where both are 0)."""
+    den = float(b.abs().max())
+    num = float((a.float() - b.float()).abs().max())
+    return num / den if den else num
+
+
+def worst_rel(got, want):
+    return max(rel_gap(a, b) for a, b in zip(got, want))
+
+
+def pod_rungs(cfg):
+    """The train-pod rungs: the explorer's training table at
+    ``POD_SHAPE`` (precise, int8, int8+drop12%, int8+drop50%), then
+    ``gint8`` and ``sync/2``, forced by name as the JAX dry-run resolves
+    them: the analytic explorer prices the collective term at 0.3 of the
+    compute term, so its tables never hold them."""
+    from repro_torch.approx.knobs import ApproxKnobs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.explorer import explore
+    table = explore(cfg, ShapeConfig("cli", POD_SHAPE[1], POD_SHAPE[0],
+                                     "train"), serving=False, max_variants=4)
+    knobs = [v.knobs for v in table.variants] + [
+        ApproxKnobs(grad_compress="int8"), ApproxKnobs(sync_period=2)]
+    names = [k.describe() for k in knobs]
+    assert names == ["precise", "int8", "int8+drop12%", "int8+drop50%",
+                     "gint8", "sync/2"], names
+    return list(zip(names, knobs))
+
+
+def pod_int8_reference(grads, cfg, mesh):
+    """``grads`` through the int8 pod mean in its general per-position
+    form: the leaves stacked over the layer groups as the JAX package
+    stacks them (``convert.jax_path``: one scale a stacked leaf), cut into
+    each position's blocks (``collectives.shard``), each position's int8
+    payload and scale materialised and the group's dequantised mean taken
+    (``compressed_pmean``), then reassembled and unstacked. The reference
+    for ``gint8``'s update: ``grad_sync`` computes that mean once a leaf,
+    from the copies being alike."""
+    import torch
+    from repro_torch.convert import jax_path
+    from repro_torch.dist import collectives
+    groups = {}
+    for k in grads:
+        path, i = jax_path(k, cfg)
+        groups.setdefault("/".join(path), []).append((i or 0, k))
+    stacked = {p: torch.stack([grads[k] for _, k in sorted(m)])
+               for p, m in groups.items()}
+    got = collectives.unshard(collectives.compressed_pmean(
+        collectives.shard(stacked, mesh), mesh, "pod"), mesh, stacked)
+    out = {k: got[p][j] for p, m in groups.items()
+           for j, (_, k) in enumerate(sorted(m))}
+    return {k: out[k] for k in grads}
+
+
+def train_pod(device):
+    """The colocated approximate co-runner trained data-parallel across
+    pods: mamba2-780m at full width (``TRAIN_LAYERS`` layers), fp32 and
+    AdamW, 4 x 1024 tokens, on a (pod 2, data 2) mesh of the card. Each
+    rung one CUDA graph (the gradient-sync region inside it), ``POD_STEPS``
+    steps from the same state and batches; precise also without the mesh.
+    Gates: (a) precise on the mesh equals the single-device step (losses
+    equal, params within ``POD_REL``); (b) sync/2's graph holds no pod
+    collective and its params after ``pod_sync`` at step 2 equal
+    precise's; (c) gint8's params after a step within the JAX test's rtol
+    0.02 / atol 1e-4 of precise's, and within ``POD_REF_REL`` of the
+    update from the same gradients through ``pod_int8_reference``; (d)
+    no host sync in a replay. Then ``launch/train.main --pod-mesh --chaos
+    POD_CHAOS``: its losses equal the mesh run's. Returns the launches."""
+    import numpy as np
+    import torch
+    from repro_torch.approx.knobs import PRECISE
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.dist import collectives
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import api
+    from repro_torch.train import optim
+    from repro_torch.train import step as step_mod
+
+    base = torch.cuda.memory_allocated()
+    cfg = dataclasses.replace(get_config(POD_ARCH), n_layers=TRAIN_LAYERS)
+    B, S = POD_SHAPE
+    mesh = make_mesh(POD_MESH, ("pod", "data"), device)
+    # launch/train.main's schedule at --steps POD_CHAOS_STEPS
+    opt_cfg = optim.OptConfig(lr=1e-3, warmup=20,
+                              total_steps=POD_CHAOS_STEPS)
+    params = api.init(cfg, 0, torch.float32, device)
+    opt = optim.init_opt(params)
+    state = step_mod.state_tensors(params, opt)
+    pristine = [t.detach().clone() for t in state]
+    src = SyntheticLM(DataConfig(cfg.vocab_size, S, B, seed=0))
+    batches = [{"tokens": torch.as_tensor(src.batch(i), device=device)}
+               for i in range(POD_CHAOS_STEPS)]
+    pool = torch.cuda.graph_pool_handle()
+    runs, steps = {}, []
+
+    def reset():
+        with torch.no_grad():
+            for t, t0 in zip(state, pristine):
+                t.copy_(t0)
+        return opt._replace(step=0)
+
+    def snap():
+        return [p.detach().clone() for p in params.parameters()]
+
+    def run(name, knobs, m, n, keep=()):
+        nonlocal opt
+        opt = reset()
+        step = step_mod.graphed_train_step(step_mod.make_train_step(
+            cfg, knobs, opt_cfg=opt_cfg, remat="none", mesh=m), device, pool)
+        steps.append(step)
+        losses, times, snaps, sync_s, sync_wire = [], [], {}, [], {}
+        for i in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, opt, met = step(params, opt, batches[i])
+            losses.append(float(met["loss"]))
+            times.append(time.perf_counter() - t0)
+            if knobs.sync_period > 1 and (i + 1) % knobs.sync_period == 0:
+                mark = collectives.WIRE.mark()
+                t0 = time.perf_counter()
+                step_mod.pod_sync(params, m)
+                torch.cuda.synchronize()
+                sync_s.append(time.perf_counter() - t0)
+                sync_wire = collectives.WIRE.by_axis(mark)
+            if i + 1 in keep:
+                snaps[i + 1] = snap()
+        runs[name] = dict(step=step, losses=losses, times=times, snaps=snaps,
+                          ms=1e3 * float(np.median(times[1:])),
+                          sync_ms=1e3 * float(np.median(sync_s))
+                          if sync_s else 0.0, sync_wire=sync_wire,
+                          n=n, knobs=knobs)
+        return runs[name]
+
+    # (c)'s reference is built from the first step's gradients (the eager
+    # step, which the graphs equal bit for bit) after the rungs
+    eager = step_mod.make_train_step(cfg, PRECISE, opt_cfg=opt_cfg,
+                                     remat="none")
+    params.requires_grad_(True)
+    out = eager._grad(params, batches[0])
+    params.requires_grad_(False)
+    grads = out[2]
+    del out     # its metrics hold the autograd graph, which a capture
+    # must not find alive
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    run("single-device precise", PRECISE, None, POD_CHAOS_STEPS,
+        keep=(1, 2, POD_CHAOS_STEPS))
+    for name, knobs in pod_rungs(cfg):
+        n = POD_CHAOS_STEPS if name == "precise" else POD_STEPS
+        keep = {"precise": (1, 2, n), "gint8": (1,), "sync/2": (2,)}
+        run(name, knobs, mesh, n, keep.get(name, ()))
+    # (d) one more replayed step of each new path under the profiler
+    syncs = {}
+    for name in ("precise", "gint8", "sync/2"):
+        got = []
+        syncs[name] = host_syncs(lambda: got.append(
+            runs[name]["step"](params, opt, batches[0])))
+        float(got[0][2]["loss"])
+        runs[name]["n"] += 1
+    del got
+    launches = card_launches(steps)
+    want = dict.fromkeys(COUNTERS, 0)
+    for r in runs.values():
+        for k, c in mamba_launches(cfg, r["knobs"]).items():
+            want[k] += r["n"] * c
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    reserved = torch.cuda.max_memory_reserved() / 2 ** 30
+
+    one, prec = runs["single-device precise"], runs["precise"]
+    # (a) the region is the identity on gradients of the whole batch
+    gap_a = worst_rel(prec["snaps"][POD_CHAOS_STEPS],
+                      one["snaps"][POD_CHAOS_STEPS])
+    # (b) sync/2: no pod collective in its graph; the sync restores
+    # precise's params
+    wire = {n: r["step"].stats["wire"] for n, r in runs.items()}
+    gap_b = worst_rel(runs["sync/2"]["snaps"][2], prec["snaps"][2])
+    # (c) gint8 after one step: within the JAX test's bound of precise,
+    # and the update from the region computed on the CPU
+    close_c = all(torch.allclose(a, b, rtol=0.02, atol=1e-4) for a, b in
+                  zip(runs["gint8"]["snaps"][1], prec["snaps"][1]))
+    gap_c_prec = worst_rel(runs["gint8"]["snaps"][1], prec["snaps"][1])
+    for name in runs:
+        runs[name]["step"].release()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    reduced = pod_int8_reference(grads, cfg, mesh)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    opt = reset()
+    optim.adamw_update(reduced, opt, params, opt_cfg)
+    del reduced, grads
+    gap_c_ref = worst_rel(runs["gint8"]["snaps"][1], snap())
+
+    for name, r in runs.items():
+        st = r["step"].stats
+        extra = (f", pod_sync {r['sync_ms']:.2f} ms every "
+                 f"{r['knobs'].sync_period} steps, its wire "
+                 f"{r['sync_wire']}" if r["sync_ms"] else "")
+        print(f"train-pod {name}: replayed {r['ms']:.1f} ms a step "
+              f"(range {1e3 * min(r['times'][1:]):.1f}-"
+              f"{1e3 * max(r['times'][1:]):.1f}, first "
+              f"{1e3 * r['times'][0]:.1f}); {r['ms'] / one['ms']:.3f}x the "
+              f"single-device step; wire a step {st['wire']} bytes a "
+              f"position; capture {st['capture_s']:.3f} s after a "
+              f"{st['warmup_s']:.3f} s warm-up, pool "
+              f"{gib(st['pool_bytes'])} GiB; losses "
+              f"{[round(x, 6) for x in r['losses']]}{extra}")
+
+    def total(w):
+        return sum(w.values())
+    p_pod, p_all = wire["precise"]["pod"], total(wire["precise"])
+    g_pod = wire["gint8"]["pod"]
+    s_pod = runs["sync/2"]["sync_wire"]["pod"] / 2
+    ratios = {"gint8": (g_pod / p_pod, (total(wire["gint8"])) / p_all),
+              "sync/2": (s_pod / p_pod,
+                         (total(wire["sync/2"]) + s_pod) / p_all)}
+    for name, (pod_r, all_r) in ratios.items():
+        print(f"train-pod {name}: pod wire {pod_r:.4f}x precise's, all "
+              f"collectives {all_r:.4f}x (the explorer prices "
+              f"{POD_PRICE[name]})")
+    print(f"train-pod gates: (a) mesh vs single device max rel "
+          f"{gap_a:.3g}, losses equal "
+          f"{prec['losses'] == one['losses']}; (b) sync/2 wire {wire['sync/2']}"
+          f", after pod_sync at step 2 max rel {gap_b:.3g}; (c) gint8 vs "
+          f"precise after one step max rel {gap_c_prec:.3g} (within rtol "
+          f"0.02 / atol 1e-4: {close_c}), vs the per-position form's "
+          f"update {gap_c_ref:.3g} (that form {ref_s:.2f} s); (d) host "
+          f"syncs in "
+          f"a replay {syncs}; peak {peak:.2f} GiB allocated, {reserved:.2f} "
+          f"reserved; launches {launches}")
+    assert prec["losses"] == one["losses"], (prec["losses"], one["losses"])
+    assert gap_a <= POD_REL, gap_a
+    assert set(wire["precise"]) == {"data", "pod"}, wire
+    assert "pod" not in wire["sync/2"] and "data" in wire["sync/2"], wire
+    assert gap_b <= POD_REL, gap_b
+    assert close_c, gap_c_prec
+    assert gap_c_ref <= POD_REF_REL, gap_c_ref
+    assert all(n == 0 for n in syncs.values()), syncs
+    assert launches == want, (launches, want)
+    mesh_losses = prec["losses"]
+    del runs, one, prec, r, steps, state, pristine, params, opt
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_allocated() < base + 2 ** 30, \
+        (torch.cuda.memory_allocated(), base)
+
+    # the driver's elastic restore on the same mesh, precise
+    from repro_torch.launch import train
+    argv = ["--arch", POD_ARCH, "--steps", str(POD_CHAOS_STEPS), "--batch",
+            str(B), "--seq", str(S), "--pod-mesh", "--positions",
+            str(POD_MESH[0] * POD_MESH[1]), "--chaos", POD_CHAOS,
+            "--device", str(device)]
+    reset_launches()
+    with depth_cut(POD_ARCH, n_layers=TRAIN_LAYERS):
+        res = train.main(argv)
+    chaos_launches = card_launches(res["all_steps"])
+    gap = max(abs(a - b) / abs(b) for a, b in zip(res["losses"],
+                                                   mesh_losses))
+    print(f"train-pod chaos {POD_CHAOS}: re-homes "
+          + ", ".join(f"{r['mesh']} in {r['seconds']:.3f} s" for r in
+                      res["rehomes"])
+          + f"; final mesh {dict(res['mesh'].shape)}; step_s "
+          f"{[round(x, 3) for x in res['step_s']]}; losses "
+          f"{[round(x, 6) for x in res['losses']]} against the unfaulted "
+          f"mesh run's (max rel {gap:.3g}); launches {chaos_launches}")
+    assert [r["mesh"] for r in res["rehomes"]] == ["1x2", "2x2"], \
+        res["rehomes"]
+    assert gap <= POD_REL, (res["losses"], mesh_losses)
+    want = {k: sum(mamba_launches(cfg, PRECISE)[k] for _ in range(
+        POD_CHAOS_STEPS)) for k in COUNTERS}
+    assert chaos_launches == want, (chaos_launches, want)
+    del res
+    torch.cuda.empty_cache()
+    return {k: launches[k] + chaos_launches[k] for k in COUNTERS}
+
+
+# -------------------------------------------------------------- train-ep --
+
+EP_ARCH = "olmoe-1b-7b"           # full width: 64 experts, top-8
+EP_LAYERS = 2                     # of its 16 layers
+EP_MESH = (2, 4)                  # (data, model): experts over model
+EP_SHAPE = (8, 512)               # batch, seq: 4096 tokens, 512 a position
+EP_STEPS = 4                      # steps a path: warm-up, capture, replays
+EP_CF8 = 8.0                      # the JAX test's capacity factor
+EP_OUT_ATOL = 1e-5                # EP against the plain EP version
+EP_AUX_REL = 1e-5                 # its aux loss
+EP_GRAD_REL = 2e-5                # its gradients (max |diff| / max |plain|)
+# the whole model's int8 gradients, EP against local: the share of entries
+# that may miss rtol 1e-4 / atol 2e-4. The first layer's outputs differ in
+# their last bits (its sums run in another order), which flips a few int8
+# codes of the second layer's inputs and moves that layer's gradients by
+# an int8 step; the layer-level gate, on equal inputs, holds the experts'
+# int8 backward a shard to every entry
+EP_INT8_OUTSIDE = 1e-6
+
+
+def plain_ep(params, x2, cfg, mesh_shape):
+    """Expert parallelism's function written plainly from its definition,
+    independent of ``models/moe.py``: the tokens cut into one equal block
+    a position; each block routed on its own (the softmax of x @ wg in
+    fp32, the top k, the gates renormalised; each expert's entries kept in
+    token order up to the block's capacity, ``int(cf * T_block * k / E)``
+    rounded up to 8); each kept entry's expert applied to its token's row,
+    gate-weighted; a block's aux loss E * sum(mean probability x share of
+    the entries), averaged over the blocks. No buffers and no exchange;
+    differentiable. Returns (y (T, D), keep masks a position, aux)."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+    n = math.prod(mesh_shape)
+    E, k = cfg.moe.n_experts, cfg.moe.top_k
+    T, D = x2.shape
+    t_loc = T // n
+    c = int(cfg.moe.capacity_factor * t_loc * k / E)
+    C = max(8, -(-c // 8) * 8)
+    ys, keeps, auxes = [], [], []
+    for p in range(n):
+        xp = x2[p * t_loc:(p + 1) * t_loc]
+        probs = torch.softmax((xp @ params.wg).float(), dim=-1)
+        top, ids = torch.topk(probs, k, dim=-1)
+        gate = (top / torch.clamp(top.sum(-1, keepdim=True), min=1e-9)
+                ).to(xp.dtype)
+        keep = torch.zeros(ids.shape, dtype=torch.bool, device=xp.device)
+        yp = torch.zeros_like(xp)
+        for e in range(E):
+            tok, j = torch.nonzero(ids == e, as_tuple=True)   # token order
+            tok, j = tok[:C], j[:C]
+            if not len(tok):
+                continue
+            keep[tok, j] = True
+            rows = xp[tok]
+            h = F.silu(rows @ params.wi_gate[e]) * (rows @ params.wi_up[e])
+            yp = yp.index_add(0, tok, (h @ params.wo[e]) * gate[tok, j, None])
+        share = torch.bincount(ids.reshape(-1), minlength=E).float() / ids.numel()
+        auxes.append(E * torch.sum(probs.mean(0) * share))
+        ys.append(yp)
+        keeps.append(keep)
+    return torch.cat(ys), keeps, torch.stack(auxes).mean()
+
+
+def train_ep(device):
+    """MoE training with the experts spread over the model axis:
+    olmoe-1b-7b at full width, ``EP_LAYERS`` layers, fp32, on a (data 2,
+    model 4) mesh of the card, ``ep_axis="model"``, 8 x 512 tokens (512 a
+    position). Gates: (a) at capacity factor 8 EP's cross-entropy and its
+    gradients equal the local MoE's within the JAX test's rtol 2e-4 / atol
+    2e-5 (the aux term left out: under EP the aux loss is a per-shard
+    statistic, which (b) holds), and on the int8 rung the cross-entropy
+    within 1e-4 and the gradients within 1e-4 relative / 2e-4 absolute
+    but for a share ``EP_INT8_OUTSIDE`` of the entries; (b) on one MoE layer's inputs at capacity factor 8, the int8
+    gradients (the experts' int8 backward a shard) within 1e-4 relative /
+    2e-4 absolute of the local int8 MoE's; at the
+    config's capacity factor one MoE layer's keep masks equal those of
+    ``plain_ep`` on the same inputs, its output within ``EP_OUT_ATOL``,
+    its aux loss within ``EP_AUX_REL``, and the gradients of the output's
+    projection plus 0.01 x the aux loss to the input, the router and the
+    experts within ``EP_GRAD_REL`` of ``plain_ep``'s; (c) on the int8 rung
+    one ``int8_matmul`` launch an expert shard a product in a forward. Then
+    the train step local and EP, precise and int8, each one CUDA graph
+    (``EP_STEPS`` steps): ms a step, tokens dropped a shard, the
+    exchange's bytes. Returns the launches of those steps."""
+    import numpy as np
+    import torch
+    from repro_torch.approx.knobs import PRECISE, ApproxKnobs
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.dist import collectives
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import api, lm
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.train import optim
+    from repro_torch.train import step as step_mod
+
+    cfg = dataclasses.replace(get_config(EP_ARCH), n_layers=EP_LAYERS)
+    cfg8 = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=EP_CF8))
+    B, S = EP_SHAPE
+    mesh = make_mesh(EP_MESH, ("data", "model"), device)
+    n_pos = EP_MESH[0] * EP_MESH[1]
+    params = api.init(cfg, 0, torch.float32, device)
+    src = SyntheticLM(DataConfig(cfg.vocab_size, S, B, seed=0))
+    batches = [{"tokens": torch.as_tensor(src.batch(i), device=device)}
+               for i in range(EP_STEPS + 1)]
+    named = dict(params.named_parameters())
+
+    int8 = ApproxKnobs(matmul_precision="int8")
+
+    # (a) cross-entropy and gradients at capacity factor 8, precise and
+    # int8
+    def ce_grads(c, knobs, **kw):
+        params.requires_grad_(True)
+        loss, m = lm.lm_loss(params, batches[0], c, knobs, remat="none",
+                             aux_coef=0.0, **kw)
+        g = torch.autograd.grad(loss, list(named.values()))
+        params.requires_grad_(False)
+        return float(loss.detach()), float(m["aux"].detach()), dict(
+            zip(named, g))
+    torch.cuda.reset_peak_memory_stats()
+    n_entries = sum(p.numel() for p in named.values())
+    gates_a = {}
+    for rung, knobs, rtol, atol in (("precise", PRECISE, 2e-4, 2e-5),
+                                    ("int8", int8, 1e-4, 2e-4)):
+        ce_l, aux_l, g_l = ce_grads(cfg8, knobs)
+        ce_e, aux_e, g_e = ce_grads(cfg8, knobs, ep_axis="model", mesh=mesh)
+        outside = {k: int((~torch.isclose(g_e[k], g_l[k], rtol=rtol,
+                                          atol=atol)).sum()) for k in named}
+        outside = {k: n for k, n in outside.items() if n}
+        allowed = 0 if rung == "precise" else EP_INT8_OUTSIDE * n_entries
+        gates_a[rung] = dict(
+            ce_e=ce_e, ce_l=ce_l, rel_ce=abs(ce_e - ce_l) / abs(ce_l),
+            rtol=rtol, atol=atol, aux_e=aux_e, aux_l=aux_l, outside=outside,
+            bad=list(outside) if sum(outside.values()) > allowed else [],
+            worst=max(float((g_e[k] - g_l[k]).abs().max()) for k in named))
+        del g_l, g_e
+    peak_a = torch.cuda.max_memory_allocated() / 2 ** 30
+    drop_int8_weights()
+    torch.cuda.empty_cache()
+
+    # (b) one MoE layer at the config's capacity factor against plain_ep:
+    # outputs, keep masks, the aux loss, and the gradients of the output's
+    # projection on r plus 0.01 x the aux loss
+    g = torch.Generator(device="cpu").manual_seed(5)
+    x = torch.randn((B * S, cfg.d_model), generator=g).to(device)
+    r = torch.randn((B * S, cfg.d_model), generator=g).to(device)
+    mp = params.layers[0].moe
+    wrt = [mp.wg, mp.wi_gate, mp.wi_up, mp.wo]
+    params.requires_grad_(True)
+    x.requires_grad_(True)
+    routing = []
+    mark = collectives.WIRE.mark()
+    y, aux = moe_mod.moe(mp, x.view(B, S, -1), cfg, ep_axis="model",
+                         mesh=mesh, routing=routing)
+    exch = sum(b for (_, c), (_, b) in collectives.WIRE.since(mark).items()
+               if c == "all_to_all")
+    g_ep = torch.autograd.grad((y.view(-1, cfg.d_model) * r).sum()
+                               + 0.01 * aux, [x] + wrt)
+    y_plain, keep_plain, aux_plain = plain_ep(mp, x, cfg, EP_MESH)
+    g_plain = torch.autograd.grad((y_plain * r).sum() + 0.01 * aux_plain,
+                                  [x] + wrt)
+    params.requires_grad_(False)
+    x.requires_grad_(False)
+    keep = [k for _, k in routing]
+    keep_equal = all(torch.equal(a, b) for a, b in zip(keep, keep_plain))
+    err_b = max_err(y.detach().view(-1, cfg.d_model), y_plain.detach())
+    aux, aux_plain = float(aux.detach()), float(aux_plain.detach())
+    rel_aux = abs(aux - aux_plain) / abs(aux_plain)
+    grad_rel = dict(zip(("x", "wg", "wi_gate", "wi_up", "wo"),
+                        (rel_gap(a, b) for a, b in zip(g_ep, g_plain))))
+    del g_ep, g_plain, y, y_plain
+    # (b, int8) the experts' int8 backward a shard against the local int8
+    # MoE's on the same layer inputs, at capacity factor 8 (nothing drops
+    # either way): the gradients of the output's projection
+    g_i8 = []
+    params.requires_grad_(True)
+    x.requires_grad_(True)
+    for kw in ({}, dict(ep_axis="model", mesh=mesh)):
+        y, aux_i8 = moe_mod.moe(mp, x.view(B, S, -1), cfg8,
+                                precision="int8", **kw)
+        g_i8.append(torch.autograd.grad(
+            (y.view(-1, cfg.d_model) * r).sum(), [x] + wrt))
+    params.requires_grad_(False)
+    x.requires_grad_(False)
+    names_b = ("x", "wg", "wi_gate", "wi_up", "wo")
+    i8_rel = dict(zip(names_b, (rel_gap(a, b) for a, b in zip(*g_i8[::-1]))))
+    i8_bad = [n for n, a, b in zip(names_b, g_i8[1], g_i8[0])
+              if not torch.allclose(a, b, rtol=1e-4, atol=2e-4)]
+    del g_i8, y, aux_i8     # a live autograd graph breaks a later capture
+    dropped = [int((~k).sum()) for k in keep]
+    C = moe_mod._capacity(B * S // n_pos, cfg.moe.top_k, cfg.moe.n_experts,
+                          cfg.moe.capacity_factor)
+
+    # (c) the int8 rung's forward: one launch an expert shard a product
+    reset_launches()
+    with torch.no_grad():
+        lm.forward_hidden(params, batches[0]["tokens"][:, :-1], cfg, int8,
+                          ep_axis="model", mesh=mesh, remat="none")
+    torch.cuda.synchronize()
+    fwd = read_launches()
+    want_i8 = 3 * n_pos * EP_LAYERS
+
+    # the train step, local and EP, precise and int8, one graph each
+    opt = optim.init_opt(params)
+    state = step_mod.state_tensors(params, opt)
+    pristine = [t.detach().clone() for t in state]
+    pool = torch.cuda.graph_pool_handle()
+    steps, rows = [], {}
+    reset_launches()
+    for rung, knobs in (("precise", PRECISE), ("int8", int8)):
+        for path, kw in (("local", {}), ("EP", dict(ep_axis="model",
+                                                    mesh=mesh))):
+            with torch.no_grad():
+                for t, t0 in zip(state, pristine):
+                    t.copy_(t0)
+            opt = opt._replace(step=0)
+            step = step_mod.graphed_train_step(step_mod.make_train_step(
+                cfg, knobs, remat="none", **kw), device, pool)
+            steps.append(step)
+            times, losses = [], []
+            for i in range(EP_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, opt, m = step(params, opt, batches[i])
+                losses.append(float(m["loss"]))
+                times.append(time.perf_counter() - t0)
+            rows[(rung, path)] = dict(
+                ms=1e3 * float(np.median(times[1:])), losses=losses,
+                capture_s=step.stats["capture_s"],
+                pool=gib(step.stats["pool_bytes"]))
+    launches = card_launches(steps)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    for (rung, path), r in rows.items():
+        print(f"train-ep {rung} {path}: replayed {r['ms']:.1f} ms a step "
+              f"({r['ms'] / rows[(rung, 'local')]['ms']:.3f}x local), "
+              f"capture {r['capture_s']:.3f} s, pool {r['pool']} GiB, "
+              f"losses {[round(x, 5) for x in r['losses']]}")
+    for rung, a in gates_a.items():
+        print(f"train-ep gate (a) {rung}, capacity factor {EP_CF8}: "
+              f"cross-entropy EP {a['ce_e']:.6f} local {a['ce_l']:.6f} (rel "
+              f"{a['rel_ce']:.3g}), gradients max |diff| {a['worst']:.3g}, "
+              f"entries outside rtol {a['rtol']} / atol {a['atol']} "
+              f"{a['outside']} of {n_entries}, failing leaves {a['bad']}; "
+              f"aux EP {a['aux_e']:.5f} local "
+              f"{a['aux_l']:.5f}")
+    print(f"train-ep gates: (a) peak {peak_a:.2f} GiB; "
+          f"(b) capacity factor {cfg.moe.capacity_factor} (C {C} a "
+          f"position): keep masks equal to plain_ep's {keep_equal}, output "
+          f"max |diff| {err_b:.3g}, aux {aux:.7f} against plain_ep's "
+          f"{aux_plain:.7f} (rel {rel_aux:.3g}), gradients of y.r + 0.01 "
+          f"aux max |diff| / max |plain| {grad_rel}; int8 at capacity "
+          f"factor {EP_CF8}, EP against local on these inputs, gradients "
+          f"of y.r max |diff| / max |local| {i8_rel}, outside rtol 1e-4 / "
+          f"atol 2e-4: {i8_bad}; dropped a shard "
+          f"{dropped} of {B * S // n_pos * cfg.moe.top_k}, exchange "
+          f"{exch:.0f} bytes a position a layer (there and back); (c) "
+          f"int8 forward "
+          f"int8_matmul {fwd['int8_matmul']} launches (want {want_i8}: 3 a "
+          f"shard a layer), quantize_rows {fwd['quantize_rows']}; steps' "
+          f"launches {launches}, peak {peak:.2f} GiB")
+    for rung, a in gates_a.items():
+        assert a["rel_ce"] <= a["rtol"] and not a["bad"], (rung, a)
+        assert np.isfinite(a["aux_e"]), (rung, a)
+    assert keep_equal and err_b <= EP_OUT_ATOL, (keep_equal, err_b)
+    assert rel_aux <= EP_AUX_REL, (aux, aux_plain)
+    assert max(grad_rel.values()) <= EP_GRAD_REL, grad_rel
+    assert not i8_bad, i8_rel
+    assert fwd["int8_matmul"] == want_i8, fwd
+    assert launches["flash_attention"] > 0 and launches["int8_matmul"] > 0
+    del params, opt, state, pristine, steps
+    drop_int8_weights()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: the repository's src/repro_torch is missing",
@@ -6543,6 +7171,8 @@ def main():
           f"at mamba2-780m's full depth (48 layers x {ssd_bwd_ms:.3f} ms)")
     del tres
     torch.cuda.empty_cache()
+    pod_launches = train_pod(device)
+    phase_done("train-pod")
     # phi4-mini-3.8b at 2 x 4096 tokens, full width cut to ATTN_LAYERS
     # layers (32 until the train-encdec phase was added); at full depth its
     # 61.5 GB of fp32 params, grads and AdamW moments leave the layers'
@@ -6593,6 +7223,8 @@ def main():
     phase_done("serve-ssm")
     moe_launches, moe_i8_rows = moe_cell(device)
     phase_done("serve-moe")
+    ep_launches = train_ep(device)
+    phase_done("train-ep")
     enc_launches, vlm_launches, enc_fa_rows, enc_i8_rows, bmm_rows = \
         encdec_cell(device)
     phase_done("train-encdec")
@@ -6627,7 +7259,9 @@ def main():
                       "serve-ssm": ssm_launches[name],
                       "serve-moe": moe_launches[name],
                       "train-encdec": enc_launches[name],
-                      "train-vlm": vlm_launches[name]}
+                      "train-vlm": vlm_launches[name],
+                      "train-pod": pod_launches[name],
+                      "train-ep": ep_launches[name]}
                for name in kernels}
     # the experts' batched product (one launch for 64 experts) at decode
     i8_batched = {"serve_moe": [{k: r[k] for k in (

@@ -1,10 +1,10 @@
 """Offline approximation design-space exploration (paper §3 + Fig. 1): the
 serving path of the JAX package's ``core/explorer.py`` (``knob_grid``,
 ``analytic_quality_loss``, ``analytic_cost``, ``pareto_front``,
-``explore``), copied with the analytic backend only. The compiled-cell
-pricing (``decode_kv_share``) and the mesh admission pricing are not
-carried over: ``kv_share`` falls back to the analytic 0.5 unless the caller
-passes one.
+``explore``) with the analytic backend, and ``admission_cost``, the mesh
+admission pricing. The compiled-cell pricing (``decode_kv_share``, which
+reads XLA's ``cost_analysis``) waits with the dry-run: ``kv_share`` falls
+back to the analytic 0.5 unless the caller passes one.
 """
 from __future__ import annotations
 
@@ -188,6 +188,37 @@ def analytic_cost(cfg: ModelConfig, shape, k: ApproxKnobs,
 
 
 # ------------------------------------------------------- pareto pruning --
+
+def admission_cost(cfg: ModelConfig, mesh, chunk_len: int, kv_len: int, *,
+                   use_kernel: Optional[bool] = None,
+                   kv_quant: bool = False) -> dict:
+    """Per-device price of one admission chunk's attention, laid out as the
+    chunk cell runs it: the ring layout from ``dist.sharding.prefill_plan``
+    (the function the serving engine dispatches on), priced by
+    ``roofline.admission_terms``. ``use_kernel`` None means "a CUDA device
+    is present" (the ring's kernel runs there). Returns the terms plus
+    ``n_shards`` and the plan's or the fallback's ``reason`` ("" = ring
+    dispatched)."""
+    import torch
+
+    from repro_torch import roofline
+    from repro_torch.dist.sharding import prefill_plan
+    n, reason = 1, "no mesh (single device)"
+    if mesh is not None:
+        if use_kernel is None:
+            use_kernel = torch.cuda.is_available()
+        if not use_kernel:
+            reason = "kernel off: no CUDA device"
+        else:
+            plan, reason = prefill_plan(cfg, mesh, chunk_len)
+            if plan is not None:
+                n = plan.n_shards
+    out = roofline.admission_terms(cfg, chunk_len, kv_len, n_shards=n,
+                                   kv_quant=kv_quant)
+    out["n_shards"] = n
+    out["reason"] = reason
+    return out
+
 
 def pareto_front(points: Sequence[Tuple[float, float]]) -> List[int]:
     """Indices of non-dominated (quality_loss, rel_time) points, sorted by

@@ -148,9 +148,10 @@ class TrainTenant(Tenant):
     max_reclaim: int = 0
     n_quanta: int = 1
     # live-shrink actuator: receives each CapacityEvent fanned out by
-    # ``PliantRuntime.inject``; the launch/train chaos path binds it to the
-    # mid-flight ``dist.elastic.reshard_live`` of (params, optimizer state)
-    # on the surviving mesh + a variant-table recompile
+    # ``PliantRuntime.inject``; ``repro_torch.launch.train --chaos`` binds
+    # it to the mid-flight ``dist.elastic.reshard_live`` of (params,
+    # optimizer state) onto the surviving mesh and a rebuild of every
+    # variant's step there
     elastic_fn: Optional[Callable[[Any], None]] = None
     _variant: int = field(default=0, init=False)
     _reclaimed: int = field(default=0, init=False)

@@ -9,10 +9,13 @@ size, as ``jax.sharding.Mesh.shape`` reads, so the plan functions of
 another mesh's positions (``ids``), which ``dist.elastic.surviving_mesh``
 does after a revocation. Every position of a mesh here is the same device:
 the ring prefill runs its sequence shards one after another on that
-device, and the sharded paged decode one ``paged_attention`` launch per
-slot-affinity shard. Spreading positions over several cards (K/V moved
-between them over NCCL) is not ported yet (ROADMAP queue 1, "Multi-GPU,
-the rest"), so a mesh whose positions name different devices raises.
+device, the sharded paged decode one ``paged_attention`` launch per
+slot-affinity shard, and the owned collectives of ``dist.collectives``
+(the gradient-sync region, the pod sync, MoE's expert exchange) their
+positions' blocks in turn. A mesh whose positions name different devices
+raises: placing positions on several cards, each collective a
+``torch.distributed`` call on its axis's process group, is ROADMAP queue 1
+item 6 ("the mesh's positions on several cards").
 """
 from __future__ import annotations
 
@@ -46,9 +49,10 @@ class Mesh:
         if len(set(devices)) > 1:
             raise NotImplementedError(
                 f"mesh positions on {sorted(map(str, set(devices)))}: a mesh "
-                "spread over several devices (K/V moved over NCCL) is not "
-                "ported yet (ROADMAP queue 1, \"Multi-GPU, the rest\"); "
-                "every position must be the same device")
+                "spread over several devices (collectives over NCCL) is not "
+                "ported yet (ROADMAP queue 1 item 6, \"the mesh's positions "
+                "on several cards\"); every position must be the same "
+                "device")
         self.shape = collections.OrderedDict(zip(axis_names, shape))
         self.devices = devices
         self.ids = ids

@@ -1,5 +1,5 @@
 """Training driver with the Pliant runtime: the JAX package's
-``launch/train.py`` on one device, in PyTorch.
+``launch/train.py`` in PyTorch.
 
 Data pipeline -> one train-step closure per approximate variant -> Pliant
 monitor/controller switching variants at step boundaries. With
@@ -29,14 +29,35 @@ the parameters and moments in place, where the captured steps read them.
 "none" by default, as in the JAX driver; full-width phi4-mini-3.8b at 2 x
 4096 tokens needs "full" to fit one 80 GB card.
 
+``--pod-mesh`` lays ``--positions N`` positions of the device (8 by
+default) out as a (2, N // 2) mesh over ("pod", "data"), so the
+``sync_period`` and ``grad_compress`` knobs reach the owned gradient-sync
+region (``train.step.grad_reduce_for``): every position is the one
+device, the forward and backward run unsplit and the region records the
+bytes each of its collectives would carry (``dist.collectives``). A variant with ``sync_period`` k > 1
+carries no pod collective; the driver syncs the parameters over the pods
+after every k-th step (``train.step.pod_sync``). ``--chaos SCRIPT``
+scripts capacity events (``dist.elastic.FaultInjector``, e.g.
+"revoke@3:2,restore@6"): a revocation shrinks the mesh to the survivors
+(``surviving_mesh``), the parameters and AdamW state are staged through
+the host onto it (``reshard_live``) and every variant's step is built anew
+on the new mesh (fresh graphs on the card); a restore grows it back. The
+events reach the job through the runtime's ``TrainTenant.elastic_fn``, as
+in the JAX driver, which prints the same ``chaos:`` lines.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --pod-mesh --positions 8 --chaos "revoke@3:2,restore@6" --steps 8
+
 On the card each variant's step runs as one CUDA graph
 (``build_variant_steps``): its first step is a real eager step that warms
 the kernels, after which the step is captured and every later step of
 that variant replays it; on the CPU the steps run eagerly. ``main``
 prints the same ``step ... loss ... variant=...`` and ``final loss`` lines
 as the JAX driver (and a ``train graphs:`` line on the card) and returns a
-dict with the table and its steps, the trained state and the per-step
-record (loss, wall seconds, seconds waiting for data, active variant).
+dict with the table and its steps, the trained state, the per-step
+record (loss, wall seconds, seconds waiting for data, active variant),
+the final mesh, each re-home (mesh shape, seconds) and every step built
+(``all_steps``: those of every mesh the run was on).
 """
 from __future__ import annotations
 
@@ -57,6 +78,8 @@ from repro_torch.core.runtime import PliantRuntime
 from repro_torch.core.tenant import TrainTenant
 from repro_torch.core.variants import VariantTable
 from repro_torch.data.pipeline import DataConfig, Prefetcher, SyntheticLM
+from repro_torch.dist import elastic
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import api
 from repro_torch.models.common import resolve_device
 from repro_torch.train import optim
@@ -64,17 +87,20 @@ from repro_torch.train import step as step_mod
 
 
 def build_variant_steps(cfg, table: VariantTable, opt_cfg, *, device,
-                        remat="none"):
-    """One train step per variant of ``table``, the counterpart of the JAX
-    driver's ``jax.jit`` of each: on a CUDA ``device`` a
+                        remat="none", mesh=None):
+    """One train step per variant of ``table`` (over ``mesh``, with the
+    variant's gradient-sync region, when given), the counterpart of the
+    JAX driver's ``jax.jit`` of each: on a CUDA ``device`` a
     ``GraphedTrainStep`` (captured at its first call, which is a real step;
     every variant's graph draws on one memory pool), on the CPU the eager
-    ``TrainStep``. Returns the steps in the table's order; each graph's
-    capture seconds and launches are in its ``stats``."""
+    ``TrainStep``. Installs them in ``table`` and returns them in its
+    order; each graph's capture seconds, launches and wire bytes are in
+    its ``stats``. Called again after a re-home, it builds fresh steps."""
     pool = (torch.cuda.graph_pool_handle()
             if torch.device(device).type == "cuda" else None)
     table.compile_all(lambda knobs: step_mod.graphed_train_step(
-        step_mod.make_train_step(cfg, knobs, opt_cfg=opt_cfg, remat=remat),
+        step_mod.make_train_step(cfg, knobs, opt_cfg=opt_cfg, remat=remat,
+                                 mesh=mesh),
         device, pool))
     return [table.executable(i) for i in range(len(table))]
 
@@ -95,6 +121,20 @@ def extra_inputs(cfg, batch: int, seed: int, step: int, device):
                               generator=gen).to(device)}
 
 
+def _reshard(params, opt, device):
+    """``dist.elastic.reshard_live`` of (params, AdamW state): each tensor
+    staged through the host and put back on ``device``; the parameters
+    take the new tensors in place of theirs (the captured steps of the old
+    mesh are dropped, and the new mesh's capture their addresses)."""
+    named = dict(params.named_parameters())
+    new_named, new_opt = elastic.reshard_live((named, opt), device)
+    for k, p in named.items():
+        p.data = new_named[k]
+    return params, optim.OptState(
+        new_opt.step, {k: new_opt.m[k] for k in opt.m},
+        {k: new_opt.v[k] for k in opt.v})
+
+
 def main(argv=None, remat="none"):
     p = argparse.ArgumentParser()
     p.add_argument("--arch", default="phi4-mini-3.8b-smoke")
@@ -109,6 +149,18 @@ def main(argv=None, remat="none"):
     p.add_argument("--ckpt-period", type=int, default=50)
     p.add_argument("--resume", action="store_true")
     p.add_argument("--decision-interval", type=float, default=0.5)
+    p.add_argument("--pod-mesh", action="store_true",
+                   help="lay --positions positions of the device out as a "
+                        "(pod, data) mesh so the sync_period/grad_compress "
+                        "knobs reach the owned gradient-sync region")
+    p.add_argument("--positions", type=int, default=8,
+                   help="mesh positions for --pod-mesh (all on --device)")
+    p.add_argument("--chaos", default="",
+                   help="capacity-event script for the fault injector, e.g. "
+                        "'revoke@40:2,restore@120': revocations shrink the "
+                        "train mesh (params and optimizer state restaged, "
+                        "every variant's step rebuilt), restores grow it "
+                        "back")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
@@ -119,16 +171,83 @@ def main(argv=None, remat="none"):
     opt = optim.init_opt(params)
     opt_cfg = optim.OptConfig(lr=args.lr, warmup=20, total_steps=args.steps)
 
+    mesh = None
+    if args.pod_mesh:
+        if args.positions >= 2:
+            mesh = make_mesh((2, args.positions // 2), ("pod", "data"),
+                             device)
+        else:
+            print("WARNING: --pod-mesh ignored (fewer than 2 --positions) "
+                  "— pod collectives will be no-ops")
+
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
     table = explore(cfg, shape, serving=False, max_variants=4)
     steps = build_variant_steps(cfg, table, opt_cfg, device=device,
-                                remat=remat)
+                                remat=remat, mesh=mesh)
     names = [v.name for v in table.variants]
 
     monitor = LatencyMonitor(SERVICES["token-serve"].qos_target_s)
     tenant = TrainTenant(table, name="train")
     runtime = PliantRuntime(monitor=monitor, tenants=[tenant])
     runtime.cfg.decision_interval_s = args.decision_interval
+
+    # --chaos: the TrainTenant's live shrink: (params, optimizer state)
+    # staged through the host onto the surviving mesh, without the disk
+    # round trip, and every variant's step rebuilt on it
+    chaos = None
+    live = {"params": None, "opt": None, "mesh": mesh, "lost": set(),
+            "rehomes": [], "built": list(steps)}
+    if args.chaos:
+        chaos = elastic.FaultInjector.parse(args.chaos)
+        base_mesh = mesh
+
+        def on_capacity(ev):
+            if ev.kind == elastic.REVOKE:
+                if base_mesh is None:
+                    print("chaos: revoke ignored (single device, no mesh)")
+                    return
+                ids = ev.devices or elastic.pick_revoked(
+                    base_mesh, ev.count, already=tuple(live["lost"]))
+                live["lost"].update(ids)
+            elif ev.kind == elastic.RESTORE:
+                if ev.devices:
+                    live["lost"].difference_update(ev.devices)
+                else:
+                    live["lost"].clear()
+            else:
+                return      # quota/collective events: pressure-only here
+            if live["lost"]:
+                new_mesh, why = elastic.surviving_mesh(base_mesh,
+                                                       live["lost"])
+                if new_mesh is None:
+                    print(f"chaos: cannot shrink ({why}) — degrading via "
+                          "the variant ladder only")
+                    return
+            else:
+                new_mesh, why = base_mesh, "full mesh restored"
+            t = time.time()
+            for s in steps:         # the old mesh's graphs and their pool
+                getattr(s, "release", lambda: None)()
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+            live["params"], live["opt"] = _reshard(live["params"],
+                                                   live["opt"], device)
+            steps[:] = build_variant_steps(cfg, table, opt_cfg,
+                                           device=device, remat=remat,
+                                           mesh=new_mesh)
+            live["built"] += steps
+            live["mesh"] = new_mesh
+            dt = time.time() - t
+            shape_s = "1x1" if new_mesh is None else \
+                "x".join(str(v) for v in new_mesh.shape.values())
+            live["rehomes"].append(dict(mesh=shape_s, seconds=dt,
+                                        lost=sorted(live["lost"])))
+            print(f"chaos: resharded (params+opt) onto {shape_s} in "
+                  f"{dt:.2f}s ({why}; lost={sorted(live['lost'])})")
+
+        tenant.elastic_fn = on_capacity
+        print(f"chaos: {chaos.pending()} scripted capacity events "
+              f"({args.chaos})")
 
     data_cfg = DataConfig(cfg.vocab_size, args.seq, args.batch,
                           seed=args.seed)
@@ -152,6 +271,15 @@ def main(argv=None, remat="none"):
     t0 = time.time()
     try:
         for i in range(start_step, args.steps):
+            if chaos is not None:
+                due = chaos.due(i)
+                if due:
+                    live["params"], live["opt"] = params, opt
+                    for ev in due:
+                        print(f"chaos@{i}: {ev.kind} count={ev.count} "
+                              f"quanta={ev.quanta}")
+                        runtime.inject(ev)
+                    params, opt = live["params"], live["opt"]
             t_step = time.perf_counter()
             _, tokens = next(prefetch)
             wait_s.append(time.perf_counter() - t_step)
@@ -160,6 +288,11 @@ def main(argv=None, remat="none"):
             active = runtime.active_variant if args.pliant else 0
             step_fn = table.executable(active)
             params, opt, metrics = step_fn(params, opt, batch)
+            knobs = table.variants[active].knobs
+            if knobs.sync_period > 1 and (i + 1) % knobs.sync_period == 0:
+                # the step carries no pod collective: sync the params over
+                # the pods every k steps (a no-op without a pod axis)
+                step_mod.pod_sync(params, live["mesh"])
             losses.append(float(metrics["loss"]))
             step_s.append(time.perf_counter() - t_step)
             variants.append(active)
@@ -211,7 +344,9 @@ def main(argv=None, remat="none"):
                 wait_s=wait_s, variants=variants, names=names, table=table,
                 params=params, opt=opt, runtime=runtime, source=source,
                 cfg=cfg, start_step=start_step, steps=steps,
-                ckpt_timings=mgr.timings if mgr is not None else [])
+                ckpt_timings=mgr.timings if mgr is not None else [],
+                mesh=live["mesh"], rehomes=live["rehomes"],
+                all_steps=live["built"])
 
 
 if __name__ == "__main__":

@@ -1,9 +1,11 @@
 """Family-dispatching model API of the train and serve layers. Counterpart
-of the JAX package's ``models/api.py`` on one device:
+of the JAX package's ``models/api.py``:
 
 * ``model_specs(cfg)``         the full ``ParamSpec`` tree
 * ``init(cfg, seed, dtype, device)``  materialised parameters
-* ``loss_fn(cfg)``             (params, batch, knobs, **kw) -> (loss, metrics)
+* ``loss_fn(cfg)``             (params, batch, knobs, **kw) -> (loss, metrics);
+                               ``kw``: ``remat``, and ``ep_axis`` / ``mesh``
+                               for expert parallelism
 * ``decode_fn(cfg)``           the one-token serve step
 * ``input_specs(cfg, shape)``  {name: (shape tuple, dtype)} of a cell's batch
 * ``make_inputs(cfg, shape, generator, device)``  a synthetic batch of them

@@ -44,12 +44,15 @@ def block_specs(kind: str, cfg: ModelConfig, *, cross: bool = False):
     return s
 
 
-def ffn(params, hn, cfg: ModelConfig, knobs: ApproxKnobs):
-    """The block's MLP, or its MoE layer at the knob's ``top_k``. Returns
-    (y, aux), aux None for an MLP."""
+def ffn(params, hn, cfg: ModelConfig, knobs: ApproxKnobs, *, ep_axis=None,
+        mesh=None):
+    """The block's MLP, or its MoE layer at the knob's ``top_k`` (expert
+    parallel over ``mesh``'s ``ep_axis`` when given). Returns (y, aux),
+    aux None for an MLP."""
     if hasattr(params, "moe"):
         return moe_mod.moe(params.moe, hn, cfg, top_k=knobs.topk_override,
-                           precision=knobs.matmul_precision)
+                           precision=knobs.matmul_precision,
+                           ep_axis=ep_axis, mesh=mesh)
     return mlp_mod.mlp(params.mlp, hn, precision=knobs.matmul_precision), None
 
 
@@ -63,13 +66,14 @@ def cross_attention(params, h, enc_out, cfg: ModelConfig):
 
 def block_forward(kind: str, params, h, positions, cfg: ModelConfig,
                   knobs: ApproxKnobs = PRECISE, *, causal: bool = True,
-                  enc_out=None):
+                  enc_out=None, ep_axis=None, mesh=None):
     """Full-sequence block (the training forward). h: (B,S,D); positions:
     (B,S). Returns (h, aux_loss). An attention block runs its attention in
     ``window`` mode for LOCAL_ATTN, else ``causal`` (``full`` when
     ``causal`` is False), with the ``kv_keep_stride`` knob, then, given
     ``enc_out``, the cross sublayer, then the MLP at the knob's matmul
-    precision (or the MoE layer, whose load-balancing loss is the aux)."""
+    precision (or the MoE layer, expert parallel over ``mesh``'s
+    ``ep_axis`` when given, whose load-balancing loss is the aux)."""
     if kind == MAMBA:
         y = mamba_mod.mamba_mixer(params.mixer,
                                   rms_norm(h, params.norm, cfg.norm_eps),
@@ -83,7 +87,7 @@ def block_forward(kind: str, params, h, positions, cfg: ModelConfig,
     if enc_out is not None:
         h = h + cross_attention(params, h, enc_out, cfg)
     y, aux = ffn(params, rms_norm(h, params.norm_mlp, cfg.norm_eps), cfg,
-                 knobs)
+                 knobs, ep_axis=ep_axis, mesh=mesh)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return h + y, aux

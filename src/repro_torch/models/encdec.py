@@ -92,10 +92,11 @@ def decode_hidden(params, tokens, enc_out, cfg: ModelConfig,
 
 def encdec_loss(params, batch, cfg: ModelConfig,
                 knobs: ApproxKnobs = PRECISE, *, remat: str = "full",
-                aux_coef: float = 0.0):
+                ep_axis=None, mesh=None, aux_coef: float = 0.0):
     """batch: {"tokens": (B,S+1), "frames": (B,F,D)}. The ``token_drop``
     knob keeps the first ``b_keep`` rows of both. Returns (loss, metrics),
-    the aux loss 0."""
+    the aux loss 0. ``ep_axis`` and ``mesh`` are taken as the JAX
+    function takes them and reach nothing (no expert layers)."""
     tokens, frames = batch["tokens"], batch["frames"]
     if knobs.token_drop > 0:
         b_keep = max(1, int(tokens.shape[0] * (1.0 - knobs.token_drop)))

@@ -165,15 +165,16 @@ def remat_loop(body, carry: tuple, items, remat: str) -> tuple:
 
 
 def forward_hidden(params, tokens, cfg: ModelConfig,
-                   knobs: ApproxKnobs = PRECISE, *, prefix_embeds=None,
-                   remat: str = "full"):
+                   knobs: ApproxKnobs = PRECISE, *, ep_axis=None, mesh=None,
+                   prefix_embeds=None, remat: str = "full"):
     """tokens: (B, S_text) -> (h (B,S,D) final-normed, aux loss).
 
     ``prefix_embeds`` (B, P, D), the vlm's stub patch embeddings, are cast
     to the embeddings' dtype and prepended, so S = P + S_text; every block
     sees the positions ``arange(S)``. The ``layer_skip`` knob runs only
     ``keep_groups``' layer groups, each under the ``remat`` policy of
-    ``remat_loop``."""
+    ``remat_loop``. MoE layers run expert parallel over ``mesh``'s
+    ``ep_axis`` when given."""
     h = params.embed[tokens]
     if prefix_embeds is not None:
         h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
@@ -186,7 +187,8 @@ def forward_hidden(params, tokens, cfg: ModelConfig,
         for j, kind in enumerate(cfg.pattern):
             h, a = block_forward(kind,
                                  layer_params(params, cfg, item * period + j),
-                                 h, positions, cfg, knobs)
+                                 h, positions, cfg, knobs, ep_axis=ep_axis,
+                                 mesh=mesh)
             aux = aux + a
         return h, aux
 
@@ -233,7 +235,8 @@ def chunked_xent(params, h, labels, mask, cfg: ModelConfig, *,
 
 
 def lm_loss(params, batch, cfg: ModelConfig, knobs: ApproxKnobs = PRECISE, *,
-            remat: str = "full", aux_coef: float = 0.01):
+            ep_axis=None, mesh=None, remat: str = "full",
+            aux_coef: float = 0.01):
     """batch: {"tokens": (B,S+1) int, optional "prefix_embeds" (B,P,D)}.
     The ``token_drop`` knob (batch perforation) keeps the first ``b_keep``
     rows of both. The prefix positions predict nothing: text position i
@@ -246,8 +249,8 @@ def lm_loss(params, batch, cfg: ModelConfig, knobs: ApproxKnobs = PRECISE, *,
         if prefix is not None:
             prefix = prefix[:b_keep]
     inputs, labels = tokens[:, :-1], tokens[:, 1:]
-    h, aux = forward_hidden(params, inputs, cfg, knobs, prefix_embeds=prefix,
-                            remat=remat)
+    h, aux = forward_hidden(params, inputs, cfg, knobs, ep_axis=ep_axis,
+                            mesh=mesh, prefix_embeds=prefix, remat=remat)
     if prefix is not None:
         h = h[:, prefix.shape[1]:]
     mask = torch.ones(labels.shape, dtype=torch.float32, device=h.device)

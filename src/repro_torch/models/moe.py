@@ -1,6 +1,5 @@
-"""Top-k MoE layer with sort-based dispatch, single device. Counterpart of
-the JAX package's ``models/moe.py`` (its single-device path; expert
-parallelism over a mesh, ``ep_axis``, is not ported).
+"""Top-k MoE layer with sort-based dispatch and expert parallelism.
+Counterpart of the JAX package's ``models/moe.py``.
 
 Dispatch is index-based (a stable sort by expert, capacity-bounded slots),
 never a one-hot dispatch tensor. Every op is a device op on shapes fixed
@@ -13,15 +12,34 @@ batched over the experts: on the int8 rungs each of the three is one
 package's ``jax.vmap`` of the Pallas call; on precise they are ``torch.bmm``,
 as the JAX package leaves its ``einsum`` to XLA.
 
+Expert parallelism (``ep_axis`` and ``mesh``) runs the JAX package's
+fully manual ``shard_map`` region per position of the port's mesh (every
+position is the one card): the tokens split over every mesh axis (over
+``ep_axis`` alone for decode-size batches, else replicated), each position
+routes its own tokens with its own capacity (``_capacity`` of its token
+count, so the capacity-drop set is expert parallelism's, not the local
+one's), the ``all_to_all`` hands expert shard j (position j along
+``ep_axis``) its E/m experts' rows from every position of its group, each
+shard runs its experts' products (on an int8 rung one ``int8_matmul``
+launch a shard a product, its E/m experts on the grid), the exchange goes
+back and each position combines its tokens. The exchanges are recorded
+in ``dist.collectives.WIRE``. The JAX region's FSDP all-gather of the
+expert weights (under a launcher-set FSDP axis, which only its dry-run
+sets) has no counterpart yet: the port's experts are whole on the card.
+
 Pliant knob: ``top_k`` override (expert perforation): routing to fewer
 experts cuts the active products at a bounded quality loss.
 """
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import collectives
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import ParamSpec
 
@@ -113,8 +131,9 @@ def _expert_ffn(xe, wi_gate, wi_up, wo, precision: str):
     return torch.bmm(g.to(xe.dtype) * u, wo)
 
 
-def _moe_local(params, x2, cfg: ModelConfig, top_k: int, precision: str):
-    """MoE on the tokens x2: (T, D), capacity from T. Returns (y (T, D),
+def _dispatch(params, x2, cfg: ModelConfig, top_k: int):
+    """Route the tokens x2: (T, D) with the capacity of T tokens and fill
+    the (E, C, D) buffer. Returns (buffer, flat slots, gates, keep,
     aux)."""
     E = cfg.moe.n_experts
     T, D = x2.shape
@@ -126,18 +145,99 @@ def _moe_local(params, x2, cfg: ModelConfig, top_k: int, precision: str):
     src = torch.where(flat_keep[:, None], x2[tok_idx], 0)
     buf = torch.zeros((E * C, D), dtype=x2.dtype, device=x2.device)
     buf.index_add_(0, flat_slot, src)       # a kept slot receives one entry
-    ye = _expert_ffn(buf.view(E, C, D), params.wi_gate, params.wi_up,
-                     params.wo, precision)
-    y = ye.reshape(E * C, D)[flat_slot].reshape(T, top_k, D)
-    y = torch.sum(y * (gate * keep)[..., None], dim=1)
-    return y.to(x2.dtype), aux
+    return buf.view(E, C, D), flat_slot, gate, keep, aux
+
+
+def _combine(ye, flat_slot, gate, keep, dtype):
+    """Each token's kept entries of the experts' output ye: (E, C, D),
+    weighted by their gates."""
+    T, k = gate.shape
+    D = ye.shape[-1]
+    y = ye.reshape(-1, D)[flat_slot].reshape(T, k, D)
+    return torch.sum(y * (gate * keep)[..., None], dim=1).to(dtype)
+
+
+def _moe_local(params, x2, cfg: ModelConfig, top_k: int, precision: str):
+    """MoE on the tokens x2: (T, D), capacity from T. Returns (y (T, D),
+    aux)."""
+    xe, flat_slot, gate, keep, aux = _dispatch(params, x2, cfg, top_k)
+    ye = _expert_ffn(xe, params.wi_gate, params.wi_up, params.wo, precision)
+    return _combine(ye, flat_slot, gate, keep, x2.dtype), aux
+
+
+def _expert_weights(params, mesh, ep_axis: str, j: int):
+    """Expert shard j's (wi_gate, wi_up, wo): its E/m experts."""
+    el = params.wi_gate.shape[0] // mesh.shape[ep_axis]
+    return [w[j * el:(j + 1) * el]
+            for w in (params.wi_gate, params.wi_up, params.wo)]
+
+
+def _moe_ep(params, x2, cfg: ModelConfig, top_k: int, precision: str,
+            mesh, ep_axis: str, tok_axes, routing=None):
+    """The expert-parallel region, position by position: x2 (T, D) split
+    over ``tok_axes``; returns (y (T, D), aux averaged over
+    ``tok_axes``). Appends each position's (coordinates, keep mask) to
+    ``routing`` when given."""
+    spec = (tok_axes, None)
+    coords = collectives.positions(mesh)
+    names = list(mesh.shape)
+    e_ax = names.index(ep_axis)
+    m = mesh.shape[ep_axis]
+    routed = {c: _dispatch(params, collectives.block(x2, spec, mesh, c),
+                           cfg, top_k) for c in coords}
+    if routing is not None:
+        routing.extend((c, routed[c][3]) for c in coords)
+    E, C, D = routed[coords[0]][0].shape
+    el = E // m
+    nbytes = E * C * D * x2.element_size()
+    collectives.WIRE.log(ep_axis, "all_to_all", m, nbytes)
+    back = {}
+    for group in collectives._groups(mesh, ep_axis):
+        # expert shard j receives experts j*el:(j+1)*el from every member
+        ys = []
+        for j, c in enumerate(group):
+            xe = torch.cat([routed[i][0][j * el:(j + 1) * el]
+                            for i in group], dim=1)      # (el, m*C, D)
+            ys.append(_expert_ffn(xe, *_expert_weights(
+                params, mesh, ep_axis, c[e_ax]), precision))
+        for i, c in enumerate(group):
+            back[c] = torch.cat([ye[:, i * C:(i + 1) * C] for ye in ys],
+                                dim=0)                     # (E, C, D)
+    collectives.WIRE.log(ep_axis, "all_to_all", m, nbytes)
+    ys = {c: _combine(back[c], *routed[c][1:4], x2.dtype) for c in coords}
+    aux = {c: routed[c][4] for c in coords}
+    for ax in tok_axes:
+        aux = collectives.pmean_blocks(aux, mesh, ax)
+    # the token dim's blocks in order, each from the first position that
+    # holds it
+    first = {}
+    for c in coords:
+        first.setdefault(collectives._coord_index(c, mesh, tok_axes)[0], c)
+    y = torch.cat([ys[first[i]] for i in sorted(first)], dim=0)
+    return y, aux[coords[0]]
 
 
 def moe(params, x, cfg: ModelConfig, *, top_k: int = 0,
-        precision: str = "bf16"):
-    """x: (B, S, D) -> (y, aux_loss). Routes all B * S tokens together (the
-    capacity follows B * S); ``top_k`` 0 is the config's."""
+        precision: str = "bf16", ep_axis: Optional[str] = None, mesh=None,
+        routing=None):
+    """x: (B, S, D) -> (y, aux_loss); ``top_k`` 0 is the config's. Without
+    ``ep_axis`` routes all B * S tokens together (the capacity follows
+    B * S). With ``ep_axis`` and ``mesh``: expert parallelism, the tokens
+    over every mesh axis when B * S divides the mesh, else over
+    ``ep_axis`` when it divides that, else (a tiny batch) routed together
+    as without. ``routing``, a list, receives each expert-parallel
+    position's (coordinates, keep mask (T_local, top_k))."""
     B, S, D = x.shape
     top_k = top_k or cfg.moe.top_k
-    y, aux = _moe_local(params, x.reshape(-1, D), cfg, top_k, precision)
+    x2 = x.reshape(-1, D)
+    if ep_axis is not None and mesh is not None:
+        T = B * S
+        n_all = math.prod(mesh.shape.values())
+        tok_axes = (tuple(mesh.shape) if T % n_all == 0 else
+                    (ep_axis,) if T % mesh.shape[ep_axis] == 0 else None)
+        if tok_axes is not None:
+            y, aux = _moe_ep(params, x2, cfg, top_k, precision, mesh,
+                             ep_axis, tok_axes, routing)
+            return y.reshape(B, S, D), aux
+    y, aux = _moe_local(params, x2, cfg, top_k, precision)
     return y.reshape(B, S, D), aux

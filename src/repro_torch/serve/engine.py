@@ -108,13 +108,15 @@ import numpy as np
 import torch
 
 from repro_torch.approx.knobs import PRECISE, ApproxKnobs
-from repro_torch.configs.base import LOCAL_ATTN, MAMBA, ModelConfig
+from repro_torch.configs.base import (LOCAL_ATTN, MAMBA, ModelConfig,
+                                     ShapeConfig)
 from repro_torch.core import tenant as tenant_mod
 from repro_torch.core.controller import headroom_burst
 from repro_torch.core.runtime import PliantRuntime
 from repro_torch.core.variants import VariantTable
 from repro_torch.dist import elastic
-from repro_torch.dist.sharding import paged_decode_plan, prefill_plan
+from repro_torch.dist.sharding import (cache_shardings, paged_decode_plan,
+                                       param_shardings, prefill_plan)
 from repro_torch.kernels import int8_matmul, paged_attention, quantize_rows
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn_mod
@@ -135,6 +137,10 @@ _DECODE_KERNELS = {"paged_attention": paged_attention,
 def _decode_launches() -> Dict[str, int]:
     return {name: mod.launches for name, mod in _DECODE_KERNELS.items()}
 
+
+# the parameter sharding policy recorded under a mesh (the JAX engine's
+# default; the one card holds the tensors whole)
+SERVE_POLICY = "tp"
 
 # bytes of SSM snapshots (host memory) the paged engine's prefix index
 # holds: ~140 boundaries at zamba2-2.7b width, two prompts' worth
@@ -273,6 +279,7 @@ class ServeEngine:
         # greedy paged engines take argmax on the device: the step returns
         # (B,) token ids, so the host never pulls (B, V) logits
         self._fused_sample = self.paged and self.temperature <= 0.0
+        self._derive_shardings()
         self.caches = self._init_caches(self.active_knobs.kv_quant)
         self.positions = np.zeros(self.batch_slots, np.int32)
         self.slots: List[Optional[Request]] = [None] * self.batch_slots
@@ -367,6 +374,21 @@ class ServeEngine:
     def _plan_shards(self) -> int:
         return (self._decode_plan.n_shards
                 if self._decode_plan is not None else 1)
+
+    def _derive_shardings(self) -> None:
+        """The layout the JAX engine places under a mesh, recorded:
+        ``param_specs`` (``dist.sharding.param_shardings`` under
+        ``SERVE_POLICY``, the JAX engine's default) and ``cache_specs`` (``cache_shardings`` at (max_len,
+        batch_slots), the pool's ``PageSpec`` when paged); None without a
+        mesh. Every position is the one card, so the tensors stay whole
+        and these specs move no data."""
+        self.param_specs = self.cache_specs = None
+        if self.mesh is None:
+            return
+        self.param_specs = param_shardings(self.cfg, self.mesh, SERVE_POLICY)
+        shp = ShapeConfig("serve", self.max_len, self.batch_slots, "decode")
+        self.cache_specs, _ = cache_shardings(self.cfg, shp, self.mesh,
+                                              paged=self._page_spec)
 
     def _decode_shards(self):
         """``attention.paged_decode_attention``'s ``shards``: the plan's
@@ -687,6 +709,7 @@ class ServeEngine:
             self.caches = self._migrate_paged_caches(perm, new_pool)
             self.pool = new_pool
             migrated = int((perm >= 0).sum())
+        self._derive_shardings()
         self._megasteps.clear()
         self.stats["rehomes"] += 1
         assert self._inflight is None and self._carry is None

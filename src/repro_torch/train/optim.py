@@ -1,6 +1,11 @@
 """AdamW with a warmup + cosine schedule, global-norm clipping and fp32
-moments. Counterpart of the JAX package's ``train/optim.py`` on one device
-(no ``grad_reduce`` seam: there is nothing to reduce across).
+moments. Counterpart of the JAX package's ``train/optim.py``.
+
+``adamw_update`` takes an optional ``grad_reduce`` hook applied to the raw
+gradients before clipping: the seam where ``dist.collectives.grad_sync``
+(the owned gradient-sync region: the in-pod mean plus, when the knobs call
+for it, the int8-compressed cross-pod wire) plugs in without the
+optimizer knowing about meshes.
 
 Parameters are a ``ParamTree``; gradients and the moments are dicts keyed
 by the parameter's name (``named_parameters()``). Where the JAX package
@@ -18,7 +23,7 @@ arithmetic is the same, eager or captured.
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
@@ -90,8 +95,11 @@ def global_norm(tensors) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(grads: Dict[str, torch.Tensor], opt: OptState, params,
-                 cfg: OptConfig, sched: Optional[torch.Tensor] = None):
-    """One AdamW step. ``grads`` maps each parameter's name to its gradient.
+                 cfg: OptConfig, sched: Optional[torch.Tensor] = None,
+                 grad_reduce: Optional[Callable] = None):
+    """One AdamW step. ``grads`` maps each parameter's name to its gradient;
+    ``grad_reduce`` (a {name: tensor} -> {name: tensor} collective) is
+    applied to them first.
     Updates ``params`` and the moments in place; returns (params, new_opt,
     metrics), ``metrics["lr"]`` a 0-dim fp32 tensor. ``sched`` is
     ``schedule_on(cfg, opt.step, ...)`` on the parameters' device (made
@@ -102,6 +110,8 @@ def adamw_update(grads: Dict[str, torch.Tensor], opt: OptState, params,
     groups (an encoder-decoder's over its encoder and decoder layers): so
     a layer's 1-D leaves (norm scales, ``a_log``, ``dt_bias``, ``d_skip``)
     decay too, and only ``final_norm`` (and ``enc_norm``) do not."""
+    if grad_reduce is not None:
+        grads = grad_reduce(grads)
     named = dict(params.named_parameters())
     gnorm = global_norm(grads.values())
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),

@@ -1,6 +1,8 @@
 """Train and serve step factories, parameterised by ``ApproxKnobs``.
-Counterpart of the JAX package's ``train/step.py`` on one device (no mesh
-and no gradient-sync region): ``make_train_step`` for every family,
+Counterpart of the JAX package's ``train/step.py``: ``make_train_step`` for
+every family (over a mesh with the owned gradient-sync region,
+``grad_reduce_for``, and expert parallelism, ``ep_axis``), ``pod_sync``
+(the ``sync_period`` knob's periodic parameter sync),
 ``graphed_train_step`` (a train step captured as one CUDA graph, the
 counterpart of ``jax.jit``), ``make_serve_step`` (one token against the
 caches, the encoder-decoder's with ``enc_out``), ``make_prefill_fn`` (a
@@ -12,7 +14,16 @@ autograd backward, clipping and the AdamW update, run eagerly, the
 schedule scalars read from a device tensor (``optim.schedule_on``).
 Gradient accumulation over ``n_micro`` micro-batches splits every leaf of
 the batch (``tokens``, ``frames``, ``prefix_embeds``) and sums the
-gradients in fp32. On the card the training driver (``launch/train.py``
+gradients in fp32.
+
+Over a ``mesh`` the forward and backward run unsplit on the one card,
+which is numerically what the JAX package's GSPMD program gives for the
+batch split and the TP/FSDP params: the gradients arrive reduced over the
+whole batch. Then the region of ``dist.collectives.grad_sync`` runs on
+them, the JAX package's ``shard_map`` region. Whether it holds the
+pod collective is fixed when the step is built, so a ``sync_period > 1``
+variant's captured graph holds none, the counterpart of the JAX package
+eliding it at trace time. On the card the training driver (``launch/train.py``
 ``build_variant_steps``) wraps each variant's step in a
 ``GraphedTrainStep``: the Pliant actuator (``core/variants``) keeps one
 per variant and switches which one replays at a step boundary, as the JAX
@@ -21,19 +32,69 @@ the eager steps.
 """
 from __future__ import annotations
 
+import functools
 import time
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 import torch
 
 from repro_torch.approx.knobs import PRECISE, ApproxKnobs
 from repro_torch.configs.base import ModelConfig
+from repro_torch.convert import jax_path
+from repro_torch.dist import collectives
 from repro_torch.kernels import flash_attention, int8_matmul, quantize_rows
 from repro_torch.kernels import ssd_scan
 from repro_torch.models import api
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import lm as lm_mod
 from repro_torch.train import optim
+
+
+def grad_reduce_for(knobs: ApproxKnobs, mesh, pspecs=None, stacks=None):
+    """The owned gradient-sync region a (knobs, mesh) pair calls for: a
+    {name: grad} -> {name: grad} callable running
+    ``collectives.grad_sync``, or None when there is nothing to own:
+
+    * single device, or a mesh without data or pod axes: None;
+    * a ``data`` axis: the in-pod mean over ``data`` (the identity on
+      gradients of the whole batch, but owned and priced);
+    * a ``pod`` axis and ``sync_period == 1``: the cross-pod mean in the
+      same region, over the int8 wire when ``grad_compress == "int8"``;
+    * ``sync_period > 1``: no pod collective in the region; the driver
+      runs ``pod_sync`` every k steps instead.
+
+    ``stacks`` (``TrainStep`` passes ``convert.jax_path`` of its config)
+    runs the region on the leaves stacked as the JAX package stacks them,
+    so the int8 wire's scales are the JAX region's. The callable exposes
+    ``.pod_wire`` and ``.compress``."""
+    shape = getattr(mesh, "shape", {}) if mesh is not None else {}
+    if "data" not in shape and "pod" not in shape:
+        return None
+    pod_wire = "pod" in shape and knobs.sync_period == 1
+    compress = knobs.grad_compress == "int8"
+
+    def reduce_fn(g):
+        return collectives.grad_sync(g, mesh, pod_wire=pod_wire,
+                                     compress=compress, pspecs=pspecs,
+                                     stacks=stacks)
+    reduce_fn.pod_wire = pod_wire
+    reduce_fn.compress = compress
+    return reduce_fn
+
+
+def pod_sync(params, mesh, pspecs=None):
+    """Periodic pod-level parameter sync (the ``sync_period`` knob),
+    full precision. A no-op without a pod axis, so a driver calls it
+    every k steps whatever the mesh. Every pod holds the same parameters
+    (the steps' gradients are the whole batch's, which the JAX package's
+    GSPMD reduces over the pods before its region), so the mean is the
+    parameters themselves: ``collectives.pod_sync_params`` records its
+    bytes and ``params`` stay as they are."""
+    if mesh is None or "pod" not in getattr(mesh, "shape", {}):
+        return params
+    collectives.pod_sync_params(dict(params.named_parameters()), mesh,
+                                pspecs=pspecs)
+    return params
 
 
 def _micro_split(batch, n_micro: int):
@@ -51,14 +112,21 @@ class TrainStep:
     ``GraphedTrainStep`` captures."""
 
     def __init__(self, cfg: ModelConfig, knobs: ApproxKnobs,
-                 opt_cfg: optim.OptConfig, n_micro: int, remat: str):
+                 opt_cfg: optim.OptConfig, n_micro: int, remat: str,
+                 ep_axis: Optional[str] = None, mesh=None,
+                 param_pspecs=None):
         self.cfg, self.knobs, self.opt_cfg = cfg, knobs, opt_cfg
         self.n_micro, self.remat = n_micro, remat
+        self.ep_axis, self.mesh = ep_axis, mesh
+        self.grad_reduce = grad_reduce_for(
+            knobs, mesh, param_pspecs,
+            stacks=functools.partial(jax_path, cfg=cfg))
         self._loss_fn = api.loss_fn(cfg)
 
     def _grad(self, params, batch):
         named = dict(params.named_parameters())
         loss, metrics = self._loss_fn(params, batch, knobs=self.knobs,
+                                      ep_axis=self.ep_axis, mesh=self.mesh,
                                       remat=self.remat)
         grads = torch.autograd.grad(loss, list(named.values()),
                                     allow_unused=True)
@@ -67,7 +135,8 @@ class TrainStep:
         return loss.detach(), metrics, grads
 
     def body(self, params, opt, batch, sched=None) -> Dict[str, object]:
-        """Forward, backward, clipping and the AdamW update of ``params``
+        """Forward, backward, the gradient-sync region (over a mesh),
+        clipping and the AdamW update of ``params``
         and ``opt``'s moments in place, the schedule read from ``sched``
         (``optim.schedule_on``; written here when None); returns the
         metrics. Given ``sched``, reads nothing from the host and waits for
@@ -84,8 +153,9 @@ class TrainStep:
                 loss = loss + l
             grads = {k: v / self.n_micro for k, v in gsum.items()}
             loss = loss / self.n_micro
-        _, _, opt_metrics = optim.adamw_update(grads, opt, params,
-                                               self.opt_cfg, sched)
+        _, _, opt_metrics = optim.adamw_update(
+            grads, opt, params, self.opt_cfg, sched,
+            grad_reduce=self.grad_reduce)
         metrics = {k: v.detach() if torch.is_tensor(v) else v
                    for k, v in metrics.items()}
         return dict(metrics, loss=loss, **opt_metrics)
@@ -97,10 +167,15 @@ class TrainStep:
 
 def make_train_step(cfg: ModelConfig, knobs: ApproxKnobs = PRECISE, *,
                     opt_cfg: optim.OptConfig = optim.OptConfig(),
-                    n_micro: int = 1, remat: str = "full") -> TrainStep:
+                    n_micro: int = 1, remat: str = "full",
+                    ep_axis: Optional[str] = None, mesh=None,
+                    param_pspecs=None) -> TrainStep:
     """Returns step(params, opt, batch) -> (params, opt, metrics); the
-    parameters and moments are updated in place."""
-    return TrainStep(cfg, knobs, opt_cfg, n_micro, remat)
+    parameters and moments are updated in place. Over ``mesh`` the
+    gradients pass ``grad_reduce_for(knobs, mesh, param_pspecs)``'s region
+    and MoE layers run expert parallel over ``ep_axis``."""
+    return TrainStep(cfg, knobs, opt_cfg, n_micro, remat, ep_axis, mesh,
+                     param_pspecs)
 
 
 def train_launches() -> Dict[str, int]:
@@ -147,13 +222,15 @@ class GraphedTrainStep:
     step), ``replays``, ``launches`` (each kernel's launches in the graph:
     the wrappers' calls during the capture, which launched nothing),
     ``pool_bytes`` (what the capture added to the reserved device
-    memory)."""
+    memory), ``wire`` (the bytes a position of the step's mesh would send
+    a step, by axis: what ``collectives.WIRE`` added during the capture;
+    on the CPU, during the last call)."""
 
     def __init__(self, step: TrainStep, device, pool=None):
         self.step, self.device, self.pool = step, torch.device(device), pool
         self.graph = None
         self.stats = dict(capture_s=0.0, warmup_s=0.0, replays=0,
-                          launches={}, pool_bytes=0)
+                          launches={}, pool_bytes=0, wire={})
         self._batch = self._sched = self._out = self._ptrs = None
 
     def __call__(self, params, opt, batch):
@@ -169,7 +246,9 @@ class GraphedTrainStep:
         optim.schedule_on(self.step.opt_cfg, opt.step, self.device,
                           out=self._sched)
         if self.device.type != "cuda":
+            mark = collectives.WIRE.mark()
             out = self._body(params, opt)
+            self.stats["wire"] = collectives.WIRE.by_axis(mark)
         elif self.graph is None:
             out = self._warm_up_and_capture(params, opt)
         else:
@@ -182,6 +261,14 @@ class GraphedTrainStep:
 
     def _body(self, params, opt):
         return self.step.body(params, opt, self._batch, self._sched)
+
+    def release(self) -> None:
+        """Drop the graph and what it holds (its outputs in the pool, the
+        batch buffers), so that the pool's memory can return to the card
+        once no graph uses it; ``stats`` stay. A later call starts over
+        with a warm-up step and a capture."""
+        self.graph = self._out = self._batch = self._sched = None
+        self._ptrs = None
 
     def _check(self, params, opt, batch):
         if [t.data_ptr() for t in state_tensors(params, opt)] != self._ptrs:
@@ -209,6 +296,7 @@ class GraphedTrainStep:
         torch.cuda.empty_cache()     # as the capture's entry does
         t1 = time.perf_counter()
         before, reserved = train_launches(), torch.cuda.memory_reserved(dev)
+        mark = collectives.WIRE.mark()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self.pool):
             self._out = self._body(params, opt)
@@ -217,7 +305,8 @@ class GraphedTrainStep:
         self.stats.update(
             warmup_s=t1 - t0, capture_s=time.perf_counter() - t1,
             launches={k: after[k] - before[k] for k in after},
-            pool_bytes=torch.cuda.memory_reserved(dev) - reserved)
+            pool_bytes=torch.cuda.memory_reserved(dev) - reserved,
+            wire=collectives.WIRE.by_axis(mark))
         return warm
 
 

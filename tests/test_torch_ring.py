@@ -341,7 +341,8 @@ def test_mesh_shape_and_single_device_rule():
     mesh = make_mesh((2, 4), ("data", "model"), "cpu")
     assert list(mesh.shape.items()) == [("data", 2), ("model", 4)]
     assert len(mesh.devices) == 8 and mesh.device == CPU
-    with pytest.raises(NotImplementedError, match="Multi-GPU, the rest"):
+    with pytest.raises(NotImplementedError,
+                       match="positions on several cards"):
         Mesh((2,), ("data",), ["cpu", "meta"])
     with pytest.raises(ValueError):
         Mesh((2, 2), ("data", "model"), ["cpu"] * 3)
