@@ -420,6 +420,32 @@ Phases, each reported on its own line:
              precise and int8, each one CUDA graph: ms a step, tokens
              dropped a shard, the exchange's bytes.
 
+18. dryrun  (run after train-pod) the dry-run (``repro_torch.launch
+             .dryrun``): one position's program traced on ``meta`` tensors
+             under the counting mode (``repro_torch.cost``), the traces
+             run in two spawned worker processes (no CUDA) from the build
+             on, beside the card's phases. The production cells'
+             one-line summaries and trace seconds: mamba2-780m train_4k on
+             pod, precise and int8; phi4-mini-3.8b decode_32k on pod;
+             olmoe-1b-7b train_4k on pod (the expert exchange);
+             mamba2-780m's pod sync on multipod, full precision and over
+             the int8 wire. The train phase's cell (mamba2-780m, 24 of 48
+             layers, 4 x 1024, fp32 + AdamW, one position) traced on meta
+             and counted around one eager step on the card (the same
+             program, precise and int8): FLOPs, bytes, kernel records and
+             the op table equal, argument bytes equal to the card's
+             params, moments, batch and step counter, the traced peak
+             within ``DRY_PEAK_REL`` of ``max_memory_allocated`` over the
+             step, ``roofline_fraction`` predicted beside the model FLOPs
+             at the fp32 peak over phase 6's replayed step; the step's
+             launches equal ``mamba_launches``. The train-pod cell's owned
+             wire bytes a position from the trace equal to ``WIRE``'s in
+             phase 16 (precise, ``gint8``, ``sync/2`` and its
+             ``pod_sync``). ``decode_kv_share`` of the serve cell
+             (phi4-mini-3.8b at 16 layers, 8 slots, max_len 1024) beside
+             the paged driver's table priced from it and at the 0.5
+             fallback.
+
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``. Any
 failure raises: the script then exits non-zero without the result line, as
@@ -514,12 +540,17 @@ def int8_case(M, K, N, device, seed=0):
     return [t.to(device) for t in (x_q, xs, w_q, ws)]
 
 
-def int8_bound_ms(M, K, N, out_bytes=2):
-    nbytes = M * K + K * N + 4 * M + 4 * N + out_bytes * M * N
-    ops = 2.0 * M * N * K
-    t_bytes, t_ops = nbytes / HBM_BW, ops / INT8_OPS
+def bound_ms(ops, nbytes, peak):
+    """(ms, "bytes" or "operations"): the larger of the bytes over the
+    card's memory rate and the operations over ``peak``."""
+    t_bytes, t_ops = nbytes / HBM_BW, ops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def int8_bound_ms(M, K, N, out_bytes=2):
+    from repro_torch.kernels import int8_matmul
+    return bound_ms(*int8_matmul.work(M, K, N, out_bytes), INT8_OPS)
 
 
 COLD_BYTES = 100e6      # > twice the H100's 50 MB L2
@@ -640,9 +671,10 @@ def int8_shapes():
 
 
 def quantize_bound_ms(M, K, esize, backward=False):
-    """Bytes: x read once, q (int8) and s written once; backward x and d s
-    read, d x written in x's dtype. The operations are a few a byte."""
-    nbytes = M * K * esize + (M * K * esize if backward else M * K) + 4 * M
+    """``quantize_rows.work``'s bytes over the memory rate (its operations
+    are a few a byte)."""
+    from repro_torch.kernels import quantize_rows
+    _, nbytes = quantize_rows.work(M, K, esize, backward)
     return 1e3 * nbytes / HBM_BW, "bytes"
 
 
@@ -733,19 +765,9 @@ def ssd_case(B, S, H, P, N, dtype, device, seed=0):
 
 
 def ssd_bound_ms(B, S, H, P, N, Q, esize):
-    """Bytes: x read and y written in x's dtype, dt in fp32, b and c once.
-    Operations: the lower triangle of C·Bᵀ (N·Q(Q+1) FLOP) once per (batch,
-    chunk), as B and C are one group shared by every head; per (batch,
-    head, chunk) the lower triangle of W·(dt·x) (P·Q(Q+1)), C·Sᵀ and the
-    state update (2·Q·N·P each); fp32 on the CUDA cores."""
-    nbytes = 2 * B * S * H * P * esize + 4 * B * S * H + 4 * H \
-        + 2 * B * S * N * esize
-    nc = S // Q
-    ops = float(N * Q * (Q + 1)) * B * nc \
-        + float(P * Q * (Q + 1) + 4 * Q * N * P) * B * H * nc
-    t_bytes, t_ops = nbytes / HBM_BW, ops / FP32_FLOPS
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    """``ssd_scan.work`` at the fp32 peak (the CUDA cores)."""
+    from repro_torch.kernels import ssd_scan
+    return bound_ms(*ssd_scan.work(B, S, H, P, N, Q, esize), FP32_FLOPS)
 
 
 def check_ssd(device, shapes, iters=10, dtypes=None):
@@ -786,22 +808,10 @@ def check_ssd(device, shapes, iters=10, dtypes=None):
 
 
 def ssd_bwd_bound_ms(B, S, H, P, N, Q, esize):
-    """The backward's bound. Bytes: x and gy read and dx written in x's
-    dtype, dt read and ddt written in fp32, b and c read and db and dc
-    written once. Operations, per (batch, head, chunk): 2·Q·N·P each for
-    the chunk state (recomputed), the state cotangent, S_inᵀ·gy (dC and the
-    decay's state term), dS_outᵀ·u (dB) and dS_out·B (dx), and P·Q(Q+1)
-    each for the lower triangles of (G∘L)ᵀ·gy and gy·uᵀ; per (batch,
-    chunk) N·Q(Q+1) each for G and the head-summed dG times B and C; fp32
-    on the CUDA cores."""
-    nbytes = 3 * B * S * H * P * esize + 8 * B * S * H + 8 * H \
-        + 4 * B * S * N * esize
-    nc = S // Q
-    ops = float(3 * N * Q * (Q + 1)) * B * nc \
-        + float(10 * Q * N * P + 2 * P * Q * (Q + 1)) * B * H * nc
-    t_bytes, t_ops = nbytes / HBM_BW, ops / FP32_FLOPS
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    """``ssd_scan.work_backward`` at the fp32 peak."""
+    from repro_torch.kernels import ssd_scan
+    return bound_ms(*ssd_scan.work_backward(B, S, H, P, N, Q, esize),
+                    FP32_FLOPS)
 
 
 def check_ssd_backward(device, shapes, iters=5):
@@ -980,25 +990,21 @@ def flash_kept(Sq, Skv, kw, device, rows=None, grid=(128, 128)):
 
 
 def flash_kept_pairs(Sq, Skv, kw, device, grid=(128, 128)):
-    """How many pairs ``flash_kept`` holds, counted 1024 query rows at a
-    time."""
-    import torch
-    return sum(int(flash_kept(Sq, Skv, kw, device, torch.arange(
-        r0, min(r0 + 1024, Sq), device=device), grid).sum())
-        for r0 in range(0, Sq, 1024))
+    """How many (query, key) pairs the function needs on the caller's
+    block ``grid`` (``flash_attention.kept_pairs``, counted on the
+    host)."""
+    from repro_torch.kernels import flash_attention as fa
+    return fa.kept_pairs(Sq, Skv, causal=bool(kw["causal"]),
+                         window=int(kw["window"]),
+                         kv_keep_stride=int(kw["kv_keep_stride"]),
+                         bq=grid[0], bk=grid[1])
 
 
 def flash_bound_ms(B, H, KVH, Sq, Skv, hd, esize, pairs):
-    """Bytes: q, k, v read once and o written once. Operations: Q.K^T and
-    P.V over the pairs the function needs, 4 hd FLOP a pair per head (the
-    lower triangle S(S+1)/2 for plain causal attention), at the input
-    type's peak."""
-    nbytes = esize * (2 * B * H * Sq * hd + 2 * B * KVH * Skv * hd)
-    ops = 4.0 * B * H * hd * pairs
+    """``flash_attention.work`` at the input type's peak."""
+    from repro_torch.kernels import flash_attention as fa
     peak = FP32_FLOPS if esize == 4 else BF16_FLOPS
-    t_bytes, t_ops = nbytes / HBM_BW, ops / peak
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    return bound_ms(*fa.work(B, H, KVH, Sq, Skv, hd, esize, pairs), peak)
 
 
 def flash_sfu_ms(B, H, pairs, cap):
@@ -1323,17 +1329,6 @@ def paged_pool(lengths, G, R, hd, P, M, seed, speculative, blind):
     return kp, vp, ppos, block, np.asarray(positions, np.int32), q
 
 
-def paged_live_pages(block, position, P, window):
-    import torch
-    M = block.shape[1]
-    m = torch.arange(M, device=block.device)
-    run = (block != 0) & (m * P <= position.long()[:, None])
-    if window:
-        run &= (m + 1) * P - 1 > position.long()[:, None] - window
-    return int(run.sum()), int(sum(
-        min(int(p) + 1, window or int(p) + 1) for p in position.tolist()))
-
-
 def check_paged(device, cases, iters=20):
     """Each case against its plain version (``FP32_ATOL`` in fp32,
     ``BF16_ATOL`` otherwise), timed beside it and the bound; the host's
@@ -1368,16 +1363,11 @@ def check_paged(device, cases, iters=20):
                                                  **kw), device, iters)
         plain = timed(lambda: mod.paged_attention_plain(
             q, kp, vp, ppos, block, pos, **kw), device, iters)
-        live, tokens = paged_live_pages(block, pos, P, kw["window"])
-        kv_bytes = kp.element_size()
-        nbytes = mod.decode_hbm_bytes(live, P, G, hd, kv_bytes=kv_bytes,
-                                      batch=len(lengths), n_heads=G * R,
-                                      q_bytes=q.element_size(), max_pages=M)
-        flops = 4.0 * tokens * G * R * hd
+        live, tokens = mod.live_pages(block, pos, P, kw["window"])
         peak = FP32_FLOPS if q.dtype == torch.float32 else BF16_FLOPS
-        t_b, t_o = nbytes / HBM_BW, flops / peak
-        bound, by = 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o
-                                          else "operations")
+        bound, by = bound_ms(*mod.work(
+            live, tokens, P, G, R, hd, kv_bytes=kp.element_size(),
+            batch=len(lengths), q_bytes=q.element_size(), max_pages=M), peak)
         rows.append(dict(name=c["name"], max_abs_err=err, tol=tol, ms=kern,
                          plain_ms=plain, library_ms=None, bound_ms=bound,
                          bound_by=by, live_pages=live, pages_a_range=pps,
@@ -2509,24 +2499,20 @@ def ring_hop_case(c, device, seed=0):
 
 
 def ring_hop_bound_ms(args, kw):
-    """Bytes: q, K, V and the positions read once, m, l and acc read and
-    written once. Operations: Q.K^T and P.V over the pairs this hop's
-    positions make visible, 4 hd FLOP a pair per head, at the query type's
-    peak (the fp32 peak for fp32 queries, the bf16 one otherwise: the int8
-    K/V are dequantised to the products' type)."""
+    """``ring_attention.work`` over the pairs this hop's positions make
+    visible, at the query type's peak (the fp32 peak for fp32 queries, the
+    bf16 one otherwise: the int8 K/V are dequantised to the products'
+    type). Returns (ms, bound by, pairs)."""
     import torch
     from repro_torch.kernels import ring_attention as ra
     q, k, v, qp, kvp, m, l, acc = args
     B, H, Cl, hd = q.shape
+    KVH, Ll = k.shape[1], k.shape[2]
     pairs = int(ra.visible(qp, kvp, kw["window"]).sum())
-    nbytes = (q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
-              + 4 * (qp.numel() + kvp.numel()) + 2 * 4 * (2 * m.numel())
-              + 2 * 4 * acc.numel())
-    ops = 4.0 * H * hd * pairs
     peak = FP32_FLOPS if q.dtype == torch.float32 else BF16_FLOPS
-    t_bytes, t_ops = nbytes / HBM_BW, ops / peak
-    return (1e3 * max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations", pairs)
+    ms, by = bound_ms(*ra.work(B, H, KVH, Cl, Ll, hd, q.element_size(),
+                               k.element_size(), pairs), peak)
+    return ms, by, pairs
 
 
 def state_errors(got, ref):
@@ -3300,17 +3286,14 @@ def check_paged_sharded(device, lengths, iters=20):
         ms = timed(whole, device, iters)
         plain_ms = timed(lambda: mod.paged_attention_plain(
             q, kp, vp, ppos, block, pos, **kv), device, 3)
-        live, tokens = paged_live_pages(block, pos, P, 0)
+        live, tokens = mod.live_pages(block, pos, P, 0)
         esize = kp.element_size()
-        nbytes = mod.decode_hbm_bytes(live, P, G, hd, kv_bytes=esize,
-                                      batch=B, n_heads=G * R, q_bytes=2,
-                                      max_pages=M)
         shard_bytes = mod.sharded_decode_hbm_bytes(
             live, P, G, hd, n_shards=n_sh, kv_bytes=esize, batch=B,
             n_heads=G * R, q_bytes=2, max_pages=M)
-        t_b, t_o = nbytes / HBM_BW, 4.0 * tokens * G * R * hd / BF16_FLOPS
-        bound, by = 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o
-                                          else "operations")
+        bound, by = bound_ms(*mod.work(
+            live, tokens, P, G, R, hd, kv_bytes=esize, batch=B, q_bytes=2,
+            max_pages=M), BF16_FLOPS)
         name = "elastic-int8" if int8 else "elastic-bf16"
         rows.append(dict(name=name, ms=ms_sh, whole_ms=ms, plain_ms=plain_ms,
                          library_ms=None, bound_ms=bound, bound_by=by,
@@ -4693,18 +4676,11 @@ def ssd_state_cases():
 
 
 def ssd_state_bound_ms(B, S, H, P, N, Q, esize):
-    """``ssd_bound_ms``'s count for S real tokens at chunk Q (a shorter S
-    is one chunk of S), plus the initial state read and the final state
-    written in fp32."""
-    q = min(Q, S)
-    nc = -(-S // q)
-    nbytes = 2 * B * S * H * P * esize + 4 * B * S * H + 4 * H \
-        + 2 * B * S * N * esize + 2 * 4 * B * H * P * N
-    ops = float(N * q * (q + 1)) * B * nc \
-        + float(P * q * (q + 1) + 4 * q * N * P) * B * H * nc
-    t_bytes, t_ops = nbytes / HBM_BW, ops / FP32_FLOPS
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    """``ssd_scan.work_state`` (S real tokens at chunk Q, the state in and
+    out) at the fp32 peak."""
+    from repro_torch.kernels import ssd_scan
+    return bound_ms(*ssd_scan.work_state(B, S, H, P, N, Q, esize),
+                    FP32_FLOPS)
 
 
 def check_ssd_state(device, cases, iters=10):
@@ -6013,13 +5989,11 @@ def encdec_quantize_shapes():
 
 
 def stacked_bound_ms(E, M, K, N, out_bytes=4):
-    """The stacked product's bound: each expert's x and w read once and
-    its (M, N) output written once; 2 E M N K integer operations."""
-    nbytes = E * (M * K + K * N + out_bytes * M * N)
-    ops = 2.0 * E * M * N * K
-    t_bytes, t_ops = nbytes / HBM_BW, ops / INT8_OPS
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    """The stacked product's bound: ``int8_matmul.work`` of E products
+    without scales (the int32 sums as fp32)."""
+    from repro_torch.kernels import int8_matmul
+    return bound_ms(*int8_matmul.work(M, K, N, out_bytes, E=E,
+                                      scales=False), INT8_OPS)
 
 
 def check_int8_bmm_grads(device, E=OLMOE_EXPERTS, M=None, iters=10,
@@ -6534,7 +6508,9 @@ def train_pod(device):
     0.02 / atol 1e-4 of precise's, and within ``POD_REF_REL`` of the
     update from the same gradients through ``pod_int8_reference``; (d)
     no host sync in a replay. Then ``launch/train.main --pod-mesh --chaos
-    POD_CHAOS``: its losses equal the mesh run's. Returns the launches."""
+    POD_CHAOS``: its losses equal the mesh run's. Returns the launches and
+    the wire bytes a position of ``DRY_POD``'s rungs sends a step, and of
+    the pod sync, by axis (the dryrun phase's gate)."""
     import numpy as np
     import torch
     from repro_torch.approx.knobs import PRECISE
@@ -6650,6 +6626,7 @@ def train_pod(device):
     close_c = all(torch.allclose(a, b, rtol=0.02, atol=1e-4) for a, b in
                   zip(runs["gint8"]["snaps"][1], prec["snaps"][1]))
     gap_c_prec = worst_rel(runs["gint8"]["snaps"][1], prec["snaps"][1])
+    runs_sync_wire = runs["sync/2"]["sync_wire"]
     for name in runs:
         runs[name]["step"].release()
     torch.cuda.empty_cache()
@@ -6741,7 +6718,232 @@ def train_pod(device):
     assert chaos_launches == want, (chaos_launches, want)
     del res
     torch.cuda.empty_cache()
-    return {k: launches[k] + chaos_launches[k] for k in COUNTERS}
+    pod_wire = {"steps": {n: wire[n] for n in DRY_POD},
+                "sync": runs_sync_wire}
+    return {k: launches[k] + chaos_launches[k] for k in COUNTERS}, pod_wire
+
+
+# ---------------------------------------------------------------- dryrun --
+
+# the production cells traced on meta (the JAX package's dry-run cells)
+DRY_CELLS = (("mamba2-780m", "train_4k", "pod", "precise"),
+             ("mamba2-780m", "train_4k", "pod", "int8"),
+             ("phi4-mini-3.8b", "decode_32k", "pod", "precise"),
+             ("olmoe-1b-7b", "train_4k", "pod", "precise"))
+DRY_RUNGS = ("precise", "int8")        # the card-held cell's rungs
+DRY_POD = ("precise", "gint8", "sync/2")
+DRY_PEAK_REL = 0.02     # predicted peak vs max_memory_allocated (see
+#                         CHANGES.md: set from the first card run)
+DRY_WORKERS = 2         # processes tracing on meta beside the card phases
+
+
+def dry_cell():
+    """The train phase's cell: mamba2-780m at ``TRAIN_LAYERS`` of its 48
+    layers, 4 x 1024 tokens (fp32 + AdamW, remat none, one position)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    return (dataclasses.replace(get_config("mamba2-780m"),
+                                n_layers=TRAIN_LAYERS),
+            ShapeConfig("train-cell", 1024, 4, "train"))
+
+
+def dry_knobs(name):
+    from repro_torch.approx.knobs import ApproxKnobs
+    from repro_torch.launch import dryrun
+    if name == "sync/2":
+        return ApproxKnobs(sync_period=2)
+    return dryrun.VARIANTS[name]
+
+
+def dry_job(kind, *args):
+    """One meta trace of the dryrun phase, run in a worker process
+    (nothing in it touches CUDA); returns what it measured and the lines
+    it printed."""
+    import io
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    torch.set_num_threads(1)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        if kind == "cell":
+            res = dryrun.run_cell(*args, write=False)
+        elif kind == "podsync":
+            res = dryrun.run_pod_sync(args[0], compress=args[1],
+                                      write=False)
+        elif kind == "card":
+            cfg, shape = dry_cell()
+            res = dryrun.trace_cell(
+                cfg, shape, make_mesh((1, 1), ("data", "model"), "meta"),
+                dry_knobs(args[0]), remat="none", dtype=torch.float32)
+        elif kind == "pod":
+            cfg, shape = dry_cell()
+            mesh = make_mesh(POD_MESH, ("pod", "data"), "meta")
+            res = dryrun.trace_cell(cfg, shape, mesh, dry_knobs(args[0]),
+                                    policy="replicated", remat="none",
+                                    dtype=torch.float32)
+            if args[0] == "sync/2":
+                res["pod_sync"] = dryrun.run_pod_sync(
+                    cfg.name, compress=False, cfg=cfg, mesh=mesh,
+                    policy="replicated", dtype=torch.float32,
+                    write=False)["wire"]
+        else:       # the serve cell's pricing
+            from repro_torch.configs import get_config
+            from repro_torch.core.explorer import decode_kv_share, explore
+            from repro_torch.configs.base import ShapeConfig
+            cfg = dataclasses.replace(get_config("phi4-mini-3.8b"),
+                                      n_layers=SERVE_LAYERS)
+            slots, max_len, occ = args
+            t0 = time.time()
+            share = decode_kv_share(cfg, slots, max_len)
+            secs = time.time() - t0
+            shape = ShapeConfig("serve", max_len, slots, "decode")
+            res = dict(kv_share=share, trace_s=secs, tables={
+                name: [(v.name, v.rel_time) for v in explore(
+                    cfg, shape, serving=True, page_occupancy=occ,
+                    kv_share=ks).variants]
+                for name, ks in (("priced", share), ("fallback", None))})
+    return res, out.getvalue()
+
+
+def dry_start():
+    """Start the dryrun phase's meta traces in ``DRY_WORKERS`` spawned
+    processes, to run beside the card's phases: (pool, {key: future})."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    # the serve phase's paged driver: occupancy (prompt 64 + 16 new) / 1024
+    keys = ([("cell",) + c for c in DRY_CELLS]
+            + [("podsync", "mamba2-780m", False),
+               ("podsync", "mamba2-780m", True)]
+            + [("card", r) for r in DRY_RUNGS]
+            + [("pod", r) for r in DRY_POD]
+            + [("serve", 8, 1024, min(1.0, (64 + 16) / 1024))])
+    pool = ProcessPoolExecutor(
+        DRY_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    return pool, {k: pool.submit(dry_job, *k) for k in keys}
+
+
+def dry_card_step(device, rung):
+    """One eager step of the card-held cell on the card under the counting
+    mode, the dry-run's own program (``dryrun.train_step``) on a (1, 1)
+    mesh of the card: (mode, argument bytes, peak bytes over the step,
+    launches)."""
+    import torch
+    from repro_torch import cost
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import api
+    from repro_torch.train import optim
+    cfg, shape = dry_cell()
+    cell = dryrun.Cell(cfg, shape, make_mesh((1, 1), ("data", "model"),
+                                             device),
+                       dry_knobs(rung), remat="none", dtype=torch.float32)
+    params = api.init(cfg, 0, torch.float32, device)
+    opt = optim.init_opt(params)
+    batch = cell.inputs(device)
+    step = dryrun.train_step(cell)
+    sched = optim.schedule_on(step.opt_cfg, 0, device)
+    state = (list(params.parameters()) + list(opt.m.values())
+             + list(opt.v.values()) + list(batch.values()))
+    args = cost.storage_bytes(state) + 4       # + the int32 step counter
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_launches()
+    mode = dryrun.count_train(cell, step, params, opt, batch, sched)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() - base
+    float(mode.metrics["loss"])
+    del mode.metrics, params, opt, batch, state
+    return mode, args, peak, launches
+
+
+def dryrun_cell(device, futs, walk, pod_wire):
+    """The dry-run on the card's machine: the production cells traced on
+    meta (their one-line summaries and trace seconds); the train phase's
+    cell traced on meta and counted around one eager step on the card,
+    precise and int8, held equal (FLOPs, bytes, kernel records, the op
+    table, argument bytes) and the predicted peak within ``DRY_PEAK_REL``
+    of ``max_memory_allocated``, with ``roofline_fraction`` against the
+    train phase's replayed step (``walk``); the train-pod cell's owned
+    wire bytes equal to what ``WIRE`` recorded there (``pod_wire``); the
+    serve cell's ``decode_kv_share`` beside its table's rel_times. Returns
+    the card steps' launches."""
+    import torch
+    from repro_torch import roofline
+    from repro_torch.launch import dryrun
+    got = {}
+    for key, fut in futs.items():
+        res, text = fut.result()
+        got[key] = res
+        if key[0] in ("cell", "podsync"):
+            print(f"dryrun {text.strip()}")
+    launches = dict.fromkeys(COUNTERS, 0)
+    cfg, shape = dry_cell()
+    for rung in DRY_RUNGS:
+        meta = got[("card", rung)]
+        mode, args, peak, ran = dry_card_step(device, rung)
+        for k, n in ran.items():
+            launches[k] += n
+        want = mamba_launches(cfg, dry_knobs(rung))
+        card_ops = {k: list(v) for k, v in sorted(mode.by_op.items())}
+        card_k = [list(k) for k in mode.kernels]
+        diff = sorted(k for k in set(card_ops) | set(meta["ops"])
+                      if card_ops.get(k) != meta["ops"].get(k))
+        knobs = dry_knobs(rung)
+        mf = roofline.model_flops(cfg, shape, knobs)
+        terms = roofline.terms_from_artifact(
+            meta, mf, 1, dryrun.compute_kind(knobs, torch.float32))
+        step_ms = walk[rung]["captured"]["step_ms"]
+        measured = mf / roofline.PEAK_FP32_FLOPS / (step_ms / 1e3)
+        rel = abs(meta["temp_bytes"] - peak) / peak
+        print(f"dryrun card {cfg.name} ({cfg.n_layers} layers) {rung}: "
+              f"flops meta {meta['flops']:.6e} card {mode.flops:.6e}; "
+              f"bytes meta {meta['bytes_accessed']:.6e} card "
+              f"{mode.bytes_accessed:.6e}; kernels {mode.kernel_summary()}"
+              f" ({len(card_k)} records, equal "
+              f"{card_k == meta['kernel_records']}); ops differing "
+              f"{diff}; argument bytes meta {meta['argument_bytes']} card "
+              f"{args}; peak over the step meta {gib(meta['temp_bytes'])} "
+              f"GiB, card max_memory_allocated {gib(peak)} GiB (rel "
+              f"{rel:.4f}, the counting mode's own {gib(mode.peak_bytes)});"
+              f" roofline_fraction predicted {terms.roofline_fraction:.4f}"
+              f" ({terms.dominant}-bound, {1e3 * terms.bound_s:.1f} ms), "
+              f"measured {measured:.4f} (model flops {mf:.4e} at the fp32 "
+              f"peak over the replayed {step_ms:.1f} ms); trace "
+              f"{meta['trace_s']} s; launches {ran}")
+        assert mode.flops == meta["flops"] and \
+            mode.bytes_accessed == meta["bytes_accessed"], rung
+        assert card_k == meta["kernel_records"] and not diff, (rung, diff)
+        assert args == meta["argument_bytes"], (args, meta["argument_bytes"])
+        assert rel <= DRY_PEAK_REL, (meta["temp_bytes"], peak)
+        assert ran == want, (ran, want)
+        del mode
+        torch.cuda.empty_cache()
+    for rung in DRY_POD:
+        meta = got[("pod", rung)]
+        card = pod_wire["steps"][rung]
+        wire = {}
+        for key, b in meta["wire"].items():
+            axis = key.split("/")[0]
+            wire[axis] = wire.get(axis, 0.0) + b
+        line = (f"dryrun train-pod {rung}: wire a position meta {wire}, "
+                f"WIRE in the train-pod phase {card}")
+        assert wire == card, (rung, wire, card)
+        if rung == "sync/2":
+            sync = {k.split("/")[0]: b for k, b in meta["pod_sync"].items()}
+            line += (f"; pod_sync meta {sync}, WIRE "
+                     f"{pod_wire['sync']}")
+            assert sync == pod_wire["sync"], (sync, pod_wire["sync"])
+        print(line)
+    serve = got[("serve", 8, 1024, min(1.0, (64 + 16) / 1024))]
+    print(f"dryrun serve phi4-mini-3.8b ({SERVE_LAYERS} layers, 8 slots, "
+          f"max_len 1024): decode_kv_share {serve['kv_share']:.4f} (traced "
+          f"in {serve['trace_s']:.2f} s); the paged driver's table priced "
+          f"from it {serve['tables']['priced']}, at the 0.5 fallback "
+          f"{serve['tables']['fallback']}")
+    return launches
 
 
 # -------------------------------------------------------------- train-ep --
@@ -7051,6 +7253,8 @@ def main():
         for line in seen:
             print(f"  {name}: {line}")
 
+    # the dryrun phase's meta traces run beside the card's phases
+    dry_pool, dry_futs = dry_start()
     t = t_lap = time.perf_counter()
     laps = {}
 
@@ -7162,8 +7366,9 @@ def main():
     lap("run")
     train_graph_witness(tres, device)
     phase_done("train")
-    train_rung_walk(tres, device, steps=3, per_step=mamba_launches, eager=2,
-                    syncs=True)
+    train_walk = train_rung_walk(tres, device, steps=3,
+                                 per_step=mamba_launches, eager=2,
+                                 syncs=True)
     lap("walk")
     profile_train(tres, device)
     phase_done("train-rungs")
@@ -7171,8 +7376,11 @@ def main():
           f"at mamba2-780m's full depth (48 layers x {ssd_bwd_ms:.3f} ms)")
     del tres
     torch.cuda.empty_cache()
-    pod_launches = train_pod(device)
+    pod_launches, pod_wire = train_pod(device)
     phase_done("train-pod")
+    dry_launches = dryrun_cell(device, dry_futs, train_walk, pod_wire)
+    dry_pool.shutdown()
+    phase_done("dryrun")
     # phi4-mini-3.8b at 2 x 4096 tokens, full width cut to ATTN_LAYERS
     # layers (32 until the train-encdec phase was added); at full depth its
     # 61.5 GB of fp32 params, grads and AdamW moments leave the layers'
@@ -7261,6 +7469,7 @@ def main():
                       "train-encdec": enc_launches[name],
                       "train-vlm": vlm_launches[name],
                       "train-pod": pod_launches[name],
+                      "dryrun": dry_launches[name],
                       "train-ep": ep_launches[name]}
                for name in kernels}
     # the experts' batched product (one launch for 64 experts) at decode

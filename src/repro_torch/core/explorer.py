@@ -1,10 +1,11 @@
 """Offline approximation design-space exploration (paper §3 + Fig. 1): the
 serving path of the JAX package's ``core/explorer.py`` (``knob_grid``,
 ``analytic_quality_loss``, ``analytic_cost``, ``pareto_front``,
-``explore``) with the analytic backend, and ``admission_cost``, the mesh
-admission pricing. The compiled-cell pricing (``decode_kv_share``, which
-reads XLA's ``cost_analysis``) waits with the dry-run: ``kv_share`` falls
-back to the analytic 0.5 unless the caller passes one.
+``explore``) with the analytic backend, ``decode_kv_share`` (the KV
+share of a decode step's bytes, from the dry-run's trace of that step where
+the JAX package reads its compiled cell's ``cost_analysis``), and
+``admission_cost``, the mesh admission pricing. ``kv_share`` falls back to
+the analytic 0.5 when the caller passes none.
 """
 from __future__ import annotations
 
@@ -108,6 +109,59 @@ def analytic_quality_loss(cfg: ModelConfig, k: ApproxKnobs) -> float:
     return q
 
 
+def decode_ring_bytes(cfg: ModelConfig, batch: int, max_len: int,
+                      itemsize: int) -> int:
+    """The bytes one dense decode step reads from the K+V rings: every
+    attention layer's full ``(B, W, G, hd)`` rings (a local layer's ``W``
+    its window), entries of ``itemsize`` bytes."""
+    from repro_torch.configs.base import LOCAL_ATTN, MAMBA
+    hd, G = cfg.resolved_head_dim, cfg.n_kv_heads
+    ring = 0
+    for kind in cfg.kinds():
+        if kind == MAMBA:
+            continue
+        W = min(cfg.window, max_len) if kind == LOCAL_ATTN and cfg.window \
+            else max_len
+        ring += 2 * batch * W * G * hd * itemsize      # K + V read per step
+    return ring
+
+
+def decode_kv_share(cfg: ModelConfig, batch: int, max_len: int, *,
+                    dtype=None, quantized: bool = False) -> float:
+    """KV-cache share of one dense decode step's device-memory bytes: the
+    ring bytes over the bytes the traced decode step accesses
+    (``repro_torch.cost``'s count of the step on ``meta`` tensors: every
+    op's inputs and outputs, the kernels' own work), where the JAX package
+    divides by its compiled cell's ``cost_analysis`` bytes.
+
+    The ring bytes are exact (``decode_ring_bytes``). The paged engines price
+    their decode memory term by ``kv_share * occupancy``: the paged kernel
+    streams live pages instead of the rings. Parameters and caches are at
+    ``dtype`` (fp32 when None), as the numerator's; 0.5 when either count
+    is empty, at most 0.95."""
+    import torch
+
+    from repro_torch import cost
+    from repro_torch.models import api
+    from repro_torch.models import lm as lm_mod
+    from repro_torch.train import step as step_mod
+    dtype = dtype or torch.float32
+    step = step_mod.make_serve_step(cfg, PRECISE)
+    params = api.abstract(cfg, dtype)
+    caches = lm_mod.init_caches(cfg, batch, max_len, dtype=dtype,
+                                quantized=quantized, device="meta")
+    toks = torch.empty((batch, 1), dtype=torch.int32, device="meta")
+    pos = torch.empty((batch,), dtype=torch.int32, device="meta")
+    with torch.no_grad(), cost.CountingMode() as mode:
+        step(params, toks, pos, caches)
+    total = mode.bytes_accessed
+    itemsize = 1 if quantized else torch.empty((), dtype=dtype).element_size()
+    ring = decode_ring_bytes(cfg, batch, max_len, itemsize)
+    if total <= 0 or ring <= 0:
+        return 0.5                           # analytic fallback
+    return min(ring / total, 0.95)
+
+
 def analytic_cost(cfg: ModelConfig, shape, k: ApproxKnobs,
                   baseline_art: Optional[dict] = None, *,
                   page_occupancy: Optional[float] = None,
@@ -124,8 +178,8 @@ def analytic_cost(cfg: ModelConfig, shape, k: ApproxKnobs,
     so the KV share of the decode memory term scales by occupancy — the
     frontier then sees paged memory savings exactly like any other
     memory-side knob. ``kv_share`` is that KV share of decode HBM bytes,
-    in the JAX package from its compiled decode cell; None falls back to
-    the coarse 0.5 heuristic.
+    ideally from ``decode_kv_share`` (the traced decode step's bytes);
+    None falls back to the coarse 0.5 heuristic.
     """
     from repro_torch import roofline
     if baseline_art is not None:

@@ -49,6 +49,14 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch import cost
+
+# the JAX package's HLO name of each collective, and its payload as the
+# JAX package's parser takes it, from a position's block of ``payload``
+# bytes over n positions (an all-gather's is the gathered result)
+_HLO = {"all_reduce": ("all-reduce", 1), "all_gather": ("all-gather", None),
+        "all_to_all": ("all-to-all", 1)}
+
 
 class Wire:
     """The collectives' record (``WIRE``): {(axis, collective): [calls,
@@ -63,6 +71,10 @@ class Wire:
         t = self.totals.setdefault((axis, collective), [0, 0.0])
         t[0] += 1
         t[1] += coef * payload
+        if n > 1:
+            kind, mult = _HLO[collective]
+            cost.collective(kind, payload * (mult or n), axis, n,
+                            coef * payload, "owned")
 
     def reset(self) -> None:
         self.totals.clear()
@@ -357,7 +369,7 @@ def _axis_mean(named, names, spec, mesh, axis: str, compress: bool):
 
 def grad_sync(grads, mesh, *, pod_wire: bool = True, compress: bool = False,
               pspecs=None, stacks=None, data_axis: str = "data",
-              pod_axis: str = "pod"):
+              pod_axis: str = "pod", blocks: bool = False):
     """The whole per-step gradient reduction as one region, on a global
     tree of gradients of the whole batch.
 
@@ -371,7 +383,12 @@ def grad_sync(grads, mesh, *, pod_wire: bool = True, compress: bool = False,
 
     ``stacks`` (a name -> (path, index) function) sends the leaves that
     the JAX package stacks over the layer groups as one leaf, so that the
-    int8 wire takes one scale a stacked block, as the JAX region does."""
+    int8 wire takes one scale a stacked block, as the JAX region does.
+
+    ``blocks``: the tree holds one position's blocks (the dry-run's trace
+    of that position), not global tensors; each leaf's spec then only says
+    which axes its mean runs over, and the region runs on the blocks as
+    one position's program runs it."""
     if mesh is None:
         return grads
     have_data = data_axis in mesh.shape
@@ -383,26 +400,29 @@ def grad_sync(grads, mesh, *, pod_wire: bool = True, compress: bool = False,
     out = dict(named)
     for names in _wire_leaves(named, stacks):
         spec = specs[names[0]]
+        wire_spec = () if blocks else spec
         if have_data and data_axis not in _split(spec):
-            out.update(_axis_mean(out, names, spec, mesh, data_axis, False))
+            out.update(_axis_mean(out, names, wire_spec, mesh, data_axis,
+                                  False))
         if have_pod:
-            out.update(_axis_mean(out, names, spec, mesh, pod_axis,
+            out.update(_axis_mean(out, names, wire_spec, mesh, pod_axis,
                                   compress))
     return _rebuild(grads, out)
 
 
 def pod_sync_params(params, mesh, *, compress: bool = False, pspecs=None,
-                    axis: str = "pod"):
+                    axis: str = "pod", blocks: bool = False):
     """``params`` (a global tree of tensors) averaged over the ``axis``
     positions. Every pod holds the same parameters, so the full-precision
     mean is ``params`` themselves, recorded; ``compress`` returns what the
-    int8 wire delivers of them, one scale a block. Returns a tree."""
+    int8 wire delivers of them, one scale a block. Returns a tree.
+    ``blocks``: ``params`` are one position's blocks (``grad_sync``)."""
     if mesh is None or axis not in mesh.shape:
         return params
     named = dict(_leaves(params))
     specs = _spec_table(params, pspecs)
     out = {}
     for name in named:
-        out.update(_axis_mean(named, [name], specs[name], mesh, axis,
-                              compress))
+        out.update(_axis_mean(named, [name], () if blocks else specs[name],
+                              mesh, axis, compress))
     return _rebuild(params, out)

@@ -26,12 +26,15 @@ axis is used at most once an array (the first matching dim wins).
 Every position of a port mesh is the one card, so these specs record the
 layout the JAX package would place; the tensors stay whole, and what
 GSPMD computes over them is computed unsplit (``dist.collectives`` runs
-the owned regions). The JAX package's ``input_shardings``,
-``batch_pspec`` and ``megastep_shardings`` place inputs and the
-megastep's arguments over devices and wait until the port's positions
-span cards. ``kv_head_axis`` is reported as the
-JAX package reports it; the ring and the sharded paged decode run every
-head in every shard.
+the owned regions). ``batch_pspec`` and ``input_shardings`` give the
+inputs' specs (key for key with ``api.input_specs``), and ``local_shape``
+a leaf's shape at one position under its spec: the dry-run
+(``launch/dryrun.py``) builds one position's arguments from them. The JAX
+package's ``megastep_shardings`` places the megastep's arguments over
+devices and waits, with ``dist/annotate.py``'s in-model sharding
+constraints, until the port's positions span cards (ROADMAP queue 1
+item 6). ``kv_head_axis`` is reported as the JAX package reports it; the
+ring and the sharded paged decode run every head in every shard.
 """
 from __future__ import annotations
 
@@ -133,7 +136,33 @@ def named_specs(tree, prefix: str = "") -> Dict[str, object]:
     return out
 
 
+def local_shape(shape, spec, mesh) -> Tuple[int, ...]:
+    """The shape of one position's block of a leaf of ``shape`` under
+    ``spec``: each dim divided by the sizes of the mesh axes it is split
+    over."""
+    out = list(shape)
+    for d, part in enumerate(spec or ()):
+        out[d] //= _axis_size(mesh, tuple(part) if isinstance(
+            part, (tuple, list)) else part)
+    return tuple(out)
+
+
 # ----------------------------------------------------------------- inputs --
+
+def batch_pspec(global_batch: int, mesh) -> P:
+    """The spec of the batch dim: greedily over (pod, data)."""
+    b = batch_axes(global_batch, mesh)
+    return P() if b is None else P(b)
+
+
+def input_shardings(cfg: ModelConfig, shape: ShapeConfig, mesh):
+    """{name: spec} matching ``api.input_specs(cfg, shape)`` key for key:
+    the batch dim over ``batch_pspec``'s axes, the rest replicated."""
+    from repro_torch.models import api
+    bspec = batch_pspec(shape.global_batch, mesh)
+    b = bspec[0] if len(bspec) else None
+    return {name: P(b, *([None] * (len(shp) - 1)))
+            for name, (shp, _) in api.input_specs(cfg, shape).items()}
 
 def batch_axes(global_batch: int, mesh) -> Optional[Union[str, Tuple[str,
                                                                       ...]]]:

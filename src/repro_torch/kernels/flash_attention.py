@@ -50,6 +50,9 @@ every other head size (the smoke configs' hd 16). ``tile_walk`` mirrors
 the key tiles "tc" and "tiled" visit.
 ``flash_attention`` runs the plain version for a CPU tensor and launches the
 kernel for a CUDA tensor, raising on anything else; it never falls back.
+A ``meta`` tensor (the dry-run's trace) takes the card's path up to the
+launch; ``work`` (over ``kept_pairs``) is a call's work, which the wrapper
+enters into an active counting mode (``repro_torch.cost``).
 ``FlashAttention`` wraps it for autograd. The Pallas call has no JVP rule,
 so the JAX package has no gradient through this kernel; the backward here
 is the VJP of ``flash_attention_plain``, recomputed one block of ~1024 query
@@ -58,9 +61,11 @@ rows at a time so that its scratch stays at (B, H, 1024, Skv) fp32.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
+from repro_torch import cost
 from repro_torch.kernels import _build
 
 launches = 0          # kernel launches since the last reset (plain runs: 0)
@@ -233,6 +238,33 @@ def _row_walk(Sq, k, v, *, causal, bq, bk):
     return bq, bk, kp, vp, spans
 
 
+def work(B, H, KVH, Sq, Skv, hd, esize, pairs):
+    """(FLOPs, bytes) of one call: q, k, v read once and o written once;
+    Q.K^T and P.V over the ``pairs`` (query, key) entries the function
+    needs, 4 hd FLOP a pair per head (the lower triangle S(S+1)/2 for
+    plain causal attention)."""
+    nbytes = esize * (2 * B * H * Sq * hd + 2 * B * KVH * Skv * hd)
+    return 4.0 * B * H * hd * pairs, nbytes
+
+
+@functools.lru_cache(maxsize=256)
+def kept_pairs(Sq: int, Skv: int, *, causal: bool, window: int,
+               kv_keep_stride: int, bq: int = 128, bk: int = 128) -> int:
+    """How many (query, key) entries of the running blocks survive the
+    mask on the caller's (bq, bk) grid (clipped to the shapes), counted
+    on the host 1024 query rows at a time."""
+    bq, bk = min(bq, Sq), min(bk, Skv)
+    kpos = torch.arange(Skv)
+    n = 0
+    for r0 in range(0, Sq, 1024):
+        qpos = torch.arange(r0, min(r0 + 1024, Sq))
+        n += int((block_runs(qpos, kpos, causal=causal, window=window,
+                             kv_keep_stride=kv_keep_stride, bq=bq, bk=bk)
+                  & entry_mask(qpos, kpos, causal=causal, window=window,
+                               n_kv=Skv)).sum())
+    return n
+
+
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
                           cap: float = 0.0, kv_keep_stride: int = 1,
                           bq: int = 128, bk: int = 128):
@@ -265,7 +297,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 def _launch(q, k, v, causal, window, cap, stride, bq, bk):
     global launches
     dev = q.device
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention: needs a CPU or CUDA tensor, "
                          f"got {dev}")
     if q.dim() != 4 or q.dtype not in _CODES:
@@ -288,6 +320,15 @@ def _launch(q, k, v, causal, window, cap, stride, bq, bk):
                          f"H={H}, KVH={KVH}")
     out = torch.empty_like(q)
     if out.numel() == 0:
+        return out
+    design = select_flash_design(q.dtype, hd)
+    if cost.active():
+        cbq, cbk = _clip_blocks(Sq, Skv, bq, bk)
+        cost.kernel("flash_attention", design, *work(
+            B, H, KVH, Sq, Skv, hd, q.element_size(),
+            kept_pairs(Sq, Skv, causal=bool(causal), window=int(window),
+                       kv_keep_stride=int(stride), bq=cbq, bk=cbk)))
+    if dev.type == "meta":
         return out
     args, design = launch_args(q, k, v, out, causal, window, cap, stride, bq,
                                bk)

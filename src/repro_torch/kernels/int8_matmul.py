@@ -29,8 +29,11 @@ counterpart of the JAX package's ``jax.vmap`` of the Pallas call in
 
 Each wrapper runs the plain version for a CPU tensor and launches the kernel
 for a CUDA tensor, raising on anything else; it never falls back to the
-plain version. ``launches`` counts every launch, ``design_launches`` the
-launches of each design.
+plain version. A ``meta`` tensor (the dry-run's trace) takes the card's
+path up to the launch and returns the kernel's output uninitialised.
+``launches`` counts every launch, ``design_launches`` the launches of each
+design. ``work`` is one call's work; the wrapper enters it into an active
+counting mode (``repro_torch.cost``) on the card and on ``meta`` alike.
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ import ctypes
 
 import torch
 
+from repro_torch import cost
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import int8_matmul_ref as int8_matmul_plain
 
@@ -62,6 +66,18 @@ def select_design(M: int, N: int, K: int) -> str:
     return "B" if M <= STREAM_MAX_M else "A"
 
 
+def work(M: int, K: int, N: int, out_bytes: int = 2, *, E: int = 1,
+         scales: bool = True):
+    """(operations, bytes) of E (M, K) x (K, N) products: 2·E·M·N·K
+    integer operations; x and w read once (int8), the (M, N) outputs
+    written once at ``out_bytes``, and with ``scales`` the fp32 row and
+    column scales read once."""
+    nbytes = E * (M * K + K * N + out_bytes * M * N)
+    if scales:
+        nbytes += E * (4 * M + 4 * N)
+    return 2.0 * E * M * N * K, nbytes
+
+
 def tile_n(M: int, N: int, sms: int = H100_SMS) -> int:
     """Design A's tile width: 256 (more reuse of each x tile) unless that
     leaves fewer than two waves of 128-row tiles on the card's SMs, then
@@ -75,7 +91,7 @@ def int8_matmul(x_q, x_scale, w_q, w_scale, *, out_dtype=torch.bfloat16):
     w_scale: ([E,] 1,N) f32 -> ([E,] M,N) ``out_dtype``."""
     if x_q.device.type == "cpu":
         return int8_matmul_plain(x_q, x_scale, w_q, w_scale, out_dtype)
-    _check_cuda(x_q)
+    _check_device(x_q)
     return _launch(x_q, x_scale, w_q.transpose(-1, -2).contiguous(),
                    w_scale.transpose(-1, -2).contiguous(), out_dtype)
 
@@ -90,12 +106,12 @@ def int8_matmul_t(x_q, x_scale, w_t, w_scale, *, out_dtype=torch.bfloat16):
             x_q, 1.0 if x_scale is None else x_scale, w_t.transpose(-1, -2),
             1.0 if w_scale is None else w_scale.transpose(-1, -2),
             out_dtype)
-    _check_cuda(x_q)
+    _check_device(x_q)
     return _launch(x_q, x_scale, w_t, w_scale, out_dtype)
 
 
-def _check_cuda(x_q):
-    if x_q.device.type != "cuda":
+def _check_device(x_q):
+    if x_q.device.type not in ("cuda", "meta"):
         raise ValueError(
             f"int8_matmul: needs a CPU or CUDA tensor, got {x_q.device}")
 
@@ -134,6 +150,12 @@ def _launch(x_q, x_scale, w_t, w_scale, out_dtype):
     design = select_design(M, N, K)
     if (x_q.data_ptr() | w_t.data_ptr()) % 16:
         design = "fallback"      # a view at an offset: no 16-byte loads
+    if cost.active():
+        cost.kernel("int8_matmul", design, *work(
+            M, K, N, out.element_size(), E=lead[0] if lead else 1,
+            scales=x_scale is not None))
+    if dev.type == "meta":
+        return out
     lib = _build.load("int8_matmul", _ARGTYPES)
     rc = lib.int8_matmul(x_q.data_ptr(), _ptr(x_scale), w_t.data_ptr(),
                          _ptr(w_scale), out.data_ptr(),

@@ -23,7 +23,10 @@ shapes only). A caller may fix the pages a range (``pages_per_range``):
 the sharded decode launches once per slot-affinity shard with the split of
 the whole pool's batch (``device_page_splits``), so each slot's ranges, and
 the order its merge sums them in, are those of one whole-pool launch, and
-its output is bit-equal whatever the shard count.
+its output is bit-equal whatever the shard count. A ``meta`` tensor (the
+dry-run's trace) takes the card's path, the split on an H100's SMs, up to
+the launches; ``work`` (over ``live_pages``) is a call's work, which the
+wrapper enters into an active counting mode (``repro_torch.cost``).
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ import ctypes
 
 import torch
 
+from repro_torch import cost
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
@@ -54,6 +58,7 @@ _SPLIT_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
 _MERGE_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 _R_MAX, _HD_MAX = 16, 256
 _N_SM = {}            # device index -> streaming multiprocessors
+H100_SMS = 132        # the SMs a meta trace splits for
 
 
 def page_splits(B: int, G: int, M: int, n_sm: int) -> int:
@@ -73,9 +78,12 @@ def page_splits(B: int, G: int, M: int, n_sm: int) -> int:
 
 
 def device_page_splits(device, B: int, G: int, M: int) -> int:
-    """``page_splits`` for a launch of B slots on ``device``'s SMs; 0 for
-    the CPU, whose plain version has no ranges."""
+    """``page_splits`` for a launch of B slots on ``device``'s SMs (an
+    H100's for ``meta``); 0 for the CPU, whose plain version has no
+    ranges."""
     device = torch.device(device)
+    if device.type == "meta":
+        return page_splits(B, G, M, H100_SMS)
     if device.type != "cuda":
         return 0
     idx = device.index if device.index is not None \
@@ -94,6 +102,34 @@ def tile_rows(P: int, hd: int, esize: int) -> int:
     lib = _build.load("paged_attention", [ctypes.c_int] * 3,
                       "paged_attention_tile_rows")
     return lib.paged_attention_tile_rows(P, hd, esize)
+
+
+def live_pages(block, position, P: int, window: int = 0):
+    """(live pages, visible tokens) of a launch's data: the mapped pages
+    the kernel runs (at or before each slot's position, inside the window
+    band) and the (slot, key) entries a step attends to. On ``meta``
+    (no data) every slot's whole block-table row is live."""
+    B, M = block.shape
+    if block.device.type == "meta":
+        toks = min(M * P, window) if window else M * P
+        return B * M, B * toks
+    m = torch.arange(M, device=block.device)
+    run = (block != 0) & (m * P <= position.long()[:, None])
+    if window:
+        run &= (m + 1) * P - 1 > position.long()[:, None] - window
+    return int(run.sum()), int(sum(
+        min(int(p) + 1, window or int(p) + 1) for p in position.tolist()))
+
+
+def work(live: int, tokens: int, P: int, G: int, R: int, hd: int, *,
+         kv_bytes: int, batch: int, q_bytes: int, max_pages: int):
+    """(FLOPs, bytes) of one launch: ``decode_hbm_bytes`` of the live
+    pages, and Q.K^T and P.V over the visible tokens, 4 hd FLOP a token
+    per query head."""
+    nbytes = decode_hbm_bytes(live, P, G, hd, kv_bytes=kv_bytes,
+                              batch=batch, n_heads=G * R, q_bytes=q_bytes,
+                              max_pages=max_pages)
+    return 4.0 * tokens * G * R * hd, nbytes
 
 
 def paged_attention_plain(q, kp, vp, ppos, block, position, *,
@@ -201,7 +237,7 @@ def _launch(q, kp, vp, ppos, block, position, window, kv_scale, cap,
             pages_per_range):
     global launches, merge_launches
     dev = q.device
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(
             f"paged_attention: needs a CPU or CUDA tensor, got {dev}")
     B, G, R, hd = q.shape
@@ -235,6 +271,13 @@ def _launch(q, kp, vp, ppos, block, position, window, kv_scale, cap,
     ns = max(1, -(-M // pps))
     part = torch.empty(B * G * ns * R * (hd + 2), dtype=torch.float32,
                        device=dev)
+    if cost.active():
+        live, tokens = live_pages(block, position, P, int(window))
+        cost.kernel("paged_attention", "split+merge", *work(
+            live, tokens, P, G, R, hd, kv_bytes=kp.element_size(), batch=B,
+            q_bytes=q.element_size(), max_pages=M))
+    if dev.type == "meta":
+        return out
     vec16 = int((hd * kp.element_size()) % 16 == 0
                 and kp.data_ptr() % 16 == 0
                 and vp.data_ptr() % 16 == 0)

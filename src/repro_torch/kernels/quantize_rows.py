@@ -12,7 +12,10 @@ version bit for bit for finite inputs.
 
 Each wrapper runs the plain version for a CPU tensor and launches its
 kernel for a CUDA tensor, raising on anything else; it never falls back.
-``launches`` counts the launches of both kernels.
+A ``meta`` tensor (the dry-run's trace) takes the card's path up to the
+launch. ``launches`` counts the launches of both kernels; ``work`` is one
+call's work, which the wrappers enter into an active counting mode
+(``repro_torch.cost``).
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import ctypes
 
 import torch
 
+from repro_torch import cost
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import quantize_rowwise as quantize_rows_plain
 
@@ -28,6 +32,17 @@ launches = 0          # kernel launches since the last reset (plain runs: 0)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _ARGTYPES_BWD = _ARGTYPES          # x, d_s, d x, M, K, dtype, stream
+
+
+def work(M: int, K: int, esize: int, backward: bool = False):
+    """(operations, bytes) of one call on (M, K) rows of ``esize``-byte
+    entries. Bytes: x read once, q (int8) and s written once; backward x
+    and d s read, d x written in x's dtype. Operations: four an entry
+    (|x|, the row max, the division, the rounding; backward the mask, the
+    sign and two products), a few a byte: the kernels are bound by
+    bytes."""
+    nbytes = M * K * esize + (M * K * esize if backward else M * K) + 4 * M
+    return 4.0 * M * K, nbytes
 
 
 def quantize_rows_backward_plain(x, d_s):
@@ -48,7 +63,7 @@ def quantize_rows_backward_plain(x, d_s):
 
 
 def _check(name, x):
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"{name}: needs a CPU or CUDA tensor, got {x.device}")
     if x.dim() != 2 or x.dtype not in _DTYPE_CODES or not x.is_contiguous() \
             or x.shape[1] == 0:
@@ -75,6 +90,11 @@ def quantize_rows_backward(x, d_s):
     dx = torch.empty_like(x)
     if M == 0:
         return dx
+    if cost.active():
+        cost.kernel("quantize_rows_backward", "-",
+                    *work(M, K, x.element_size(), backward=True))
+    if x.device.type == "meta":
+        return dx
     lib = _build.load("quantize_rows", _ARGTYPES_BWD,
                       "quantize_rows_backward")
     rc = lib.quantize_rows_backward(
@@ -98,6 +118,10 @@ def quantize_rows(x):
     q = torch.empty((M, K), dtype=torch.int8, device=x.device)
     s = torch.empty((M, 1), dtype=torch.float32, device=x.device)
     if M == 0:
+        return q, s
+    if cost.active():
+        cost.kernel("quantize_rows", "-", *work(M, K, x.element_size()))
+    if x.device.type == "meta":
         return q, s
     lib = _build.load("quantize_rows", _ARGTYPES)
     rc = lib.quantize_rows(x.data_ptr(), q.data_ptr(), s.data_ptr(), M, K,

@@ -26,7 +26,9 @@ design.
 runs at one ring step, in one launch) UPDATE m, l and acc IN PLACE (and
 return them), on both devices: a CPU tensor takes ``ring_hop_plain``, a
 CUDA tensor launches the kernel, anything else raises; they never fall
-back.
+back. A ``meta`` tensor (the dry-run's trace) takes the card's path up to
+the launch; ``work`` is a hop's work, which ``_launch`` enters into an
+active counting mode (``repro_torch.cost``) for each hop it runs.
 
 ``ring_chunk_attention`` runs the n sequence shards of ``plan`` on the
 mesh's one device: every shard's resident queries and its K/V live in that
@@ -46,6 +48,7 @@ import math
 
 import torch
 
+from repro_torch import cost
 from repro_torch.kernels import _build
 
 launches = 0          # kernel launches since the last reset (plain runs: 0)
@@ -76,6 +79,17 @@ def select_hop_design(q_dtype, kv_dtype, hd: int) -> str:
             and hd in _TC_HD:
         return "tc"
     return "simt"
+
+
+def work(B, H, KVH, Cl, Ll, hd, q_bytes, kv_bytes, pairs):
+    """(FLOPs, bytes) of one hop: q, K, V and the positions read once, m,
+    l and acc read and written once; Q.K^T and P.V over the ``pairs``
+    (query, key) entries the hop's positions make visible, 4 hd FLOP a
+    pair per head."""
+    nbytes = (B * H * Cl * hd * q_bytes + 2 * B * KVH * Ll * hd * kv_bytes
+              + 4 * (B * Cl + B * Ll) + 2 * 4 * (2 * B * H * Cl)
+              + 2 * 4 * B * H * Cl * hd)
+    return 4.0 * H * hd * pairs, nbytes
 
 
 def visible(qp, kvp, window: int = 0):
@@ -189,7 +203,7 @@ def ring_hop_step_plain(qf, kf, vf, qp, kvp, m, l, acc, pairs, *,
 
 
 def _check_cuda(dev):
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"ring_hop: needs a CPU or CUDA tensor, got {dev}")
 
 
@@ -234,6 +248,15 @@ def _launch(stacks, pairs, window, cap, kv_scale):
     if design == "tc" and any(t.data_ptr() % 16 for t in (qf, kf, vf)):
         raise ValueError("ring_hop: design tc needs q, k and v 16-byte "
                          "aligned")
+    if cost.active():
+        for d, src in pairs:
+            seen = (B * Cl * Ll if dev.type == "meta" else
+                    int(visible(qp[d], kvp[src], window).sum()))
+            cost.kernel("ring_hop", design, *work(
+                B, H, KVH, Cl, Ll, hd, qf.element_size(), kf.element_size(),
+                seen))
+    if dev.type == "meta":
+        return
     lib = _build.load("ring_hop", _ARGTYPES, "ring_hop_step")
     flat = (ctypes.c_int * (2 * len(pairs)))(*[i for p in pairs for i in p])
     rc = lib.ring_hop_step(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(),

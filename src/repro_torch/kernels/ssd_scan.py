@@ -34,7 +34,11 @@ run to run. Every product is a 64 x 64 tile of fp32 FMAs fed by
 
 ``ssd_scan`` and ``ssd_scan_backward`` run the plain version for a CPU
 tensor and launch the kernels for a CUDA tensor, raising on anything else;
-they never fall back. ``SSDScan`` wraps them for autograd. The Pallas call
+they never fall back; a ``meta`` tensor (the dry-run's trace) takes the
+card's path, its buffers included, up to the launches. ``SSDScan`` wraps
+them for autograd. ``work``, ``work_backward`` and ``work_state`` are one
+call's work, which the wrappers enter into an active counting mode
+(``repro_torch.cost``). The Pallas call
 has no gradient; the JAX package differentiates ``ssd_chunked_ref`` on its
 CPU path, whose gradient the closed form computes.
 """
@@ -44,6 +48,7 @@ import ctypes
 
 import torch
 
+from repro_torch import cost
 from repro_torch.kernels import _build
 
 launches = 0            # forward kernel launches since the last reset
@@ -69,6 +74,50 @@ _SIGS = {
     "ssd_bwd_dbc": [_P] * 10 + [_I] * 10 + [_P],
     "ssd_bwd_reduce": [_P] * 5 + [_I] * 7 + [_P],
 }
+
+
+def work(B, S, H, P, N, Q, esize):
+    """(FLOPs, bytes) of the forward on (B,S,H,P) at chunk Q. Bytes: x read
+    and y written in x's dtype, dt in fp32, b and c once. FLOPs: the lower
+    triangle of C·Bᵀ (N·Q(Q+1)) once per (batch, chunk), as B and C are
+    one group shared by every head; per (batch, head, chunk) the lower
+    triangle of W·(dt·x) (P·Q(Q+1)), C·Sᵀ and the state update (2·Q·N·P
+    each); fp32 on the CUDA cores."""
+    nbytes = 2 * B * S * H * P * esize + 4 * B * S * H + 4 * H \
+        + 2 * B * S * N * esize
+    nc = S // Q
+    ops = float(N * Q * (Q + 1)) * B * nc \
+        + float(P * Q * (Q + 1) + 4 * Q * N * P) * B * H * nc
+    return ops, nbytes
+
+
+def work_backward(B, S, H, P, N, Q, esize):
+    """(FLOPs, bytes) of the backward. Bytes: x and gy read and dx written
+    in x's dtype, dt read and ddt written in fp32, b and c read and db and
+    dc written once. FLOPs, per (batch, head, chunk): 2·Q·N·P each for the
+    chunk state (recomputed), the state cotangent, S_inᵀ·gy (dC and the
+    decay's state term), dS_outᵀ·u (dB) and dS_out·B (dx), and P·Q(Q+1)
+    each for the lower triangles of (G∘L)ᵀ·gy and gy·uᵀ; per (batch,
+    chunk) N·Q(Q+1) each for G and the head-summed dG times B and C."""
+    nbytes = 3 * B * S * H * P * esize + 8 * B * S * H + 8 * H \
+        + 4 * B * S * N * esize
+    nc = S // Q
+    ops = float(3 * N * Q * (Q + 1)) * B * nc \
+        + float(10 * Q * N * P + 2 * P * Q * (Q + 1)) * B * H * nc
+    return ops, nbytes
+
+
+def work_state(B, S, H, P, N, Q, esize):
+    """``work``'s count for S real tokens at chunk Q (a shorter S is one
+    chunk of S), plus the initial state read and the final state written
+    in fp32: a call with a state in and out (``ssd_scan_state``)."""
+    q = min(Q, S)
+    nc = -(-S // q)
+    nbytes = 2 * B * S * H * P * esize + 4 * B * S * H + 4 * H \
+        + 2 * B * S * N * esize + 2 * 4 * B * H * P * N
+    ops = float(N * q * (q + 1)) * B * nc \
+        + float(P * q * (q + 1) + 4 * q * N * P) * B * H * nc
+    return ops, nbytes
 
 
 def _f32(x):
@@ -276,8 +325,11 @@ def ssd_scan_state(x, dt, a, b, c, *, chunk: int = 128, init_state=None):
         dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
         b = torch.nn.functional.pad(b, (0, 0, 0, pad))
         c = torch.nn.functional.pad(c, (0, 0, 0, pad))
-    y, state = ssd_scan(x, dt, a, b, c, chunk=Q, init_state=init_state,
-                        return_state=True)
+    if x.device.type == "cpu":
+        y, state = ssd_scan_plain(x, dt, a, b, c, chunk=Q,
+                                  init_state=init_state, return_state=True)
+    else:
+        y, state = _launch(x, dt, a, b, c, Q, init_state, True, real_len=S)
     return y[:, :S], state
 
 
@@ -292,7 +344,7 @@ def ssd_scan_backward(x, dt, a, b, c, gy, *, chunk: int = 128):
 def _check(x, dt, a, b, c, chunk, gy=None):
     """The kernels' limits; returns (B, S, H, P, N, Q)."""
     dev = x.device
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"ssd_scan: needs a CPU or CUDA tensor, got {dev}")
     if x.dim() != 4 or x.dtype not in _CODES:
         raise ValueError(f"ssd_scan: x must be (B,S,H,P) fp32 or bf16, "
@@ -337,25 +389,33 @@ def splits(B, nc, H, Q, N):
 
 
 def _stream(dev):
+    if dev.type == "meta":
+        return None
     return torch.cuda.current_stream(dev).cuda_stream
 
 
 def _call(lib, name, *args):
+    """One pass; none on ``meta`` (``lib`` None)."""
+    if lib is None:
+        return
     rc = getattr(lib, name)(*args)
     if rc:      # 1 (invalid value): a shape the kernel refuses
         raise RuntimeError(f"ssd_scan: {name} launch failed, cudaError {rc}")
 
 
-def _lib():
+def _lib(dev):
+    """The library, or None on ``meta`` (nothing launches)."""
+    if dev.type == "meta":
+        return None
     for name, sig in _SIGS.items():
         lib = _build.load("ssd_scan", sig, name)
     return lib
 
 
 def _prologue(lib, x, dt, a, b, c, shape, code, st, init=None, fin=None):
-    """Passes 1-3: returns (cum, G, Gᵀ, S_in); adds 3 to the caller's
-    count of launches. ``init`` / ``fin``: (B,H,N,P) fp32, the state
-    entering chunk 0 and the buffer for the final state, or None."""
+    """Passes 1-3: returns (cum, G, Gᵀ, S_in). ``init`` / ``fin``:
+    (B,H,N,P) fp32, the state entering chunk 0 and the buffer for the
+    final state, or None."""
     B, S, H, P, N, Q = shape
     nc = S // Q
     f32 = dict(device=x.device, dtype=torch.float32)
@@ -375,10 +435,12 @@ def _prologue(lib, x, dt, a, b, c, shape, code, st, init=None, fin=None):
     return cum, g, gt, s
 
 
-def _launch(x, dt, a, b, c, chunk, init_state=None, return_state=False):
+def _launch(x, dt, a, b, c, chunk, init_state=None, return_state=False,
+            real_len=None):
     """The forward passes. The state arguments cross the boundary
     transposed: the kernels keep a state as (N, P) a (batch, head), the
-    callers as (P, N)."""
+    callers as (P, N). ``real_len``: the tokens of a call padded by
+    ``ssd_scan_state`` (its work counts those)."""
     global launches
     shape = _check(x, dt, a, b, c, chunk)
     B, S, H, P, N, Q = shape
@@ -398,14 +460,21 @@ def _launch(x, dt, a, b, c, chunk, init_state=None, return_state=False):
     y = torch.empty_like(x)
     if y.numel() == 0 and not return_state:
         return y
-    lib, code, st = _lib(), _CODES[x.dtype], _stream(x.device)
+    if cost.active():
+        esize = x.element_size()
+        cost.kernel("ssd_scan", "state" if init_state is not None
+                    or return_state else "-",
+                    *(work_state(B, real_len or S, H, P, N, Q, esize)
+                      if init_state is not None or return_state else
+                      work(B, S, H, P, N, Q, esize)))
+    lib, code, st = _lib(x.device), _CODES[x.dtype], _stream(x.device)
     cum, g, _, s = _prologue(lib, x, dt, a, b, c, shape, code, st, init,
                              fin)
-    launches += 3
     _call(lib, "ssd_out", x.data_ptr(), dt.data_ptr(), c.data_ptr(),
           cum.data_ptr(), g.data_ptr(), s.data_ptr(), y.data_ptr(),
           B, S, H, P, N, Q, code, st)
-    launches += 1
+    if lib is not None:
+        launches += FWD_PASSES
     return (y, fin.transpose(-1, -2)) if return_state else y
 
 
@@ -419,46 +488,43 @@ def _launch_backward(x, dt, a, b, c, gy, chunk):
     da = torch.empty_like(a)
     if x.numel() == 0 or b.numel() == 0:
         return dx.zero_(), ddt.zero_(), da.zero_(), db.zero_(), dc.zero_()
-    lib, code, st = _lib(), _CODES[x.dtype], _stream(x.device)
+    if cost.active():
+        cost.kernel("ssd_scan_backward", "-", *work_backward(
+            B, S, H, P, N, Q, x.element_size()))
+    lib, code, st = _lib(x.device), _CODES[x.dtype], _stream(x.device)
     cum, g, gt, s = _prologue(lib, x, dt, a, b, c, shape, code, st)
-    backward_launches += 3
     f32 = dict(device=x.device, dtype=torch.float32)
     ds = torch.empty((B, nc, H, N, P), **f32)
     _call(lib, "ssd_chunk_state", gy.data_ptr(), c.data_ptr(),
           dt.data_ptr(), cum.data_ptr(), ds.data_ptr(),
           B, S, H, P, N, Q, 1, code, st)
-    backward_launches += 1
     _call(lib, "ssd_state_pass", ds.data_ptr(), cum.data_ptr(), None, None,
           B, S, H, P, N, Q, 1, st)
-    backward_launches += 1
     hpg, n_groups, hps, n_splits = splits(B, nc, H, Q, N)
     dgp = torch.empty((2, B, nc, n_groups, Q, Q), **f32)
     _call(lib, "ssd_bwd_dg", gy.data_ptr(), x.data_ptr(), dt.data_ptr(),
           cum.data_ptr(), dgp.data_ptr(), B, S, H, P, Q, hpg, n_groups,
           code, st)
-    backward_launches += 1
     rows = torch.empty((3, B, H, S), **f32)
     dss = torch.empty((B, nc, H), **f32)
     _call(lib, "ssd_bwd_dx", x.data_ptr(), dt.data_ptr(), b.data_ptr(),
           c.data_ptr(), gy.data_ptr(), cum.data_ptr(), g.data_ptr(),
           gt.data_ptr(), s.data_ptr(), ds.data_ptr(), dx.data_ptr(),
           rows.data_ptr(), dss.data_ptr(), B, S, H, P, N, Q, code, st)
-    backward_launches += 1
     dapart = torch.empty((B, nc, H), **f32)
     _call(lib, "ssd_bwd_finish", rows.data_ptr(), dss.data_ptr(),
           dt.data_ptr(), a.data_ptr(), cum.data_ptr(), ddt.data_ptr(),
           dapart.data_ptr(), B, S, H, Q, st)
-    backward_launches += 1
     part = torch.empty((2, B, nc, n_splits + 1, Q, N), **f32)
     _call(lib, "ssd_bwd_dbc", x.data_ptr(), dt.data_ptr(), b.data_ptr(),
           c.data_ptr(), gy.data_ptr(), cum.data_ptr(), s.data_ptr(),
           ds.data_ptr(), dgp.data_ptr(), part.data_ptr(),
           B, S, H, P, N, Q, n_groups, hps, n_splits, code, st)
-    backward_launches += 1
     _call(lib, "ssd_bwd_reduce", part.data_ptr(), dapart.data_ptr(),
           db.data_ptr(), dc.data_ptr(), da.data_ptr(),
           B, S, H, N, Q, n_splits, code, st)
-    backward_launches += 1
+    if lib is not None:
+        backward_launches += BWD_PASSES
     return dx, ddt, da, db, dc
 
 

@@ -1,5 +1,6 @@
 """A device mesh for the port. Counterpart of the JAX package's
-``launch/mesh.py`` (``make_mesh``) over ``jax.sharding.Mesh``.
+``launch/mesh.py`` (``make_mesh``, ``make_production_mesh``) over
+``jax.sharding.Mesh``.
 
 A ``Mesh`` names its axes and gives each position a torch device and an
 ordinal ``id`` (the counterpart of ``jax.Device.id``; row-major over the
@@ -73,3 +74,12 @@ def _indexed(device: torch.device) -> torch.device:
 def make_mesh(shape, axes, device="cuda") -> Mesh:
     """A mesh of ``shape`` with every position on ``device``."""
     return Mesh(shape, axes, [device] * math.prod(shape))
+
+
+def make_production_mesh(multi_pod: bool = False) -> Mesh:
+    """The dry-run's mesh: (16, 16) over ("data", "model"), or (2, 16, 16)
+    over ("pod", "data", "model"), every position ``meta`` (nothing is
+    allocated; the JAX package forces as many host devices)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, "meta")

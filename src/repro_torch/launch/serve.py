@@ -47,7 +47,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.controller import ControllerConfig
-from repro_torch.core.explorer import explore
+from repro_torch.core.explorer import decode_kv_share, explore
 from repro_torch.core.monitor import LatencyMonitor
 from repro_torch.core.runtime import PliantRuntime
 from repro_torch.core.variants import VariantTable
@@ -61,13 +61,21 @@ DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
 
 def serving_table(cfg: ModelConfig, *, slots: int, max_len: int,
                   max_loss: float = 0.05,
-                  page_occupancy: float = None) -> VariantTable:
+                  page_occupancy: float = None,
+                  price_from_compile: bool = False) -> VariantTable:
     """The serving VariantTable for one engine shape, from the explorer.
     ``page_occupancy`` is the expected live-page fraction of the pool; it
-    prices decode bytes by live pages."""
+    prices decode bytes by live pages. ``price_from_compile`` anchors that
+    pricing on the traced decode step's bytes
+    (``explorer.decode_kv_share``, the JAX package's compiled-cell
+    pricing) instead of the coarse heuristic; the paged driver asks for
+    it, as the JAX driver does."""
     shape = ShapeConfig("serve", max_len, slots, "decode")
+    kv_share = None
+    if price_from_compile and page_occupancy is not None:
+        kv_share = decode_kv_share(cfg, slots, max_len)
     return explore(cfg, shape, serving=True, max_loss=max_loss,
-                   page_occupancy=page_occupancy)
+                   page_occupancy=page_occupancy, kv_share=kv_share)
 
 
 def percentiles(lat, ps=(50, 95, 99)):
@@ -143,7 +151,8 @@ def main(argv=None, *, cfg: ModelConfig = None):
     occupancy = (min(1.0, (args.prompt_len + args.max_new) / args.max_len)
                  if args.paged else None)
     table = serving_table(cfg, slots=args.slots, max_len=args.max_len,
-                          page_occupancy=occupancy)
+                          page_occupancy=occupancy,
+                          price_from_compile=args.paged)
     names = [v.name for v in table.variants]
 
     mesh = None

@@ -3,6 +3,7 @@ of the JAX package's ``models/api.py``:
 
 * ``model_specs(cfg)``         the full ``ParamSpec`` tree
 * ``init(cfg, seed, dtype, device)``  materialised parameters
+* ``abstract(cfg, dtype)``     the same as ``meta`` tensors
 * ``loss_fn(cfg)``             (params, batch, knobs, **kw) -> (loss, metrics);
                                ``kw``: ``remat``, and ``ep_axis`` / ``mesh``
                                for expert parallelism
@@ -39,6 +40,18 @@ def init(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
     if cfg.family == "encdec":
         return encdec_mod.init_encdec(cfg, seed, dtype, device)
     return lm_mod.init_lm(cfg, seed, dtype, device)
+
+
+def abstract(cfg: ModelConfig, dtype=torch.bfloat16):
+    """``init``'s parameters as ``meta`` tensors, shapes and dtypes with no
+    storage (the JAX package's ``api.abstract``: ``ssm_a`` and ``ssm_dt``
+    leaves in fp32 whatever ``dtype`` is)."""
+    from repro_torch.models.common import ParamTree, tree_map
+
+    def mk(s):
+        dt = torch.float32 if s.init in ("ssm_a", "ssm_dt") else dtype
+        return torch.empty(s.shape, dtype=dt, device="meta")
+    return ParamTree(tree_map(mk, model_specs(cfg)))
 
 
 def loss_fn(cfg: ModelConfig):

@@ -41,6 +41,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import implied
 from repro_torch.dist.sharding import paged_decode_plan, prefill_plan
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import paged_attention as pa_mod
@@ -280,6 +281,7 @@ def decode_attention(params, x, position, cache: KVCache, cfg: ModelConfig,
         valid &= npos > qpos - window
     o = _sdpa(q.reshape(B, 1, G, R, hd), kk, vv,
               mask=valid[:, None, None, None, :], cap=cfg.attn_softcap)
+    implied.seq_combine(B, G * R, hd)   # over a sequence-sharded cache
     return o.reshape(B, 1, cfg.q_dim) @ params.wo, cache
 
 
@@ -365,7 +367,7 @@ def explain_dispatch(cfg: ModelConfig, mesh, *, batch_slots: int,
     the CUDA kernel on the card, its plain version on the CPU;
     ``megastep_k`` > 0 notes the fused K-token megastep."""
     kern = ("fused CUDA paged_attention kernel"
-            if torch.device(device).type == "cuda"
+            if torch.device(device).type in ("cuda", "meta")
             else "paged_attention's plain PyTorch version")
     mega = (f", inside a fused {megastep_k}-token megastep"
             if megastep_k > 0 else "")
@@ -484,7 +486,7 @@ def explain_prefill_dispatch(cfg: ModelConfig, mesh, *,
         heads = (f"kv_heads over {plan.kv_head_axis!r} in the plan, all "
                  "heads computed per shard" if plan.kv_head_axis
                  else "kv_heads replicated")
-        hop = ("the ring_hop kernel" if mesh.device.type == "cuda"
+        hop = ("the ring_hop kernel" if mesh.device.type in ("cuda", "meta")
                else "ring_hop's plain version")
         return (f"chunked prefill: ring attention over {plan.seq_axis!r} "
                 f"({plan.n_shards} sequence shards run in turn on "

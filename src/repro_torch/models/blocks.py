@@ -9,7 +9,10 @@ experts puts an MoE layer (``models/moe.py``, its ``top_k`` from the
 blocks. A block made with ``cross=True`` (the encoder-decoder's decoder)
 adds a cross-attention sublayer between the self-attention and the MLP,
 over the encoder's output ``enc_out``; the decode step recomputes its K/V
-from ``enc_out`` every step, as the JAX package does."""
+from ``enc_out`` every step, as the JAX package does. The sublayers pass
+their input and output through ``dist.implied``'s hooks, which record the
+tensor-parallel all-reduces while the dry-run traces one position (and do
+nothing otherwise)."""
 from __future__ import annotations
 
 import torch
@@ -17,6 +20,7 @@ import torch
 from repro_torch.approx.knobs import PRECISE, ApproxKnobs
 from repro_torch.configs.base import (ATTN, LOCAL_ATTN, MAMBA, SHARED_ATTN,
                                       ModelConfig)
+from repro_torch.dist import implied
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2 as mamba_mod
 from repro_torch.models import mlp as mlp_mod
@@ -53,15 +57,17 @@ def ffn(params, hn, cfg: ModelConfig, knobs: ApproxKnobs, *, ep_axis=None,
         return moe_mod.moe(params.moe, hn, cfg, top_k=knobs.topk_override,
                            precision=knobs.matmul_precision,
                            ep_axis=ep_axis, mesh=mesh)
-    return mlp_mod.mlp(params.mlp, hn, precision=knobs.matmul_precision), None
+    y = mlp_mod.mlp(params.mlp, implied.col_in(hn, "mlp"),
+                    precision=knobs.matmul_precision)
+    return implied.row_out(y, "mlp"), None
 
 
 def cross_attention(params, h, enc_out, cfg: ModelConfig):
     """The cross sublayer's residual term: attention from h (B,S,D) over
     ``enc_out`` (B,F,D), no mask and no RoPE."""
-    return attn_mod.attention(params.cross,
-                              rms_norm(h, params.norm_cross, cfg.norm_eps),
-                              None, cfg, mode="cross", kv_x=enc_out)
+    hn = implied.col_in(rms_norm(h, params.norm_cross, cfg.norm_eps), "attn")
+    return implied.row_out(attn_mod.attention(
+        params.cross, hn, None, cfg, mode="cross", kv_x=enc_out), "attn")
 
 
 def block_forward(kind: str, params, h, positions, cfg: ModelConfig,
@@ -75,15 +81,17 @@ def block_forward(kind: str, params, h, positions, cfg: ModelConfig,
     precision (or the MoE layer, expert parallel over ``mesh``'s
     ``ep_axis`` when given, whose load-balancing loss is the aux)."""
     if kind == MAMBA:
-        y = mamba_mod.mamba_mixer(params.mixer,
-                                  rms_norm(h, params.norm, cfg.norm_eps),
-                                  cfg, precision=knobs.matmul_precision)
-        return h + y, torch.zeros((), dtype=torch.float32, device=h.device)
+        hn = implied.col_in(rms_norm(h, params.norm, cfg.norm_eps), "ssm")
+        y = mamba_mod.mamba_mixer(params.mixer, hn, cfg,
+                                  precision=knobs.matmul_precision)
+        return (h + implied.row_out(y, "ssm"),
+                torch.zeros((), dtype=torch.float32, device=h.device))
     mode = ("window" if kind == LOCAL_ATTN else
             ("causal" if causal else "full"))
-    h = h + attn_mod.attention(
-        params.attn, rms_norm(h, params.norm_attn, cfg.norm_eps), positions,
-        cfg, mode=mode, kv_keep_stride=knobs.kv_keep_stride)
+    hn = implied.col_in(rms_norm(h, params.norm_attn, cfg.norm_eps), "attn")
+    h = h + implied.row_out(attn_mod.attention(
+        params.attn, hn, positions, cfg, mode=mode,
+        kv_keep_stride=knobs.kv_keep_stride), "attn")
     if enc_out is not None:
         h = h + cross_attention(params, h, enc_out, cfg)
     y, aux = ffn(params, rms_norm(h, params.norm_mlp, cfg.norm_eps), cfg,
@@ -161,7 +169,7 @@ def block_decode(kind: str, params, h, position, cache, cfg: ModelConfig,
         y, cache = mamba_mod.mamba_decode(
             params.mixer, rms_norm(h, params.norm, cfg.norm_eps), cache,
             cfg, precision=knobs.matmul_precision, active=active)
-        return h + y, cache
+        return h + implied.row_out(y, "ssm"), cache
     window, kv_scale = _kv_args(kind, cfg, knobs)
     hn = rms_norm(h, params.norm_attn, cfg.norm_eps)
     if isinstance(cache, attn_mod.PagedKVCache):
@@ -172,7 +180,7 @@ def block_decode(kind: str, params, h, position, cache, cfg: ModelConfig,
         y, cache = attn_mod.decode_attention(
             params.attn, hn, position, cache, cfg, window=window,
             kv_scale=kv_scale)
-    h = h + y
+    h = h + implied.row_out(y, "attn")
     if enc_out is not None:
         h = h + cross_attention(params, h, enc_out, cfg)
     y, _ = ffn(params, rms_norm(h, params.norm_mlp, cfg.norm_eps), cfg, knobs)

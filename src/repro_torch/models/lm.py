@@ -36,6 +36,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.approx.knobs import PRECISE, ApproxKnobs, keep_groups
 from repro_torch.configs.base import (ATTN, LOCAL_ATTN, MAMBA, SHARED_ATTN,
                                       ModelConfig)
+from repro_torch.dist import implied
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2 as mamba_mod
 from repro_torch.models.blocks import block_decode, block_forward, block_specs
@@ -175,7 +176,7 @@ def forward_hidden(params, tokens, cfg: ModelConfig,
     ``keep_groups``' layer groups, each under the ``remat`` policy of
     ``remat_loop``. MoE layers run expert parallel over ``mesh``'s
     ``ep_axis`` when given."""
-    h = params.embed[tokens]
+    h = implied.row_out(params.embed[tokens], "vocab")
     if prefix_embeds is not None:
         h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -206,7 +207,8 @@ def ce_chunk(s: int, target: int = 512) -> int:
 
 
 def _xent_chunk(hc, lc, mc, emb, cap):
-    logits = softcap((hc @ emb).float(), cap)
+    logits = softcap((implied.col_in(hc, "vocab") @ emb).float(), cap)
+    implied.rows(logits, "vocab", 3)    # max, sum of exps, gold logit
     m = logits.amax(-1, keepdim=True)
     lse = torch.log(torch.exp(logits - m).sum(-1)) + m[..., 0]
     gold = torch.gather(logits, -1, lc[..., None].long())[..., 0]

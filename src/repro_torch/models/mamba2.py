@@ -19,13 +19,16 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import implied
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import ParamSpec, rms_norm
 
 
 def _dims(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(inner width, heads, state width); a config cut to one position's
+    share (``launch/dryrun.py``) gives its inner width as ``d_inner``."""
     s = cfg.ssm
-    di = s.expand * cfg.d_model
+    di = getattr(s, "d_inner", 0) or s.expand * cfg.d_model
     nh = di // s.head_dim
     return di, nh, s.d_state
 
@@ -103,7 +106,9 @@ def _ssm_inputs(params, x, cfg: ModelConfig, mm, cache=None):
 
 
 def _gate_out(params, y, z, cfg: ModelConfig, mm):
-    y = rms_norm(y * F.silu(z), params.gate_norm, cfg.norm_eps)
+    y = y * F.silu(z)
+    implied.rows(y, "ssm", backward=True)   # the norm's sums over ssm_inner
+    y = rms_norm(y, params.gate_norm, cfg.norm_eps)
     return mm(y, params.out_proj)
 
 
@@ -112,6 +117,8 @@ def mamba_mixer(params, x, cfg: ModelConfig, *, precision: str = "bf16"):
     B, S, D = x.shape
     mm = kops.matmul(precision)
     z, xs4, dt, a, b, c, _, _ = _ssm_inputs(params, x, cfg, mm)
+    # every head reads B and C: their gradients are partial over the heads
+    b, c = implied.col_in(b, "ssm"), implied.col_in(c, "ssm")
     y = kops.ssd(xs4, dt, a, b, c, chunk=cfg.ssm.chunk,
                  d_skip=params.d_skip)
     return _gate_out(params, y.reshape(B, S, -1), z, cfg, mm)

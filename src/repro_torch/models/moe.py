@@ -39,7 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist import collectives
+from repro_torch.dist import collectives, implied
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import ParamSpec
 
@@ -106,11 +106,15 @@ def _route(x2, wg, top_k: int, capacity: int, n_experts: int):
 def _bmm_f32(a, b):
     """``a @ b`` batched with an fp32 output and fp32 sums of the exact
     products (the JAX package's ``preferred_element_type=float32``): on the
-    card cuBLAS writes the fp32 accumulators without rounding them to the
-    inputs' dtype; on the CPU the operands are upcast, which is exact."""
+    card (and on ``meta``, the dry-run's trace of the card's program)
+    cuBLAS writes the fp32 accumulators without rounding them to the
+    inputs' dtype; on the CPU, and where autograd needs the product's
+    gradient (``bmm`` with ``out_dtype`` has no derivative), the operands
+    are upcast, which is exact."""
     if a.dtype == torch.float32:
         return torch.bmm(a, b)
-    if a.device.type == "cuda":
+    grad = torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)
+    if a.device.type in ("cuda", "meta") and not grad:
         return torch.bmm(a, b, out_dtype=torch.float32)
     return torch.bmm(a.float(), b.float())
 
@@ -217,6 +221,42 @@ def _moe_ep(params, x2, cfg: ModelConfig, top_k: int, precision: str,
     return y, aux[coords[0]]
 
 
+def _moe_ep_position(params, x2, cfg: ModelConfig, top_k: int,
+                     precision: str):
+    """One position's program of the expert-parallel region over
+    ``model``, what the dry-run traces (``dist.implied.PLAN`` with ``ep``
+    shards): x2 (T, D) are the tokens the position's batch rows hold
+    (whole over ``model``) and the expert weights its E/m experts. It
+    routes its 1/m of the tokens (all of them when T does not divide),
+    sends E/m experts' rows to each shard and takes m members' rows for
+    its own (the members' buffers are alike under the trace: its own, m
+    times), runs its experts, sends the rows back, combines, and
+    all-gathers its tokens' outputs over ``model``. The exchanges go to
+    ``WIRE`` as ``_moe_ep``'s do."""
+    plan = implied.PLAN
+    m, axes = plan.ep, dict(plan.axes)
+    T = x2.shape[0]
+    split = T % m == 0
+    xs = x2[:T // m] if split else x2
+    buf, flat_slot, gate, keep, aux = _dispatch(params, xs, cfg, top_k)
+    E, C, D = buf.shape
+    el = params.wi_gate.shape[0]
+    nbytes = E * C * D * x2.element_size()
+    collectives.WIRE.log("model", "all_to_all", m, nbytes)
+    xe = torch.cat([buf[:el]] * m, dim=1)                 # (el, m*C, D)
+    ye = _expert_ffn(xe, params.wi_gate, params.wi_up, params.wo, precision)
+    collectives.WIRE.log("model", "all_to_all", m, nbytes)
+    back = torch.cat([ye[:, :C]] * (E // el), dim=0)      # (E, C, D)
+    y = _combine(back, flat_slot, gate, keep, x2.dtype)
+    for ax in (tuple(axes) if split else ("model",)):
+        collectives.WIRE.log(ax, "all_reduce", axes[ax], aux.element_size())
+    if split:
+        implied.record("all-gather", y.numel() * y.element_size() * m,
+                       "model", m)
+        y = torch.cat([y] * m, dim=0)
+    return y, aux
+
+
 def moe(params, x, cfg: ModelConfig, *, top_k: int = 0,
         precision: str = "bf16", ep_axis: Optional[str] = None, mesh=None,
         routing=None):
@@ -230,6 +270,9 @@ def moe(params, x, cfg: ModelConfig, *, top_k: int = 0,
     B, S, D = x.shape
     top_k = top_k or cfg.moe.top_k
     x2 = x.reshape(-1, D)
+    if implied.PLAN is not None and implied.PLAN.ep > 1:
+        y, aux = _moe_ep_position(params, x2, cfg, top_k, precision)
+        return y.reshape(B, S, D), aux
     if ep_axis is not None and mesh is not None:
         T = B * S
         n_all = math.prod(mesh.shape.values())

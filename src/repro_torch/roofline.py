@@ -1,21 +1,110 @@
-"""Analytic model FLOPs, admission and decode terms, and the NVIDIA H100
-(SXM) roofline constants.
+"""The three-term roofline of a dry-run cell, analytic model FLOPs,
+admission and decode terms, and the NVIDIA H100 (SXM) roofline constants.
 
 Counterpart of the JAX package's ``roofline.py``: ``model_flops``,
-``admission_terms`` and ``decode_min_bytes`` are copied as they are; the
-constants are the H100's (NVIDIA data sheet, dense rates at the 700 W
-power limit) where the JAX package has a TPU's, so the seconds differ
-while the FLOP and byte terms agree. The explorer's ``rel_time`` is a
-ratio of two times priced with the same constants, so the serving ladder
-does not depend on them. The dry-run's HLO accounting
-(``collective_bytes`` and the compiled terms) waits with the dry-run.
+``admission_terms``, ``decode_min_bytes``, ``RooflineTerms`` and
+``terms_from_artifact`` are copied as they are; the constants are the
+H100's (NVIDIA data sheet, dense rates at the 700 W power limit) where the
+JAX package has a TPU's, so the seconds differ while the FLOP and byte
+terms agree. The explorer's ``rel_time`` is a ratio of two times priced
+with the same constants, so the serving ladder does not depend on them.
+
+    compute term    = FLOPs / the peak of the cell's compute dtype
+    memory term     = bytes accessed / HBM_BW
+    collective term = wire bytes / LINK_BW
+
+all of one position's program (``launch/dryrun.py`` traces one), so no
+division by the position count. ``collective_bytes`` takes the trace's
+collective records (``repro_torch.cost``) where the JAX package parses
+HLO text, and applies the JAX package's ring coefficients unchanged.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Dict, Iterable
+
 PEAK_FLOPS = 989e12        # bf16 / fp16 tensor cores, dense
+PEAK_FP32_FLOPS = 67e12    # fp32 on the CUDA cores
 PEAK_INT8_OPS = 1979e12    # int8 tensor cores, dense
 HBM_BW = 3.35e12           # bytes/s
 LINK_BW = 450e9            # NVLink bytes/s each way, per card
+
+# ring-model wire bytes per device, as a multiple of the payload (the JAX
+# package's ``_WIRE_COEF``)
+_WIRE_COEF = {
+    "all-gather": 1.0,        # receives the full result
+    "all-reduce": 2.0,        # reduce-scatter + all-gather
+    "reduce-scatter": 1.0,
+    "all-to-all": 1.0,
+    "ragged-all-to-all": 1.0,
+    "collective-permute": 1.0,
+}
+
+
+def peak_flops(compute: str) -> float:
+    """The peak of a cell's compute dtype: "bf16", "fp32" or "int8"."""
+    return {"bf16": PEAK_FLOPS, "fp32": PEAK_FP32_FLOPS,
+            "int8": PEAK_INT8_OPS}[compute]
+
+
+def collective_bytes(records: Iterable) -> Dict[str, float]:
+    """Wire bytes a position sends, by collective kind, from the trace's
+    collective records (``cost.CollectiveRecord``: ``kind`` and
+    ``payload``, the payload as the JAX package's HLO parser takes it:
+    the larger of result and operands), each times its ring
+    coefficient."""
+    out: Dict[str, float] = {}
+    for r in records:
+        out[r.kind] = out.get(r.kind, 0.0) + _WIRE_COEF[r.kind] * r.payload
+    return out
+
+
+@dataclass
+class RooflineTerms:
+    compute_s: float
+    memory_s: float
+    collective_s: float
+    model_flops_per_chip: float
+    hlo_flops: float
+    peak: float = PEAK_FLOPS
+
+    @property
+    def dominant(self) -> str:
+        terms = {"compute": self.compute_s, "memory": self.memory_s,
+                 "collective": self.collective_s}
+        return max(terms, key=terms.get)
+
+    @property
+    def bound_s(self) -> float:
+        return max(self.compute_s, self.memory_s, self.collective_s)
+
+    @property
+    def useful_ratio(self) -> float:
+        """Model FLOPs / counted FLOPs: the remat and redundancy waste."""
+        return self.model_flops_per_chip / max(self.hlo_flops, 1.0)
+
+    @property
+    def roofline_fraction(self) -> float:
+        """Useful-compute time / bound time: the score."""
+        useful_s = self.model_flops_per_chip / self.peak
+        return useful_s / max(self.bound_s, 1e-30)
+
+
+def terms_from_artifact(art: dict, model_flops_total: float,
+                        n_chips: int, compute: str = "bf16"
+                        ) -> RooflineTerms:
+    """The terms of a dry-run artifact (either package's), the compute
+    term at ``compute``'s peak."""
+    peak = peak_flops(compute)
+    wire = sum(art.get("collectives", {}).values())
+    return RooflineTerms(
+        compute_s=art["flops"] / peak,
+        memory_s=art["bytes_accessed"] / HBM_BW,
+        collective_s=wire / LINK_BW,
+        model_flops_per_chip=model_flops_total / n_chips,
+        hlo_flops=art["flops"],
+        peak=peak,
+    )
 
 
 def model_flops(cfg, shape, knobs=None) -> float:

@@ -50,7 +50,8 @@ from repro_torch.models import lm as lm_mod
 from repro_torch.train import optim
 
 
-def grad_reduce_for(knobs: ApproxKnobs, mesh, pspecs=None, stacks=None):
+def grad_reduce_for(knobs: ApproxKnobs, mesh, pspecs=None, stacks=None,
+                    blocks: bool = False):
     """The owned gradient-sync region a (knobs, mesh) pair calls for: a
     {name: grad} -> {name: grad} callable running
     ``collectives.grad_sync``, or None when there is nothing to own:
@@ -65,8 +66,9 @@ def grad_reduce_for(knobs: ApproxKnobs, mesh, pspecs=None, stacks=None):
 
     ``stacks`` (``TrainStep`` passes ``convert.jax_path`` of its config)
     runs the region on the leaves stacked as the JAX package stacks them,
-    so the int8 wire's scales are the JAX region's. The callable exposes
-    ``.pod_wire`` and ``.compress``."""
+    so the int8 wire's scales are the JAX region's. ``blocks``: the
+    gradients are one position's blocks (the dry-run's trace). The
+    callable exposes ``.pod_wire`` and ``.compress``."""
     shape = getattr(mesh, "shape", {}) if mesh is not None else {}
     if "data" not in shape and "pod" not in shape:
         return None
@@ -76,7 +78,7 @@ def grad_reduce_for(knobs: ApproxKnobs, mesh, pspecs=None, stacks=None):
     def reduce_fn(g):
         return collectives.grad_sync(g, mesh, pod_wire=pod_wire,
                                      compress=compress, pspecs=pspecs,
-                                     stacks=stacks)
+                                     stacks=stacks, blocks=blocks)
     reduce_fn.pod_wire = pod_wire
     reduce_fn.compress = compress
     return reduce_fn
@@ -109,7 +111,10 @@ class TrainStep:
     """One variant's eager train step: ``step(params, opt, batch) ->
     (params, opt, metrics)``, the parameters and moments updated in place.
     ``body`` is the step's device work on given tensors, which
-    ``GraphedTrainStep`` captures."""
+    ``GraphedTrainStep`` captures. ``gather``, None unless the dry-run
+    traces one position, maps the parameters a position holds to the
+    tensors its forward reads (``launch/dryrun.py``: the all-gathered
+    leaves); the gradients are taken with respect to the parameters."""
 
     def __init__(self, cfg: ModelConfig, knobs: ApproxKnobs,
                  opt_cfg: optim.OptConfig, n_micro: int, remat: str,
@@ -122,10 +127,12 @@ class TrainStep:
             knobs, mesh, param_pspecs,
             stacks=functools.partial(jax_path, cfg=cfg))
         self._loss_fn = api.loss_fn(cfg)
+        self.gather = None
 
     def _grad(self, params, batch):
         named = dict(params.named_parameters())
-        loss, metrics = self._loss_fn(params, batch, knobs=self.knobs,
+        fwd = params if self.gather is None else self.gather(params)
+        loss, metrics = self._loss_fn(fwd, batch, knobs=self.knobs,
                                       ep_axis=self.ep_axis, mesh=self.mesh,
                                       remat=self.remat)
         grads = torch.autograd.grad(loss, list(named.values()),

@@ -224,8 +224,9 @@ def test_quantize_rows_is_the_plain_quantization():
     for a, b in zip(qr.quantize_rows(x), t_ref.quantize_rowwise(x)):
         assert torch.equal(a, b)
     assert qr.launches == before
+    from _torch_elsewhere import elsewhere
     with pytest.raises(ValueError):
-        qr.quantize_rows(torch.empty((2, 4), device="meta"))
+        qr.quantize_rows(elsewhere(torch.empty((2, 4))))
 
 
 def test_dead_weights_leave_the_cache(empty_cache):

@@ -69,7 +69,9 @@ def test_port_imports_with_jax_blocked():
 def test_entry_points_refuse_without_cuda(monkeypatch):
     """``device`` defaults to CUDA: without it the engine, the model init and
     the serving, training and colocation drivers raise instead of running
-    on the CPU."""
+    on the CPU. The dry-run (``launch/dryrun.py``) is the exception: its
+    positions are ``meta`` by nature, as the JAX package's are forced host
+    devices, so it touches no CUDA and runs here."""
     from repro_torch.configs import get_config
     from repro_torch.launch import colocate, serve, train
     from repro_torch.models.lm import init_lm
@@ -90,6 +92,12 @@ def test_entry_points_refuse_without_cuda(monkeypatch):
     eng = ServeEngine(cfg, batch_slots=2, max_len=32, params=params,
                       device="cpu")
     assert eng.device.type == "cpu"
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    got = dryrun.trace_cell(get_config("mamba2-780m-smoke"),
+                            ShapeConfig("t", 32, 32, "train"),
+                            dryrun.make_production_mesh(), dryrun.PRECISE)
+    assert got["flops"] > 0 and got["argument_bytes"] > 0
 
 
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):

@@ -174,12 +174,14 @@ def test_quantized_matmul_matches_ref():
 
 def test_wrappers_raise_instead_of_falling_back():
     """A tensor that is not on the CPU goes to the kernel or raises: here a
-    meta tensor is refused, and without CUDA loading the kernels raises
-    rather than handing the call to the plain version."""
+    tensor on another device than the CPU, CUDA or ``meta`` (the dry-run's
+    trace, which takes the card's path up to the launch) is refused, and
+    without CUDA loading the kernels raises rather than handing the call
+    to the plain version."""
+    from _torch_elsewhere import elsewhere
     if torch.cuda.is_available():
         pytest.skip("a CUDA machine builds the kernels instead")
-    meta = lambda *s, dt=torch.float32: torch.empty(s, dtype=dt,
-                                                    device="meta")
+    meta = lambda *s, dt=torch.float32: elsewhere(torch.empty(s, dtype=dt))
     with pytest.raises(ValueError):
         t_i8.int8_matmul(meta(2, 4, dt=torch.int8), meta(2, 1),
                          meta(4, 3, dt=torch.int8), meta(1, 3))

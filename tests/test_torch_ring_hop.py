@@ -156,7 +156,8 @@ def test_ring_hop_step_rejects(kind, match):
 
 
 def test_ring_hop_step_rejects_other_devices():
-    arrs = [torch.zeros(2, *t.shape[1:], dtype=t.dtype, device="meta")
+    from _torch_elsewhere import elsewhere
+    arrs = [elsewhere(torch.zeros(2, *t.shape[1:], dtype=t.dtype))
             for t in _bad_step("none")[0]]
     with pytest.raises(ValueError, match="CPU or CUDA"):
         ra.ring_hop_step(*arrs, [(0, 1)])

@@ -181,8 +181,9 @@ def test_ssd_scan_function_gradcheck_fp64():
 def test_ssd_scan_rejects_what_the_kernel_does_not_take():
     """A non-CPU, non-CUDA tensor raises; it never falls back."""
     x, dt, a, b, c = (torch.tensor(t) for t in _case(1, 16, 1, 4, 4))
+    from _torch_elsewhere import elsewhere
     with pytest.raises(ValueError, match="CPU or CUDA"):
-        tss._launch(x.to("meta"), dt, a, b, c, 16)
+        tss._launch(elsewhere(x), dt, a, b, c, 16)
 
 
 def test_jax_ssd_scan_kernel_has_no_gradient():

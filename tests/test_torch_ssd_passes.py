@@ -189,8 +189,9 @@ def test_splits_cover_every_head_once(B, nc, H, Q, N):
 def test_backward_rejects_what_the_kernels_do_not_take():
     """A non-CPU, non-CUDA tensor raises; it never falls back."""
     x, dt, a, b, c = (torch.tensor(t) for t in _case(1, 16, 1, 4, 4))
+    from _torch_elsewhere import elsewhere
     with pytest.raises(ValueError, match="CPU or CUDA"):
-        tss._launch_backward(x.to("meta"), dt, a, b, c, x.to("meta"), 16)
+        tss._launch_backward(elsewhere(x), dt, a, b, c, elsewhere(x), 16)
 
 
 @pytest.mark.cuda
